@@ -1,0 +1,59 @@
+"""Carry state from the JAX package's layouts into the port's.
+
+The caller hands in numpy arrays (this module never imports JAX):
+
+  * ``lm_params_from_jax`` — the reference's LM parameter tree (layers
+    stacked along a leading [L] axis, matrices laid out for ``x @ W``) ->
+    a ``state_dict`` for ``models.transformer.LM`` (one module per layer,
+    ``nn.Linear`` weights ``[out, in]``, hence the transposes);
+  * ``device_graph_from_host`` — any host HNSW graph with the reference's
+    fields (vectors, neighbors0, upper, levels, entry, max_level, metric)
+    -> a ``DeviceGraph`` on ``device``. The graph is this system's
+    "weights": a graph built by the reference's numpy builder searches
+    here unchanged.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import hnsw as thnsw
+from repro_torch.core.hnsw_build import HNSWGraph
+
+_LINEARS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
+
+
+def lm_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """Nested dict of numpy arrays in the reference's ``init_lm`` layout
+    -> ``LM.state_dict()``-shaped dict of CPU tensors. Dense layers only."""
+    def t(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a))
+
+    layers = params["layers"]
+    if "router" in layers:
+        raise NotImplementedError(
+            "MoE layers are not ported yet (ROADMAP.md §1 item 12)")
+    sd = {"embed.weight": t(params["embed"]),
+          "final_norm": t(params["final_norm"])}
+    n_layers = np.asarray(layers["attn_norm"]).shape[0]
+    for i in range(n_layers):
+        sd[f"layers.{i}.attn_norm"] = t(np.asarray(layers["attn_norm"])[i])
+        sd[f"layers.{i}.ffn_norm"] = t(np.asarray(layers["ffn_norm"])[i])
+        for name in _LINEARS:
+            sd[f"layers.{i}.{name}.weight"] = t(np.asarray(layers[name])[i].T)
+    if "out_head" in params:
+        sd["out_head.weight"] = t(np.asarray(params["out_head"]).T)
+    return sd
+
+
+def device_graph_from_host(g, deleted: np.ndarray | None = None, *,
+                           device) -> thnsw.DeviceGraph:
+    """Upload a host HNSW graph (the port's ``HNSWGraph`` or any object
+    with the same fields) to ``device``."""
+    host = HNSWGraph(vectors=np.asarray(g.vectors, np.float32),
+                     neighbors0=np.asarray(g.neighbors0, np.int32),
+                     upper=np.asarray(g.upper, np.int32),
+                     levels=np.asarray(g.levels, np.int32),
+                     entry=int(g.entry), max_level=int(g.max_level),
+                     metric=str(g.metric), n=int(getattr(g, "n", 0)))
+    return thnsw.to_device_graph(host, deleted, device=device)

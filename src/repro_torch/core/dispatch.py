@@ -1,0 +1,55 @@
+"""Named host-side counters for launch and sync economics.
+
+Tests, benches and ``chip_smoke.py`` read these to show what a run
+submitted: ``hnsw.search_graph`` searches, ``hnsw.beam_launches`` layer-0
+beam launches, ``hnsw.h2d_bytes`` host-to-device graph bytes,
+``hnsw.host_syncs`` device-to-host waits in the search's Python loops,
+and one counter per hand kernel (``kernel.gather_distance``,
+``kernel.beam_search``, ``kernel.flash_decode``) that ``kernels.ops``
+bumps where it launches the kernel and nowhere else — the CPU branch,
+which runs the plain PyTorch version, never counts.
+
+Counters are bumped at the Python boundary. Not thread-safe by design:
+the serving layer serializes device work onto one dispatcher.
+"""
+from __future__ import annotations
+
+from collections import defaultdict
+
+_COUNTS: defaultdict[str, int] = defaultdict(int)
+
+KERNEL_COUNTERS = ("kernel.gather_distance", "kernel.beam_search",
+                   "kernel.flash_decode")
+
+
+def bump(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` (created at 0 on first use)."""
+    _COUNTS[name] += int(n)
+
+
+def get(name: str) -> int:
+    return _COUNTS[name]
+
+
+def reset(*names: str) -> None:
+    """Reset the given counters, or ALL counters when called bare."""
+    if names:
+        for name in names:
+            _COUNTS.pop(name, None)
+    else:
+        _COUNTS.clear()
+
+
+def snapshot() -> dict[str, int]:
+    return dict(_COUNTS)
+
+
+def beam_launches(beam_impl: str, ef: int,
+                  max_iters: int | None = None) -> int:
+    """Device launches one search contributes on the layer-0 beam path:
+    ``fused`` is ONE kernel launch; ``jnp`` (the per-hop reference, name
+    kept from the JAX package) re-dispatches the gather + sort work every
+    hop, bounded by ``max_iters`` (default ef)."""
+    if beam_impl == "fused":
+        return 1
+    return max(int(ef if max_iters is None else max_iters), 1)

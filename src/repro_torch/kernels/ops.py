@@ -1,0 +1,216 @@
+"""Public wrappers for the kernel layer, dispatched by the tensors' device.
+
+A CUDA tensor goes to the hand kernel (``kernels/csrc/*.cu``, built at
+first use by ``kernels.build``); a CPU tensor goes to the plain PyTorch
+version in ``kernels.ref``. There is no switch that sends CUDA tensors to
+the plain version, and no build or launch failure is caught: a kernel
+that cannot build or launch raises.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates the
+outputs with ``torch.empty``, launches on the current stream, raises the
+launch error, and bumps its ``kernel.<name>`` counter (core/dispatch.py)
+on the kernel branch only. This slice ports the fp32 row path; encoded
+(bf16/int8) rows raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import dispatch
+from repro_torch.kernels import build
+from repro_torch.kernels import ref as _ref
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# kernel name -> (C symbol, argtypes)
+_SIGS = {
+    "gather_distance": ("gather_distance_f32",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "beam_search": ("beam_search_f32",
+                    [_P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_decode": ("flash_decode_f32",
+                     [_P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+}
+_FNS: dict[str, tuple] = {}
+
+
+def _kernel(name: str):
+    """-> (C function, error-string function) of kernel ``name``."""
+    fns = _FNS.get(name)
+    if fns is None:
+        lib = build.library(name)
+        sym, argtypes = _SIGS[name]
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err = lib.kernel_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        fns = _FNS[name] = (fn, err)
+    return fns
+
+
+def _launch(name: str, *args) -> None:
+    fn, err = _kernel(name)
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{err(rc).decode()} (cudaError {rc})")
+    dispatch.bump(f"kernel.{name}")
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device, False when all lie
+    on the CPU; anything else raises."""
+    types = {t.device.type for t in tensors}
+    if types == {"cpu"}:
+        return False
+    devs = {t.device for t in tensors}
+    if types == {"cuda"} and len(devs) == 1:
+        return True
+    raise ValueError(f"kernel inputs on mixed devices: {sorted(map(str, devs))}")
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
+    if t.dtype != dtype:
+        if name == "vectors" and t.dtype in (torch.bfloat16, torch.int8):
+            raise NotImplementedError(
+                "encoded rows are not ported yet (ROADMAP.md §1: bf16/int8 "
+                "variants of the three kernels plus codec.py)")
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _vec4(vectors: torch.Tensor) -> int:
+    """1 when the rows can be read as 16-byte float4s: D % 4 == 0 and a
+    16-byte-aligned base (a sliced view may not be)."""
+    return int(vectors.shape[1] % 4 == 0 and vectors.data_ptr() % 16 == 0)
+
+
+def _metric_code(metric: str) -> int:
+    if metric not in _ref.METRICS:
+        raise ValueError(f"unknown metric {metric!r}; expected one of "
+                         f"{_ref.METRICS}")
+    return 1 if metric == "l2" else 0
+
+
+# ---------------------------------------------------------------------------
+def gather_distance(vectors: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
+                    *, metric: str = "cosine") -> torch.Tensor:
+    """Fused gather + distance: vectors [N,D], q [B,D], ids [B,K] -> [B,K]
+    f32 (``1 - <q,x>`` for cosine/ip, squared L2 for l2). Callers
+    pre-clip ids to [0, N) and mask invalid slots after the call."""
+    l2 = _metric_code(metric)
+    if not _on_cuda(vectors, q, ids):
+        return _ref.gather_distance_ref(vectors, q, ids, metric=metric)
+    _check(vectors, "vectors", torch.float32, 2)
+    _check(q, "q", torch.float32, 2)
+    _check(ids, "ids", torch.int32, 2)
+    n, d = vectors.shape
+    b, k = ids.shape
+    if q.shape != (b, d):
+        raise ValueError(f"q {tuple(q.shape)} does not match ids {b} x D {d}")
+    out = torch.empty((b, k), dtype=torch.float32, device=q.device)
+    if b * k:
+        with torch.cuda.device(q.device):
+            _launch("gather_distance", _ptr(vectors), _ptr(q), _ptr(ids),
+                    _ptr(out), b, k, d, n, l2, _vec4(vectors), _stream(q))
+    return out
+
+
+def beam_search(vectors: torch.Tensor, neighbors0: torch.Tensor,
+                q: torch.Tensor, ep: torch.Tensor, ep_dist: torch.Tensor, *,
+                ef: int, metric: str = "cosine", expand_t: int = 4,
+                max_iters: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whole layer-0 ef-beam HNSW search in ONE launch: per hop, the top
+    ``expand_t`` unexpanded beam entries expand together (neighbor gather,
+    dedup, fused row distance, bitonic merge). vectors [N,D], neighbors0
+    [N,2M] i32, q [B,D], ep/ep_dist [B] -> (ids [B,ef] i32, dists [B,ef]
+    f32) ascending by (d, id), empty slots (-1, INF)."""
+    l2 = _metric_code(metric)
+    if not _on_cuda(vectors, neighbors0, q, ep, ep_dist):
+        return _ref.beam_search_ref(vectors, neighbors0, q, ep, ep_dist,
+                                    ef=ef, metric=metric, expand_t=expand_t,
+                                    max_iters=max_iters)
+    _check(vectors, "vectors", torch.float32, 2)
+    _check(neighbors0, "neighbors0", torch.int32, 2)
+    _check(q, "q", torch.float32, 2)
+    _check(ep, "ep", torch.int32, 1)
+    _check(ep_dist, "ep_dist", torch.float32, 1)
+    n, d = vectors.shape
+    m2 = neighbors0.shape[1]
+    b = q.shape[0]
+    if neighbors0.shape[0] != n or q.shape[1] != d or ep.shape != (b,) \
+            or ep_dist.shape != (b,):
+        raise ValueError("beam_search: inconsistent shapes")
+    ef = int(ef)
+    t, budget, hops = _ref.beam_schedule(ef, expand_t, max_iters)
+    efp = _ref.next_pow2(ef)
+    ids = torch.empty((b, ef), dtype=torch.int32, device=q.device)
+    dists = torch.empty((b, ef), dtype=torch.float32, device=q.device)
+    if b:
+        with torch.cuda.device(q.device):
+            _launch("beam_search", _ptr(vectors), _ptr(neighbors0), _ptr(q),
+                    _ptr(ep), _ptr(ep_dist), _ptr(ids), _ptr(dists), b, n, d, m2, ef, efp, t, budget, hops, l2,
+                    _vec4(vectors), _stream(q))
+    return ids, dists
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cur_len) -> torch.Tensor:
+    """Decode attention: q [B,H,Dh], k/v [B,S,KVH,Dh] -> [B,H,Dh] f32.
+    ``cur_len`` is a scalar or a per-sequence [B] vector of live prefix
+    lengths (continuous batching: one launch serves slots at different
+    depths)."""
+    if not _on_cuda(q, k, v):
+        return _ref.flash_decode_ref(q, k, v, cur_len)
+    _check(q, "q", torch.float32, 3)
+    _check(k, "k", torch.float32, 4)
+    _check(v, "v", torch.float32, 4)
+    b, h, dh = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    if k.shape != (b, s, kvh, dh) or v.shape != k.shape or h % kvh:
+        raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match "
+                         f"k/v {tuple(k.shape)}")
+    cur = torch.as_tensor(cur_len, dtype=torch.int32, device=q.device)
+    cur = cur.reshape(-1).expand(b).contiguous()
+    splits, chunk = _flash_splits(b * kvh, s, q.device)
+    out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((b, h, splits, dh), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b, h, splits, 2), dtype=torch.float32,
+                          device=q.device)
+    if b:
+        with torch.cuda.device(q.device):
+            _launch("flash_decode", _ptr(q), _ptr(k), _ptr(v), _ptr(cur),
+                    _ptr(out), _ptr(part_acc), _ptr(part_ml), b, h, s, kvh,
+                    dh, splits, chunk, dh ** -0.5, _stream(q))
+    return out
+
+
+def _flash_splits(pairs: int, s: int, device) -> tuple[int, int]:
+    """-> (splits, chunk): cut the S positions of each (b, kv head) into
+    ``splits`` slices of ``chunk`` positions so that about eight blocks per
+    SM are in flight, slices being whole 32-position tiles of the kernel."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    target = -(-8 * sms // max(pairs, 1))
+    chunk = -(-max(-(-s // target), 1) // 32) * 32
+    return -(-s // chunk), chunk

@@ -1,0 +1,260 @@
+"""Plain PyTorch versions of every hand kernel (the correctness contract).
+
+Each function here is the port of its jnp oracle in ``repro/kernels/ref.py``
+and computes the same function the same way: the CPU tests hold these
+against the JAX package's oracles, and ``chip_smoke.py`` holds every CUDA
+kernel against these on the card. ``kernels.ops`` runs them for tensors
+that lie on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+# == core.hnsw.INF (empty-slot distance)
+BEAM_INF = 3.0e38
+
+METRICS = ("cosine", "ip", "l2")
+
+
+def gather_distance_ref(vectors: torch.Tensor, q: torch.Tensor,
+                        ids: torch.Tensor, *,
+                        metric: str = "cosine") -> torch.Tensor:
+    """vectors [N,D], q [B,D], ids [B,K] (valid, clamped) -> dists [B,K]:
+    ``1 - <q, x>`` for cosine/ip, squared L2 otherwise, in fp32."""
+    x = vectors[ids.long()].float()                      # [B,K,D]
+    qf = q.float()
+    if metric in ("cosine", "ip"):
+        return 1.0 - torch.einsum("bd,bkd->bk", qf, x)
+    d = x - qf[:, None, :]
+    return torch.einsum("bkd,bkd->bk", d, d)
+
+
+# ---------------------------------------------------------------------------
+# fused beam search: shared algorithm + plain version
+# ---------------------------------------------------------------------------
+def next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
+
+
+def _roll_pair(a: torch.Tensor, lower: torch.Tensor, stride: int):
+    return torch.where(lower, torch.roll(a, -stride, -1),
+                       torch.roll(a, stride, -1))
+
+
+def _compare_exchange(d, i, x, stride: int, asc_mask):
+    """One bitonic compare-exchange stage on (dist, id, payload) triples
+    along the last axis, ordered by the two-key (d, id) compare.
+    ``asc_mask`` [W] is each position's block direction; the partner of
+    position p is p ^ stride."""
+    lower = (torch.arange(d.shape[-1], device=d.device) & stride) == 0
+    pd = _roll_pair(d, lower, stride)
+    pi = _roll_pair(i, lower, stride)
+    px = _roll_pair(x, lower, stride)
+    le = (d < pd) | ((d == pd) & (i <= pi))
+    keep = torch.where(lower == asc_mask, le, ~le)
+    return (torch.where(keep, d, pd), torch.where(keep, i, pi),
+            torch.where(keep, x, px))
+
+
+def bitonic_sort(d, i, x, *, ascending: bool = True):
+    """Full bitonic sort along the last axis (power-of-two width) by the
+    two-key (d, id) order — the network the CUDA kernel runs in shared
+    memory."""
+    w = d.shape[-1]
+    idx = torch.arange(w, device=d.device)
+    size = 2
+    while size <= w:
+        asc_mask = ((idx & size) == 0) == bool(ascending)
+        stride = size // 2
+        while stride:
+            d, i, x = _compare_exchange(d, i, x, stride, asc_mask)
+            stride //= 2
+        size *= 2
+    return d, i, x
+
+
+def bitonic_merge(d, i, x):
+    """Bitonic merge: a bitonic input along the last axis (power-of-two
+    width) sorts ascending in log W compare-exchange stages."""
+    asc = torch.ones(d.shape[-1], dtype=torch.bool, device=d.device)
+    stride = d.shape[-1] // 2
+    while stride:
+        d, i, x = _compare_exchange(d, i, x, stride, asc)
+        stride //= 2
+    return d, i, x
+
+
+def beam_select_frontier(bd, bi, bx, t_live, t: int):
+    """Mark the first ``t_live`` (<= t) unexpanded entries of the
+    (ascending-sorted) beam as expanded and extract their node ids.
+    Returns (new_bx, nodes [B, t] with -1 for unfilled slots). An entry's
+    rank among unexpanded entries is the exclusive prefix count."""
+    unexp = (~bx) & (bi >= 0)
+    u = unexp.to(torch.int32)
+    rank = torch.cumsum(u, dim=-1, dtype=torch.int32) - u
+    sel = unexp & (rank < t_live)
+    neg = torch.full_like(bi, -1)
+    nodes = torch.stack(
+        [torch.where(sel & (rank == j), bi, neg).amax(dim=-1)
+         for j in range(t)], dim=-1)
+    return bx | sel, nodes
+
+
+def beam_dedup_valid(cand, valid, bi):
+    """Drop candidates already in the beam, or duplicated EARLIER in the
+    flat candidate list (keep the first valid copy)."""
+    w = cand.shape[-1]
+    in_beam = (cand[:, :, None] == bi[:, None, :]).any(dim=-1)
+    eq = cand[:, :, None] == cand[:, None, :]
+    ar = torch.arange(w, device=cand.device)
+    earlier = ar[:, None] > ar[None, :]
+    dup = (eq & earlier[None] & valid[:, None, :]).any(dim=-1)
+    return valid & ~in_beam & ~dup
+
+
+def lexsort2(d, i, x):
+    """Sort (d, i, x) along the last axis by the two-key (d, i) order:
+    a stable sort by the minor key, then a stable sort by the major."""
+    o = torch.sort(i, dim=-1, stable=True).indices
+    d, i, x = (torch.gather(d, -1, o), torch.gather(i, -1, o),
+               torch.gather(x, -1, o))
+    o = torch.sort(d, dim=-1, stable=True).indices
+    return (torch.gather(d, -1, o), torch.gather(i, -1, o),
+            torch.gather(x, -1, o))
+
+
+def beam_merge(bd, bi, bx, cd, ci, ef: int, use_bitonic: bool = True):
+    """One-hop beam merge: bitonic-sort the candidates DESCENDING, glue
+    them after the already-ascending beam (+ an INF plateau up to the
+    next power of two) — bitonic by construction — and run one bitonic
+    merge. Entries past ``ef`` reset to (INF, -1, expanded).
+
+    ``use_bitonic=False`` sorts the plain concatenation instead —
+    output-identical (live (d, id) keys are unique after dedup; ties
+    exist only among (INF, -1) pads, whose expanded bit is never read)."""
+    b, efp = bd.shape
+    w = cd.shape[-1]
+    dev = bd.device
+    live = torch.arange(efp, device=dev) < ef
+    if not use_bitonic:
+        md = torch.cat([bd, cd], dim=-1)
+        mi = torch.cat([bi, ci], dim=-1)
+        mx = torch.cat([bx, torch.zeros((b, w), dtype=torch.bool,
+                                        device=dev)], dim=-1)
+        md, mi, mx = lexsort2(md, mi, mx)
+    else:
+        wp = next_pow2(w)
+        if wp > w:
+            cd = torch.cat([cd, torch.full((b, wp - w), BEAM_INF,
+                                           device=dev)], dim=-1)
+            ci = torch.cat([ci, torch.full((b, wp - w), -1,
+                                           dtype=ci.dtype, device=dev)],
+                           dim=-1)
+        cx = torch.zeros((b, wp), dtype=torch.bool, device=dev)
+        cd, ci, cx = bitonic_sort(cd, ci, cx, ascending=False)
+        pad = next_pow2(efp + wp) - efp - wp
+        md = torch.cat([bd, torch.full((b, pad), BEAM_INF, device=dev), cd],
+                       dim=-1)
+        mi = torch.cat([bi, torch.full((b, pad), -1, dtype=bi.dtype,
+                                       device=dev), ci], dim=-1)
+        mx = torch.cat([bx, torch.ones((b, pad), dtype=torch.bool,
+                                       device=dev), cx], dim=-1)
+        md, mi, mx = bitonic_merge(md, mi, mx)
+    return (torch.where(live, md[:, :efp], BEAM_INF),
+            torch.where(live, mi[:, :efp], -1),
+            torch.where(live, mx[:, :efp], True))
+
+
+def beam_schedule(ef: int, expand_t: int,
+                  max_iters: int | None) -> tuple[int, int, int]:
+    """-> (t, budget, hops) of the fused layer-0 beam.
+
+    ``expand_t`` frontier nodes expand per hop against a TOTAL budget of
+    ``max_iters`` expansions (default ef, plus one slack hop when t > 1),
+    so hops = ceil(budget / t) with the last hop truncated — exactly
+    ``repro/kernels/beam_search.py:_call``."""
+    t = max(1, min(int(expand_t), int(ef)))
+    budget = ((int(ef) + (t if t > 1 else 0)) if max_iters is None
+              else int(max_iters))
+    hops = -(-budget // t) if budget > 0 else 0
+    return t, budget, hops
+
+
+def beam_search_ref(vectors: torch.Tensor, neighbors0: torch.Tensor,
+                    q: torch.Tensor, ep: torch.Tensor, ep_dist: torch.Tensor,
+                    *, ef: int, metric: str = "cosine", expand_t: int = 4,
+                    max_iters: int | None = None,
+                    return_visited: bool = False):
+    """Plain version of the fused layer-0 ef-beam search: frontier
+    selection, dedup and merge per hop, with the row gather done by
+    ``gather_distance_ref``. vectors [N, D], neighbors0 [N, 2M] i32 (-1
+    pad), q [B, D] f32, ep/ep_dist [B] -> (ids [B, ef] i32, dists [B, ef]
+    f32) ascending by (d, id); empty slots (-1, INF). At expand_t=1 the
+    visit order is the one-at-a-time ``core.hnsw._beam_search`` order.
+
+    ``return_visited`` adds a third result, the work the search needs:
+    ``rows`` (bool [N], rows whose distance some query needed — valid
+    candidates after dedup), ``lists`` (bool [N], nodes some query
+    expanded) and ``pairs`` (the (query, row) distances computed)."""
+    b = q.shape[0]
+    n, m2 = neighbors0.shape
+    dev = q.device
+    t, budget, hops = beam_schedule(ef, expand_t, max_iters)
+    efp = next_pow2(ef)
+    col = torch.arange(efp, device=dev)[None, :]
+    bd = torch.where(col == 0, ep_dist[:, None].float(),
+                     torch.tensor(BEAM_INF, device=dev))
+    bi = torch.where(col == 0, ep[:, None].to(torch.int32),
+                     torch.tensor(-1, dtype=torch.int32, device=dev))
+    bx = (col != 0).expand(b, efp)
+    rows = torch.zeros(n, dtype=torch.bool, device=dev)
+    lists = torch.zeros(n, dtype=torch.bool, device=dev)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    hop = 0
+    while hop < hops and bool(((~bx) & (bi >= 0)).any()):
+        t_live = min(t, budget - hop * t)
+        bx, nodes = beam_select_frontier(bd, bi, bx, t_live, t)
+        nbrs = neighbors0[nodes.clamp(0, n - 1).long()]         # [B, t, 2M]
+        valid = ((nodes >= 0)[:, :, None] & (nbrs >= 0)).reshape(b, t * m2)
+        cand = nbrs.clamp(0, n - 1).reshape(b, t * m2)
+        d = gather_distance_ref(vectors, q, cand, metric=metric)
+        valid = beam_dedup_valid(cand, valid, bi)
+        cd = torch.where(valid, d, BEAM_INF)
+        ci = torch.where(valid, cand, -1).to(torch.int32)
+        if return_visited:
+            lists[nodes[nodes >= 0].clamp(0, n - 1).long()] = True
+            rows[cand[valid].long()] = True
+            pairs += valid.sum()
+        bd, bi, bx = beam_merge(bd, bi, bx, cd, ci, int(ef),
+                                use_bitonic=False)
+        hop += 1
+    if return_visited:
+        return bi[:, :ef], bd[:, :ef], dict(rows=rows, lists=lists,
+                                            pairs=int(pairs))
+    return bi[:, :ef], bd[:, :ef]
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+NEG = -1e30
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cur_len) -> torch.Tensor:
+    """q [B,H,Dh]; k,v [B,S,KVH,Dh]; mask pos >= cur_len -> out [B,H,Dh]
+    f32. ``cur_len`` is a scalar or [B]. Query head h reads KV head
+    h // (H / KVH), as ``q.reshape(b, kvh, g, dh)`` groups them."""
+    b, h, dh = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, dh).float() * dh ** -0.5
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
+    cur = torch.as_tensor(cur_len, dtype=torch.int32,
+                          device=q.device).reshape(-1).expand(b)
+    mask = (torch.arange(s, device=q.device)[None, None, None, :]
+            < cur[:, None, None, None])
+    scores = torch.where(mask, scores, NEG)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return out.reshape(b, h, dh)

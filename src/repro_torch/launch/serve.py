@@ -1,0 +1,187 @@
+"""End-to-end serving driver: continuous-batching LM serving, optionally
+with RAG augmentation whose retrieval overlaps the decode loop — the port
+of ``repro/launch/serve.py`` on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --requests 12 --max-new 16 --rag --index hnsw [--device cpu]
+
+The command line runs the architecture's smoke config with random weights
+from ``--seed``. ``run(cfg, args)`` takes any ``LMConfig`` (``chip_smoke.py``
+passes the full-width one). RAG requests arrive closed-loop (a bounded
+window of outstanding requests is kept topped up); the run reports req/s,
+tok/s, ``overlap_ratio`` and ``slot_occupancy``.
+
+Not ported yet (ROADMAP.md §1), and rejected with ``NotImplementedError``:
+``--tenants``, ``--store-dir``, ``--shards`` > 1, index kinds other than
+hnsw, and lossy ``--index-dtype``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.data.corpus import BUILTIN_CORPUS
+from repro_torch.models import transformer as tf
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.rag import RAGPipeline
+from repro_torch.utils import logger, resolve_device
+
+QUERIES = ("how does hnsw search work",
+           "why is on device retrieval private",
+           "what does efConstruction control")
+
+
+def _power_of_two(v: str) -> int:
+    n = int(v)
+    if n < 1 or n & (n - 1):
+        raise argparse.ArgumentTypeError(f"{v} is not a power of two")
+    return n
+
+
+def _serve_closed_loop(engine, queries, *, k, max_new):
+    """Drive the engine closed-loop: keep up to 2*slots requests
+    outstanding so retrieval for late arrivals overlaps decode ticks
+    already running."""
+    window = 2 * engine.slots
+    pend = list(queries)
+    reqs = []
+    t0 = time.perf_counter()
+    while pend or engine._work_pending():
+        while pend and sum(not r.done for r in reqs) < window:
+            reqs.append(engine.submit_rag(pend.pop(0), k=k,
+                                          max_new_tokens=max_new))
+        engine.step()
+    dt = time.perf_counter() - t0
+    engine.poll()
+    return reqs, dt
+
+
+def _log_engine_stats(engine):
+    s = engine.stats.as_dict()
+    logger.info(
+        f"engine: {s['ticks']} ticks ({s['decode_ticks']} decode, "
+        f"{s['prefills']} prefills), overlap_ratio "
+        f"{s['overlap_ratio']:.2f} ({s['overlapped_ticks']}/"
+        f"{s['retrieval_ticks']} retrieval ticks behind decode), "
+        f"slot_occupancy {s['slot_occupancy']:.2f}, "
+        f"{s['re_retrievals']} epoch-guard re-retrievals")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--rag", action="store_true")
+    ap.add_argument("--index", default="hnsw",
+                    choices=("flat", "ivf", "hnsw", "tiered"),
+                    help="VectorIndex backend for the RAG retriever "
+                         "(only hnsw is ported)")
+    ap.add_argument("--index-dtype", default=None,
+                    choices=("fp32", "bf16", "int8"),
+                    help="row-storage codec (only fp32 is ported)")
+    ap.add_argument("--beam-impl", default=None, choices=("fused", "jnp"),
+                    help="HNSW layer-0 beam: 'fused' runs the whole "
+                         "ef-beam as one kernel launch; 'jnp' is the "
+                         "per-hop reference loop. Default: fused")
+    ap.add_argument("--retrieval-batch", type=_power_of_two, default=128,
+                    help="RetrievalEngine bucket cap (power of two)")
+    ap.add_argument("--retrieval-cache", type=int, default=1024,
+                    help="RetrievalEngine LRU entries (0 disables)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="index shards (only 1 is ported)")
+    ap.add_argument("--store-dir", default=None,
+                    help="durable IndexStore directory (not ported)")
+    ap.add_argument("--snapshot-every", type=int, default=0)
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="multi-tenant serving (not ported)")
+    ap.add_argument("--max-resident", type=int, default=64)
+    ap.add_argument("--sampler", default="greedy",
+                    choices=("greedy", "temperature"),
+                    help="token sampler; temperature draws are seeded from "
+                         "(--seed, request, position), so output is "
+                         "independent of the admission schedule")
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (cuda, or cpu for the "
+                         "plain versions of the kernels)")
+    return ap.parse_args(argv)
+
+
+def run(cfg, args: argparse.Namespace, corpus=BUILTIN_CORPUS) -> dict:
+    """Serve ``args.requests`` requests with LM config ``cfg`` and, with
+    ``--rag``, an index over ``corpus`` ([(key, text)]). Returns the
+    engine, the pipeline (or None), the requests, the wall seconds of the
+    serving loop and the tokens generated."""
+    if args.tenants:
+        raise NotImplementedError(
+            "--tenants is not ported yet (ROADMAP.md §1: tenancy)")
+    if args.store_dir:
+        raise NotImplementedError(
+            "--store-dir is not ported yet (ROADMAP.md §1: store/warm "
+            "restore)")
+    device = resolve_device(args.device)
+    model = tf.init_lm(cfg, seed=args.seed, device=device)
+
+    def build_engine(pipeline=None):
+        return ServeEngine(model, cfg, pipeline=pipeline, slots=args.slots,
+                           max_len=args.max_len, sampler=args.sampler,
+                           temperature=args.temperature, seed=args.seed,
+                           device=device)
+
+    if not args.rag:
+        engine = build_engine()
+        rng = np.random.default_rng(args.seed)
+        prompts = [rng.integers(0, cfg.vocab, size=rng.integers(4, 24))
+                   for _ in range(args.requests)]
+        t0 = time.perf_counter()
+        outs = engine.generate(prompts, max_new_tokens=args.max_new)
+        dt = time.perf_counter() - t0
+        logger.info(f"{args.requests} requests, {engine.tokens_out} tokens "
+                    f"in {dt:.2f}s -> {engine.tokens_out / dt:.1f} tok/s "
+                    f"({engine.ticks} engine ticks, {args.slots} slots)")
+        if not all(len(o) == args.max_new for o in outs):
+            raise RuntimeError("a request ended short of its token budget")
+        return {"engine": engine, "rag": None, "reqs": outs, "seconds": dt,
+                "tokens": engine.tokens_out}
+
+    rag = RAGPipeline(index_kind=args.index,
+                      retrieval_batch=args.retrieval_batch,
+                      retrieval_cache=args.retrieval_cache,
+                      index_shards=args.shards,
+                      index_dtype=args.index_dtype,
+                      index_beam_impl=args.beam_impl, device=device)
+    rag.add_documents(list(corpus))
+    engine = build_engine(rag)
+    queries = [QUERIES[i % len(QUERIES)] for i in range(args.requests)]
+    reqs, dt = _serve_closed_loop(engine, queries, k=3, max_new=args.max_new)
+    for i, r in enumerate(reqs):
+        logger.info(f"req {i}: retrieved {[d.key for d in r.docs]}")
+    logger.info(f"RAG[{args.index}]: {args.requests} requests, "
+                f"{engine.tokens_out} tokens in {dt:.2f}s "
+                f"({args.requests / dt:.3f} req/s, "
+                f"{engine.tokens_out / dt:.2f} tok/s, overlapped continuous "
+                f"batching on {device})")
+    _log_engine_stats(engine)
+    rs = rag.retriever.stats.as_dict()
+    logger.info(
+        f"retrieval: {rs['requests']} requests in {rs['searches']} searches "
+        f"({rs['searched_queries']} searched + {rs['padded_queries']} "
+        f"bucket pad, cache hit rate {rs['hit_rate']:.2f})")
+    return {"engine": engine, "rag": rag, "reqs": reqs, "seconds": dt,
+            "tokens": engine.tokens_out}
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    return run(get_smoke_config(args.arch), args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,112 @@
+"""Blocked (flash-style) attention as plain torch ops, GQA-aware — the
+prefill path and the dense decode path of ``repro/models/attention.py``.
+
+  * ``blocked_attention`` — prefill: a loop over (q block, kv block) with a
+    running log-sum-exp, computing the full rectangle with causal masking
+    (the reference's ``impl="masked"``, which its prefill uses). This is
+    plain tensor code in the reference too, not a Pallas kernel, so the
+    port keeps the same math rather than calling a library attention.
+  * ``decode_attention`` — one new token against the KV cache; direct
+    reduction, f32 accumulation (``decode_step(attn_impl="dense")``).
+
+All products accumulate in float32.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def pick_block(s: int, b: int) -> int:
+    """Largest divisor of ``s`` that is <= ``b``."""
+    b = min(b, s)
+    while s % b != 0:
+        b -= 1
+    return max(b, 1)
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q [B,bq,H,Dh], k [B,bk,KVH,Dh] -> scores [B,H,bq,bk] (f32)."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, dh).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    return s.reshape(b, h, sq, k.shape[1])
+
+
+def _gqa_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p [B,H,bq,bk] (f32), v [B,bk,KVH,Dh] -> [B,bq,H,Dh] (f32)."""
+    b, h, sq, sk = p.shape
+    kvh = v.shape[2]
+    pg = p.reshape(b, kvh, h // kvh, sq, sk)
+    o = torch.einsum("bkgqs,bskd->bqkgd", pg, v.float())
+    return o.reshape(b, sq, h, v.shape[-1])
+
+
+def _merge_block(carry, scores, v_blk, block_mask):
+    """Online-softmax merge of one kv block. carry = (m, l, acc) in f32:
+    m [B,H,bq], l [B,H,bq], acc [B,bq,H,Dh]."""
+    m, l, acc = carry
+    scores = torch.where(block_mask, scores, NEG_INF)
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    m_safe = torch.where(m_new <= NEG_INF / 2, 0.0, m_new)  # fully-masked guard
+    p = torch.where(block_mask, torch.exp(scores - m_safe[..., None]), 0.0)
+    alpha = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_safe))
+    l_new = l * alpha + p.sum(dim=-1)
+    acc_new = acc * alpha[..., None].transpose(1, 2) + _gqa_values(p, v_blk)
+    return m_new, l_new, acc_new
+
+
+def _finalize(l, acc, dtype):
+    return (acc / l.clamp_min(1e-30)[..., None].transpose(1, 2)).to(dtype)
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, block_q: int = 512,
+                      block_k: int = 1024) -> torch.Tensor:
+    """Flash-style attention. q [B,S,H,Dh]; k,v [B,Sk,KVH,Dh] -> [B,S,H,Dh]."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    block_q = pick_block(sq, block_q)
+    block_k = pick_block(sk, block_k)
+    sm_scale = dh ** -0.5
+    dev = q.device
+    outs = []
+    for iq in range(sq // block_q):
+        q_i = q[:, iq * block_q:(iq + 1) * block_q] * sm_scale
+        q_pos = iq * block_q + torch.arange(block_q, device=dev)
+        carry = (torch.full((b, h, block_q), NEG_INF, device=dev),
+                 torch.zeros((b, h, block_q), device=dev),
+                 torch.zeros((b, block_q, h, dh), device=dev))
+        for jk in range(sk // block_k):
+            k_j = k[:, jk * block_k:(jk + 1) * block_k]
+            v_j = v[:, jk * block_k:(jk + 1) * block_k]
+            scores = _gqa_scores(q_i, k_j)                     # [B,H,bq,bk]
+            if causal:
+                k_pos = jk * block_k + torch.arange(block_k, device=dev)
+                mask = (q_pos[:, None] >= k_pos[None, :])[None, None]
+            else:
+                mask = torch.ones((1, 1, block_q, block_k), dtype=torch.bool,
+                                  device=dev)
+            carry = _merge_block(carry, scores, v_j, mask)
+        outs.append(_finalize(carry[1], carry[2], q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cur_len) -> torch.Tensor:
+    """One-token attention against the cache. q [B,1,H,Dh]; k_cache/v_cache
+    [B,S,KVH,Dh]; ``cur_len`` scalar or per-sequence [B] -> [B,1,H,Dh]."""
+    b, _, h, dh = q.shape
+    s = k_cache.shape[1]
+    scores = _gqa_scores(q * dh ** -0.5, k_cache)          # [B,H,1,S]
+    pos = torch.arange(s, device=q.device)
+    cur = torch.as_tensor(cur_len, dtype=torch.int32,
+                          device=q.device).reshape(-1).expand(b)
+    valid = pos[None, :] < cur[:, None]                    # [B,S]
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return _gqa_values(p, v_cache).to(q.dtype)

@@ -1,0 +1,99 @@
+"""The hand CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA card (marker ``cuda``) and skip without one:
+a CUDA kernel has no CPU mode. They import only torch and the port, so
+they run where JAX is not installed:
+
+    python -m pytest -q tests/test_torch_cuda.py
+
+Tolerances: fp32 summation order only (1e-5 for distances, 2e-5 for
+attention); ids must be equal on integer-valued l2 inputs, whose
+arithmetic is exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _int_graph(seed, n, d, m2, b):
+    rng = np.random.default_rng(seed)
+    vec = rng.integers(-4, 5, size=(n, d)).astype(np.float32)
+    nbrs = rng.integers(0, n, size=(n, m2)).astype(np.int32)
+    nbrs[rng.random((n, m2)) < 0.15] = -1                   # -1 padding
+    nbrs[rng.integers(0, n, size=5)] = -1                    # whole -1 rows
+    q = rng.integers(-4, 5, size=(b, d)).astype(np.float32)
+    ep = rng.integers(0, n, size=b).astype(np.int32)
+    return vec, nbrs, q, ep
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,d,offset", [
+    ("cosine", 96, 0), ("l2", 96, 0), ("ip", 30, 0),     # D % 4 != 0
+    ("l2", 96, 1)])                                       # unaligned rows
+def test_gather_distance_kernel_matches_plain(cuda_device, metric, d,
+                                              offset):
+    """Both row-load paths: float4 and, for D % 4 != 0 or a 16-byte
+    misaligned view, scalar."""
+    rng = np.random.default_rng(20)
+    flat = np.zeros(5000 * d + offset, np.float32)
+    flat[offset:] = _unit(rng.normal(size=(5000, d))).reshape(-1)
+    vec = _t(flat).to(cuda_device)[offset:].view(5000, d)
+    q = _t(_unit(rng.normal(size=(33, d)))).to(cuda_device)
+    ids = _t(rng.integers(0, 5000, size=(33, 17)).astype(np.int32)).to(
+        cuda_device)
+    torch.testing.assert_close(
+        tops.gather_distance(vec, q, ids, metric=metric),
+        tref.gather_distance_ref(vec, q, ids, metric=metric),
+        rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expand_t,ef,d,m2,max_iters", [
+    (1, 24, 16, 16, None), (4, 24, 16, 16, None),
+    (3, 10, 30, 10, None),          # non-pow2 ef, T*2M and D % 4 != 0
+    (4, 16, 16, 16, 5), (4, 16, 16, 16, 0)])
+def test_beam_search_kernel_matches_plain(cuda_device, expand_t, ef, d, m2,
+                                          max_iters):
+    vec, nbrs, q, ep = _int_graph(21, n=2000, d=d, m2=m2, b=40)
+    args = [_t(a).to(cuda_device) for a in (vec, nbrs, q, ep)]
+    ep_d = tref.gather_distance_ref(args[0], args[2], args[3][:, None],
+                                    metric="l2")[:, 0].contiguous()
+    kw = dict(ef=ef, metric="l2", expand_t=expand_t, max_iters=max_iters)
+    ki, kd = tops.beam_search(*args, ep_d, **kw)
+    ri, rd = tref.beam_search_ref(*args, ep_d, **kw)
+    torch.testing.assert_close(ki, ri, rtol=0, atol=0)
+    torch.testing.assert_close(kd, rd, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g,dh,s", [(1, 64, 300), (4, 64, 300),
+                                    (4, 128, 4100), (2, 256, 70)])
+def test_flash_decode_kernel_matches_plain(cuda_device, g, dh, s):
+    rng = np.random.default_rng(22)
+    b, kvh = 4, 2
+    q = _t(rng.normal(size=(b, g * kvh, dh)).astype(np.float32))
+    k = _t(rng.normal(size=(b, s, kvh, dh)).astype(np.float32))
+    v = _t(rng.normal(size=(b, s, kvh, dh)).astype(np.float32))
+    cur = torch.tensor([1, 31, 33, s], dtype=torch.int32)
+    args = [a.to(cuda_device) for a in (q, k, v, cur)]
+    torch.testing.assert_close(tops.flash_decode(*args),
+                               tref.flash_decode_ref(*args),
+                               rtol=0, atol=2e-5)

@@ -1,0 +1,245 @@
+"""Port parity for the kernel layer: every plain PyTorch version in
+``repro_torch/kernels/ref.py`` against its jnp oracle in
+``repro/kernels/ref.py``, on the same numpy inputs (CPU). The oracles are
+what ``repro.kernels.ops`` runs off-TPU, and ``tests/test_kernels.py``
+pins them to the Pallas kernels in interpret mode.
+
+Tolerances: fp32 distances and attention outputs differ only by the two
+frameworks' summation order (rtol 1e-5 / atol 1e-6 for gather_distance,
+atol 1e-5 elsewhere). Ids are compared exactly on integer-valued l2/ip
+inputs, whose dot products are exact in fp32 in both frameworks.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.core import dispatch
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ---------------------------------------------------------------------------
+# gather_distance
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("metric", ["cosine", "ip", "l2"])
+def test_gather_distance_ref_matches_jax(metric):
+    rng = np.random.default_rng(1)
+    vec = rng.normal(size=(200, 24)).astype(np.float32)
+    if metric == "cosine":
+        vec = _unit(vec)
+    q = rng.normal(size=(7, 24)).astype(np.float32)
+    ids = rng.integers(0, 200, size=(7, 11)).astype(np.int32)
+    want = np.asarray(jref.gather_distance_ref(
+        jnp.asarray(vec), jnp.asarray(q), jnp.asarray(ids), metric=metric))
+    got = tref.gather_distance_ref(_t(vec), _t(q), _t(ids), metric=metric)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_ops_cpu_tensors_take_the_plain_version_uncounted():
+    """CPU tensors dispatch to ref and never bump a kernel counter."""
+    rng = np.random.default_rng(2)
+    vec = _t(rng.normal(size=(50, 8)).astype(np.float32))
+    q = _t(rng.normal(size=(3, 8)).astype(np.float32))
+    ids = _t(rng.integers(0, 50, size=(3, 5)).astype(np.int32))
+    dispatch.reset()
+    out = tops.gather_distance(vec, q, ids, metric="l2")
+    torch.testing.assert_close(out, tref.gather_distance_ref(
+        vec, q, ids, metric="l2"), rtol=0, atol=0)
+    qk = _t(rng.normal(size=(2, 4, 8)).astype(np.float32))
+    kv = _t(rng.normal(size=(2, 6, 2, 8)).astype(np.float32))
+    tops.flash_decode(qk, kv, kv, 3)
+    assert all(dispatch.get(c) == 0 for c in dispatch.KERNEL_COUNTERS)
+    with pytest.raises(ValueError, match="unknown metric"):
+        tops.gather_distance(vec, q, ids, metric="hamming")
+
+
+# ---------------------------------------------------------------------------
+# beam helpers
+# ---------------------------------------------------------------------------
+def _keys(rng, b, w, with_pads=True):
+    d = rng.integers(0, 6, size=(b, w)).astype(np.float32)   # many ties
+    i = rng.permutation(b * w).reshape(b, w).astype(np.int32)
+    if with_pads:
+        pad = rng.random((b, w)) < 0.2
+        d = np.where(pad, jref.BEAM_INF, d).astype(np.float32)
+        i = np.where(pad, -1, i).astype(np.int32)
+    x = rng.random((b, w)) < 0.5
+    return d, i, x
+
+
+@pytest.mark.parametrize("ascending", [True, False])
+def test_bitonic_sort_matches_jax(ascending):
+    d, i, x = _keys(np.random.default_rng(3), 4, 32, with_pads=False)
+    sort = jax.jit(jref.bitonic_sort, static_argnames=("ascending",))
+    jd, ji, jx = sort(jnp.asarray(d), jnp.asarray(i), jnp.asarray(x),
+                      ascending=ascending)
+    td, ti, tx = tref.bitonic_sort(_t(d), _t(i), _t(x), ascending=ascending)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+
+
+def test_bitonic_merge_matches_jax():
+    rng = np.random.default_rng(4)
+    d, i, x = _keys(rng, 3, 16, with_pads=False)
+    # ascending half then descending half: a bitonic input
+    o = np.lexsort((i, d), axis=-1)
+    d, i, x = (np.take_along_axis(a, o, -1) for a in (d, i, x))
+    d[:, 8:], i[:, 8:], x[:, 8:] = d[:, 8:][:, ::-1], i[:, 8:][:, ::-1], \
+        x[:, 8:][:, ::-1]
+    jd, ji, jx = jax.jit(jref.bitonic_merge)(jnp.asarray(d), jnp.asarray(i),
+                                             jnp.asarray(x))
+    td, ti, tx = tref.bitonic_merge(_t(d), _t(i), _t(x))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("t_live,t", [(4, 4), (2, 4), (1, 1)])
+def test_beam_select_frontier_matches_jax(t_live, t):
+    rng = np.random.default_rng(5)
+    b, efp = 5, 16
+    bd = np.sort(rng.random((b, efp)).astype(np.float32), axis=-1)
+    bi = rng.permutation(b * efp).reshape(b, efp).astype(np.int32)
+    bi[:, 12:] = -1
+    bx = rng.random((b, efp)) < 0.4
+    jx, jn = jref.beam_select_frontier(jnp.asarray(bd), jnp.asarray(bi),
+                                       jnp.asarray(bx), t_live, t)
+    tx, tn = tref.beam_select_frontier(_t(bd), _t(bi), _t(bx), t_live, t)
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+
+
+def test_beam_dedup_valid_matches_jax():
+    rng = np.random.default_rng(6)
+    cand = rng.integers(0, 20, size=(4, 24)).astype(np.int32)
+    valid = rng.random((4, 24)) < 0.8
+    bi = rng.integers(-1, 20, size=(4, 8)).astype(np.int32)
+    want = jref.beam_dedup_valid(jnp.asarray(cand), jnp.asarray(valid),
+                                 jnp.asarray(bi))
+    got = tref.beam_dedup_valid(_t(cand), _t(valid), _t(bi))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("use_bitonic", [True, False])
+def test_beam_merge_matches_jax(use_bitonic):
+    rng = np.random.default_rng(7)
+    b, efp, w, ef = 3, 16, 24, 12
+    ids = rng.permutation(200)[: b * (efp + w)].reshape(b, efp + w)
+    ids = ids.astype(np.int32)
+    bd = np.sort(rng.random((b, efp)).astype(np.float32), axis=-1)
+    bi = ids[:, :efp].copy()
+    bd[:, ef:], bi[:, ef:] = jref.BEAM_INF, -1
+    bx = rng.random((b, efp)) < 0.5
+    cd = rng.random((b, w)).astype(np.float32)
+    ci = ids[:, efp:].copy()
+    drop = rng.random((b, w)) < 0.3
+    cd[drop], ci[drop] = jref.BEAM_INF, -1
+    merge = jax.jit(jref.beam_merge, static_argnums=(5, 6))
+    want = merge(jnp.asarray(bd), jnp.asarray(bi), jnp.asarray(bx),
+                 jnp.asarray(cd), jnp.asarray(ci), ef, use_bitonic)
+    got = tref.beam_merge(_t(bd), _t(bi), _t(bx), _t(cd), _t(ci), ef,
+                          use_bitonic=use_bitonic)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    live = np.asarray(want[1]) >= 0          # pads' expanded bit is unread
+    np.testing.assert_array_equal(got[2].numpy()[live],
+                                  np.asarray(want[2])[live])
+
+
+# ---------------------------------------------------------------------------
+# beam_search_ref
+# ---------------------------------------------------------------------------
+def _int_graph(seed, n=300, d=8, m2=8, b=6):
+    rng = np.random.default_rng(seed)
+    vec = rng.integers(-4, 5, size=(n, d)).astype(np.float32)
+    nbrs = rng.integers(0, n, size=(n, m2)).astype(np.int32)
+    nbrs[rng.random((n, m2)) < 0.15] = -1                   # -1 padding
+    nbrs[rng.integers(0, n, size=5)] = -1                    # whole -1 rows
+    q = rng.integers(-4, 5, size=(b, d)).astype(np.float32)
+    ep = rng.integers(0, n, size=b).astype(np.int32)
+    return vec, nbrs, q, ep
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("expand_t", [1, 4])
+@pytest.mark.parametrize("max_iters", [None, 0, 5])
+def test_beam_search_ref_matches_jax(metric, expand_t, max_iters):
+    vec, nbrs, q, ep = _int_graph(8)
+    ep_d = np.asarray(jref.gather_distance_ref(
+        jnp.asarray(vec), jnp.asarray(q), jnp.asarray(ep[:, None]),
+        metric=metric))[:, 0]
+    kw = dict(ef=16, metric=metric, expand_t=expand_t, max_iters=max_iters)
+    ji, jd = jref.beam_search_ref(jnp.asarray(vec), jnp.asarray(nbrs),
+                                  jnp.asarray(q), jnp.asarray(ep),
+                                  jnp.asarray(ep_d), **kw)
+    ti, td = tref.beam_search_ref(_t(vec), _t(nbrs), _t(q), _t(ep),
+                                  _t(ep_d), **kw)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("expand_t", [1, 4])
+def test_beam_search_ref_visited_counts_the_search_work(expand_t):
+    # ef above N: nothing leaves a beam, so every scored row is returned,
+    # no row is scored twice for one query, and every returned node is
+    # expanded before the budget runs out
+    vec, nbrs, q, ep = _int_graph(9)
+    ep_d = tref.gather_distance_ref(_t(vec), _t(q), _t(ep[:, None]),
+                                    metric="l2")[:, 0]
+    kw = dict(ef=512, metric="l2", expand_t=expand_t)
+    ids, dists = tref.beam_search_ref(_t(vec), _t(nbrs), _t(q), _t(ep), ep_d,
+                                      **kw)
+    vi, vd, seen = tref.beam_search_ref(_t(vec), _t(nbrs), _t(q), _t(ep),
+                                        ep_d, return_visited=True, **kw)
+    assert torch.equal(vi, ids) and torch.equal(vd, dists)
+    returned = [set(row[row >= 0].tolist()) for row in ids]
+    scored = set().union(*(r - {int(e)} for r, e in zip(returned, ep)))
+    assert set(torch.nonzero(seen["rows"])[:, 0].tolist()) == scored
+    assert set(torch.nonzero(seen["lists"])[:, 0].tolist()) \
+        == set().union(*returned)
+    assert seen["pairs"] == sum(len(r) - 1 for r in returned)
+
+
+def test_beam_schedule_follows_reference_budget():
+    assert tref.beam_schedule(64, 4, None) == (4, 68, 17)
+    assert tref.beam_schedule(64, 1, None) == (1, 64, 64)
+    assert tref.beam_schedule(10, 4, 0) == (4, 0, 0)
+    assert tref.beam_schedule(2, 8, None) == (2, 4, 2)
+
+
+# ---------------------------------------------------------------------------
+# flash_decode_ref
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("per_seq", [False, True])
+def test_flash_decode_ref_matches_jax(g, per_seq):
+    rng = np.random.default_rng(10 + g)
+    b, kvh, dh, s = 3, 2, 16, 40
+    h = g * kvh
+    q = rng.normal(size=(b, h, dh)).astype(np.float32)
+    k = rng.normal(size=(b, s, kvh, dh)).astype(np.float32)
+    v = rng.normal(size=(b, s, kvh, dh)).astype(np.float32)
+    cur = np.array([1, 17, 40], np.int32) if per_seq else np.int32(23)
+    want = np.asarray(jref.flash_decode_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(cur)))
+    got = tref.flash_decode_ref(_t(q), _t(k), _t(v), _t(np.asarray(cur)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    # and through both packages' public ops entry points
+    np.testing.assert_allclose(
+        tops.flash_decode(_t(q), _t(k), _t(v), _t(np.asarray(cur))).numpy(),
+        np.asarray(jops.flash_decode(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(cur))),
+        atol=1e-5, rtol=0)
