@@ -9,22 +9,36 @@ Phases (none catches an exception; any failure exits non-zero):
    compute capability (must be 9.0), and the build of every hand kernel
    from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all in
    parallel), timed.
-2. Kernels against their plain PyTorch versions at the main path's real
+2. Kernels against their plain PyTorch versions at the main paths' real
    sizes — MeMemo's 1M x 384 cosine corpus (configs/mememo.py) and the
    llama3-8b decode geometry — each timed with CUDA events beside its
-   plain version, its bound and, where one PyTorch call computes the same
-   function, that call.
-3. The served path, through ``repro_torch.launch.serve.run`` with
+   plain version, its bound and, where PyTorch computes the same function,
+   that call. ``distance_topk`` runs on the rows of a 1M x 384
+   ``FlatVectorIndex`` under each codec (fp32, bf16, int8), at B 1 and
+   128, k 10, on random cosine rows, on integer-valued l2 rows (exact),
+   and on a row count whose last row range holds fewer than k rows; then
+   the 64- and 256-slot lists (k 40, 200), the ip metric and scalar row
+   loads (D 30) on the same rows.
+3. The HNSW served path, through ``repro_torch.launch.serve.run`` with
    ``--rag --index hnsw``: full-width llama3-8b (all 32 layers, fp32
    random weights from a seeded ``torch.Generator``) over the built-in
    corpus plus 2,000 synthetic documents, 8 requests, 16 new tokens each,
    4 slots. The kernel launch counters are zeroed just before and read
    just after; every kernel of the path must have launched. The retrieved
-   keys must equal a CPU search of the same host graph (plain versions).
+   keys must equal a CPU search of the same host graph (plain versions),
+   and ``HNSW.exact_query`` on the card must equal it on the CPU.
    At the served cache geometry (slots x max_len, each slot at its own
    depth) the flash kernel must match its plain version, and one
    full-width ``decode_step`` must agree between the flash kernel and the
-   dense path.
+   dense path. The model is released before phase 4.
+4. The flat served path, ``--rag --index flat --index-dtype int8``, with
+   the same model shape, corpus and requests: ``distance_topk`` must
+   launch once per retrieval search and ``flash_decode`` once per layer
+   per decode tick; the served keys must equal a CPU ``FlatVectorIndex``
+   (int8) of the same corpus, and the kernel's over-fetched candidates
+   on the served rows must equal its plain version's. fp32 and bf16 flat
+   indexes on the card must return the CPU's keys, and the fp32 keys must
+   equal phase 3's ``exact_query``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -32,6 +46,8 @@ repository around it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import copy
+import gc
 import itertools
 import json
 import subprocess
@@ -48,8 +64,14 @@ FP32_FLOPS_PER_S = 67e12
 
 N_VECTORS, DIM = 1_000_000, 384          # configs/mememo.py
 N_QUERIES, K_GATHER, M2, EF = 1024, 32, 32, 64
+TOPK_K, TOPK_BATCHES = 10, (1, 128)      # configs/base.py retrieval_cand
+CODECS = ("fp32", "bf16", "int8")
 DEC_B, DEC_H, DEC_KVH, DEC_DH, DEC_S = 8, 32, 8, 128, 8192
 SYNTHETIC_DOCS = 2000
+# the kernels each served path must launch
+HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
+             "kernel.flash_decode")
+FLAT_PATH = ("kernel.distance_topk", "kernel.flash_decode")
 
 
 def log(msg: str) -> None:
@@ -254,30 +276,238 @@ def phase_kernels(torch) -> dict:
     log("flash_decode " + json.dumps(out["flash_decode"]))
     del qd, kd, vd
     torch.cuda.empty_cache()
+    out["distance_topk"] = check_distance_topk(torch, dev, gen)
     return out
 
 
-def phase_serve(torch) -> dict:
-    """The served path at full width, through launch.serve.run."""
+def device_split(torch, fn, kernel: str, reps: int = 5) -> dict:
+    """Device time per call of ``fn`` from a ``torch.profiler`` trace,
+    split into the hand kernel (device functions whose name holds
+    ``kernel``) and everything else (PyTorch's own kernels: the merge
+    sort, gathers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hand = other = 0.0
+    for r in prof.key_averages():
+        if r.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if kernel in r.key:
+            hand += r.self_device_time_total
+        else:
+            other += r.self_device_time_total
+    return {"kernel_device_ms": hand / 1e3 / reps,
+            "other_device_ms": other / 1e3 / reps}
+
+
+def topk_bound(db, scales, b: int, k: int) -> tuple[float, str]:
+    """Each input read once (rows, scales, queries), each output written
+    once (k f32 distances + k i32 ids per query); 2 B N D flops."""
+    n, d = db.shape
+    nbytes = (db.numel() * db.element_size()
+              + (0 if scales is None else n * 4) + b * d * 4 + b * k * 8)
+    return bound(nbytes, 2.0 * b * n * d)
+
+
+def assert_topk_agree(torch, got, want, what: str) -> float:
+    """Kernel (dists, ids) against the plain version's: distances within
+    1e-5 everywhere, and ids equal wherever the two distances are not
+    tied to 1e-6 (two rows that close may swap under another summation
+    order) -> the share of queries whose ids are all equal."""
+    (kd, ki), (rd, ri) = got, want
+    torch.cuda.synchronize()
+    err = (kd - rd).abs()
+    assert err.max().item() <= 1e-5, f"{what}: err {err.max().item()}"
+    assert bool(((ki == ri) | (err <= 1e-6)).all()), f"{what}: ids differ"
+    return (ki == ri).all(dim=1).float().mean().item()
+
+
+def topk_variants(torch, db, scales, dbi, scl_i, qcos, qint) -> dict:
+    """The kernel's other template instances on the same rows: the 64- and
+    256-slot lists (k 40, the int8 over-fetch of k 10, and k 200), the ip
+    metric, and scalar row loads (D 30: no codec's row is a whole number
+    of 16 bytes) -> {case: share of queries with all ids equal}. Random
+    rows as ``assert_topk_agree``; integer rows exactly equal."""
+    from repro_torch.kernels import ops, ref
+
+    n30, out = 100_003, {}
+    cut = (slice(0, n30), slice(0, 30))
+    db30 = db[cut].contiguous()
+    dbi30 = dbi[cut].contiguous()
+    sc30 = None if scales is None else scales[:n30].contiguous()
+    sci30 = None if scl_i is None else scl_i[:n30].contiguous()
+    assert not ops._aligned16(db30) and not ops._aligned16(dbi30)
+    cases = [("cosine k40 B128", db, scales, qcos[128], "cosine", 40),
+             ("ip k200 B1", db, scales, qcos[1], "ip", 200),
+             ("D30 ip k40 B128", db30, sc30, qcos[128][:, :30].contiguous(),
+              "ip", 40),
+             ("D30 l2 k10 B1", db30, sc30, qcos[1][:, :30].contiguous(),
+              "l2", 10)]
+    for name, rows, sc, q, metric, k in cases:
+        out[name] = assert_topk_agree(
+            torch, ops.flat_topk(rows, q, k, metric=metric, scales=sc),
+            ref.distance_topk_ref(rows, q, k, metric=metric, scales=sc),
+            f"distance_topk {name}")
+    for b, k in ((128, 40), (1, 200)):
+        name = f"D30 integer l2 k{k} B{b}"
+        q = qint[b][:, :30].contiguous()
+        kd, ki = ops.flat_topk(dbi30, q, k, metric="l2", scales=sci30)
+        rd, ri = ref.distance_topk_ref(dbi30, q, k, metric="l2",
+                                       scales=sci30)
+        torch.cuda.synchronize()
+        assert bool((ki == ri).all()) and bool((kd == rd).all()), \
+            f"distance_topk {name}: differ"
+        out[name] = 1.0
+    return out
+
+
+def check_distance_topk(torch, dev, gen) -> dict:
+    """``distance_topk`` on the rows of a 1M x 384 ``FlatVectorIndex``
+    under each codec (the index normalizes and encodes them with the
+    port's codec), against its plain version: random cosine rows (ids
+    equal on >= 99 % of queries, distances within 1e-5 where they are),
+    integer-valued l2 rows (ids and distances exactly equal, ties
+    included; int8 rows with scales 1.0), and a row count whose last row
+    range holds fewer than k rows."""
+    import numpy as np
+    from repro_torch.core.codec import device_rows, get_codec
+    from repro_torch.core.flat import FlatVectorIndex
+    from repro_torch.kernels import ops, ref
+
+    k = TOPK_K
+    x = torch.randn(N_VECTORS, DIM, device=dev, generator=gen)
+    x = (x / x.norm(dim=-1, keepdim=True)).cpu().numpy()
+    keys = [f"r{i}" for i in range(N_VECTORS)]
+    rng = np.random.default_rng(3)
+    xint = rng.integers(-3, 4, size=(N_VECTORS, DIM)).astype(np.float32)
+    qint = {b: torch.from_numpy(rng.integers(-3, 4, size=(b, DIM)).astype(
+        np.float32)).to(dev) for b in TOPK_BATCHES}
+    qcos = {}
+    for b in TOPK_BATCHES:
+        qb = torch.randn(b, DIM, device=dev, generator=gen)
+        qcos[b] = qb / qb.norm(dim=-1, keepdim=True)
+    # row counts whose last row range (ops._topk_plan) holds 0 < r < k rows
+    tails = {}
+    for b in TOPK_BATCHES:
+        n = N_VECTORS - 1000
+        for _ in range(8):
+            _, splits, rows = ops._topk_plan(b, n, dev)
+            if 0 < n - (splits - 1) * rows < k:
+                break
+            n = (n // rows) * rows + 3
+        tails[b] = (n, n - (splits - 1) * rows)
+        assert 0 < tails[b][1] < k, tails
+    recs = {}
+    for codec in CODECS:
+        t0 = time.perf_counter()
+        idx = FlatVectorIndex(dtype=codec, device="cuda")
+        idx.bulk_insert(keys, x)
+        flat = idx._rows.pack()
+        db, scales = flat.vectors, flat.scales
+        block_bytes = idx._rows.device_block_bytes()
+        ingest_s = time.perf_counter() - t0
+        if codec == "int8":
+            dbi = device_rows(xint.astype(np.int8), dev)
+            scl_i = torch.ones(N_VECTORS, device=dev)
+        else:
+            dbi = device_rows(get_codec(codec).encode(xint)[0], dev)
+            scl_i = None
+        xf = db.float() if scales is None else db.float() * scales[:, None]
+        for b in TOPK_BATCHES:
+            q = qcos[b]
+            kd, ki = ops.flat_topk(db, q, k, scales=scales)
+            rd, ri = ref.distance_topk_ref(db, q, k, scales=scales)
+            torch.cuda.synchronize()
+            same = (ki == ri).all(dim=1)
+            frac = same.float().mean().item()
+            err = (kd[same] - rd[same]).abs().max().item()
+            assert frac >= 0.99, f"distance_topk {codec} B={b}: ids {frac}"
+            assert err <= 1e-5, f"distance_topk {codec} B={b}: err {err}"
+            # integer-valued l2 rows: exact, ties included; then the short
+            # last range
+            kd2, ki2 = ops.flat_topk(dbi, qint[b], k, metric="l2",
+                                     scales=scl_i)
+            rd2, ri2 = ref.distance_topk_ref(dbi, qint[b], k, metric="l2",
+                                             scales=scl_i)
+            n_t, last = tails[b]
+            sl = None if scl_i is None else scl_i[:n_t]
+            kd3, ki3 = ops.flat_topk(dbi[:n_t], qint[b], k, metric="l2",
+                                     scales=sl)
+            rd3, ri3 = ref.distance_topk_ref(dbi[:n_t], qint[b], k,
+                                             metric="l2", scales=sl)
+            torch.cuda.synchronize()
+            for got, want, what in ((ki2, ri2, "l2 ids"),
+                                    (kd2, rd2, "l2 dists"),
+                                    (ki3, ri3, "tail ids"),
+                                    (kd3, rd3, "tail dists")):
+                assert bool((got == want).all()), \
+                    f"distance_topk {codec} B={b}: {what} differ"
+            assert int(ki3.max()) < n_t
+
+            def library():
+                return torch.topk(1.0 - q @ xf.T, k, dim=1, largest=False)
+
+            b_ms, b_by = topk_bound(db, scales, b, k)
+            recs[(codec, b)] = dict(
+                max_abs_err=err, ids_equal_rows=frac,
+                int_l2_exact=True, tail_rows=n_t, tail_last_range=last,
+                ms=time_ms(torch, lambda: ops.flat_topk(db, q, k,
+                                                        scales=scales), 20),
+                plain_ms=time_ms(torch, lambda: ref.distance_topk_ref(
+                    db, q, k, scales=scales), 3),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(torch, library, 10),
+                **device_split(torch, lambda: ops.flat_topk(
+                    db, q, k, scales=scales), "distance_topk_kernel"))
+            log(f"distance_topk {codec} B={b} "
+                + json.dumps(recs[(codec, b)]))
+        recs[codec] = dict(device_block_bytes=block_bytes,
+                           ingest_and_pack_s=ingest_s,
+                           variants=topk_variants(torch, db, scales, dbi,
+                                                  scl_i, qcos, qint))
+        log(f"distance_topk {codec} index " + json.dumps(recs[codec]))
+        del idx, flat, db, scales, dbi, scl_i, xf
+        torch.cuda.empty_cache()
+    # the served codec (int8) at B 1 heads the record; every cell beside it
+    out = dict(recs[("int8", 1)])
+    out.update(
+        library="torch.mm (TF32 off) + torch.topk on the decoded fp32 rows:"
+                " no single PyTorch call computes this function",
+        shapes=f"db {N_VECTORS}x{DIM} (rows of a FlatVectorIndex), k {k}, "
+               f"cosine; head: int8 B 1",
+        cells={f"{c} B{b}": recs[(c, b)] for c in CODECS
+               for b in TOPK_BATCHES},
+        device_block_bytes={c: recs[c]["device_block_bytes"]
+                            for c in CODECS})
+    return out
+
+
+def served_run(torch, index_args: list[str]):
+    """One full-width served run through launch.serve.run, the kernel
+    counters zeroed just before and read just after. Returns (cfg, args,
+    corpus, result, record)."""
     from repro_torch.configs import get_config
     from repro_torch.core import dispatch
-    from repro_torch.core import hnsw as thnsw
     from repro_torch.data.corpus import BUILTIN_CORPUS
-    from repro_torch.kernels import ops, ref
     from repro_torch.launch import serve
-    from repro_torch.models import transformer as tf
 
     cfg = get_config("llama3-8b").model
     args = serve.parse_args(
-        ["--rag", "--index", "hnsw", "--requests", "8", "--max-new", "16",
+        ["--rag", *index_args, "--requests", "8", "--max-new", "16",
          "--slots", "4", "--max-len", "256", "--seed", "0",
          "--device", "cuda"])
     corpus = list(BUILTIN_CORPUS) + synthetic_corpus(SYNTHETIC_DOCS,
                                                      args.seed)
-    log(f"serve: {cfg.name} at full width, {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab}, fp32 random weights (seed "
-        f"{args.seed}); {len(corpus)} documents")
+    log(f"serve {' '.join(index_args)}: {cfg.name} at full width, "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, fp32 random weights (seed {args.seed}); "
+        f"{len(corpus)} documents")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     dispatch.reset()
@@ -285,24 +515,37 @@ def phase_serve(torch) -> dict:
     torch.cuda.synchronize()
     counts = dispatch.snapshot()
     wall = time.perf_counter() - t0
-    eng, rag, reqs = res["engine"], res["rag"], res["reqs"]
-    es, rs = eng.stats.as_dict(), rag.retriever.stats.as_dict()
-    serve_out = dict(
+    reqs = res["reqs"]
+    rec = dict(
         requests=len(reqs), tokens=res["tokens"], seconds=res["seconds"],
         req_per_s=len(reqs) / res["seconds"],
         tok_per_s=res["tokens"] / res["seconds"],
         setup_and_serve_s=wall,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        engine=es, retrieval=rs, counters=counts,
-        graph_max_level=rag.index.host_graph().max_level)
+        engine=res["engine"].stats.as_dict(),
+        retrieval=res["rag"].retriever.stats.as_dict(), counters=counts)
+    assert all(r.done and len(r.out_tokens) == args.max_new for r in reqs)
+    return cfg, args, corpus, res, rec
+
+
+def phase_serve(torch) -> dict:
+    """The HNSW served path at full width, through launch.serve.run."""
+    from repro_torch.core import hnsw as thnsw
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as tf
+
+    cfg, args, _, res, serve_out = served_run(torch, ["--index", "hnsw"])
+    eng, rag, reqs = res["engine"], res["rag"], res["reqs"]
+    es, rs, counts = (serve_out["engine"], serve_out["retrieval"],
+                      serve_out["counters"])
+    serve_out["graph_max_level"] = rag.index.host_graph().max_level
     log("serve " + json.dumps(serve_out))
 
     # every kernel of the path launched during the served run
-    for c in dispatch.KERNEL_COUNTERS:
+    for c in HNSW_PATH:
         assert counts.get(c, 0) > 0, f"{c} never launched on the served path"
     assert counts["kernel.flash_decode"] == cfg.n_layers * es["decode_ticks"]
     assert counts["kernel.beam_search"] == rs["searches"]
-    assert all(r.done and len(r.out_tokens) == args.max_new for r in reqs)
 
     # retrieved keys == the same host graph searched on the CPU (plain
     # versions of the kernels)
@@ -316,6 +559,19 @@ def phase_serve(torch) -> dict:
     got = [[d.key for d in r.docs] for r in reqs]
     assert got == want, f"served keys {got} != CPU search {want}"
     log(f"served keys equal the CPU search: {got}")
+
+    # the recall oracle: exact_query on the card (the distance_topk
+    # kernel) == exact_query of the same index on the CPU
+    exact, _ = idx.exact_query(qv, k=3)
+    on_cpu = copy.copy(idx)
+    on_cpu.device = torch.device("cpu")
+    exact_cpu, _ = on_cpu.exact_query(qv, k=3)
+    assert exact == exact_cpu, f"exact_query {exact} != CPU {exact_cpu}"
+    recall = sum(len(set(g) & set(e)) for g, e in zip(got, exact)) / sum(
+        len(e) for e in exact)
+    serve_out.update(exact_keys=exact, recall_at_3_vs_exact=recall)
+    log(f"exact_query on the card equals the CPU's: {exact}; served HNSW "
+        f"recall@3 against it {recall:.4f}")
 
     # flash_decode at the geometry the served run gave it (slots x max_len
     # cache, each slot at its own depth, so the same split + merge layout):
@@ -359,6 +615,77 @@ def phase_serve(torch) -> dict:
     serve_out["profile"] = profile_decode(torch, model, cfg, args)
     log("serve profile " + json.dumps(serve_out["profile"]))
     return serve_out
+
+
+def phase_serve_flat(torch, exact_keys) -> dict:
+    """The flat served path (int8 rows) at full width; then fp32 and bf16
+    flat indexes of the same corpus, on the card against the CPU."""
+    from repro_torch.core.flat import FlatVectorIndex
+
+    cfg, args, corpus, res, out = served_run(
+        torch, ["--index", "flat", "--index-dtype", "int8"])
+    log("serve flat " + json.dumps(out))
+    counts, es, rs = out["counters"], out["engine"], out["retrieval"]
+    for c in FLAT_PATH:
+        assert counts.get(c, 0) > 0, f"{c} never launched on the flat path"
+    assert counts["kernel.distance_topk"] == rs["searches"]
+    assert counts["kernel.flash_decode"] == cfg.n_layers * es["decode_ticks"]
+    rag, reqs = res["rag"], res["reqs"]
+    got = [[d.key for d in r.docs] for r in reqs]
+    qv = rag.encoder.encode([r.query for r in reqs])
+    keys = [key for key, _ in corpus]
+    vecs = rag.encoder.encode([text for _, text in corpus])
+    out["overfetch"] = check_overfetch(torch, rag.index, qv, k=3)
+    log("served index, over-fetched candidates, kernel == plain "
+        + json.dumps(out["overfetch"]))
+    del res, rag
+
+    def flat_keys(dtype, device):
+        idx = FlatVectorIndex(dtype=dtype, device=device)
+        idx.bulk_insert(keys, vecs)
+        return idx.query_batch(qv, k=3)[0]
+
+    want = flat_keys("int8", "cpu")
+    assert got == want, f"served flat keys {got} != CPU index {want}"
+    out["keys"] = {"int8 served": got}
+    for dtype in ("fp32", "bf16"):
+        card, cpu = flat_keys(dtype, "cuda"), flat_keys(dtype, "cpu")
+        assert card == cpu, f"flat {dtype}: card {card} != CPU {cpu}"
+        out["keys"][dtype] = card
+    assert out["keys"]["fp32"] == exact_keys, \
+        f"flat fp32 {out['keys']['fp32']} != HNSW exact_query {exact_keys}"
+    log("flat keys (int8 served == CPU; fp32, bf16 card == CPU; fp32 == "
+        "HNSW exact_query) " + json.dumps(out["keys"]))
+    return out
+
+
+def check_overfetch(torch, idx, qv, k: int) -> dict:
+    """The kernel's k * rerank_factor candidates on the served index's
+    packed rows, before the host rerank, against its plain version (as
+    ``assert_topk_agree``)."""
+    from repro_torch.core.codec import effective_rerank
+    from repro_torch.kernels import ops, ref
+
+    flat = idx._rows.pack()
+    kk = k * effective_rerank(idx._codec, idx.rerank_factor)
+    q = torch.as_tensor(qv, dtype=torch.float32, device="cuda")
+    q = (q / torch.clamp_min(torch.linalg.vector_norm(
+        q, dim=-1, keepdim=True), 1e-12)).contiguous()
+    got = ops.flat_topk(flat.vectors, q, kk, metric=flat.metric,
+                        scales=flat.scales)
+    want = ref.distance_topk_ref(flat.vectors, q, kk, metric=flat.metric,
+                                 scales=flat.scales)
+    frac = assert_topk_agree(torch, got, want, "over-fetched candidates")
+    return {"rows": flat.n, "queries": q.shape[0], "k": kk,
+            "ids_equal_rows": frac,
+            "max_abs_err": (got[0] - want[0]).abs().max().item()}
+
+
+def release(torch) -> float:
+    """Drop what the last phase left on the card -> GB still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
 
 
 def profile_decode(torch, model, cfg, args) -> dict:
@@ -436,18 +763,29 @@ def main() -> int:
     smi = phase_environment(torch)
     kern = phase_kernels(torch)
     serve_out = phase_serve(torch)
-    launches = serve_out["counters"]
+    left = release(torch)
+    log(f"phase 3's model released: {left:.2f} GB still allocated")
+    assert left < 8, "phase 3's model is still on the card"
+    flat_out = phase_serve_flat(torch, serve_out["exact_keys"])
+    paths = {"hnsw": serve_out["counters"], "flat": flat_out["counters"]}
     sources = {
-        "gather_distance": "src/repro/kernels/gather_distance.py:170",
-        "beam_search": "src/repro/kernels/beam_search.py:269",
-        "flash_decode": "src/repro/kernels/flash_decode.py:94",
+        "gather_distance": ("src/repro/kernels/gather_distance.py:170",
+                            "hnsw"),
+        "beam_search": ("src/repro/kernels/beam_search.py:269", "hnsw"),
+        "flash_decode": ("src/repro/kernels/flash_decode.py:94", "hnsw"),
+        "distance_topk": ("src/repro/kernels/distance_topk.py:146", "flat"),
     }
     line = []
     for name, rec in kern.items():
+        replaces, main_path = sources[name]
         line.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                     "replaces": sources[name],
-                     "launches": launches[f"kernel.{name}"], **rec})
+                     "replaces": replaces,
+                     "launches": paths[main_path][f"kernel.{name}"],
+                     "launches_by_path": {
+                         p: c.get(f"kernel.{name}", 0)
+                         for p, c in paths.items()},
+                     **rec})
     log(f"total {time.perf_counter() - t0:.1f}s on {smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

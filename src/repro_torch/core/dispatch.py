@@ -5,9 +5,10 @@ submitted: ``hnsw.search_graph`` searches, ``hnsw.beam_launches`` layer-0
 beam launches, ``hnsw.h2d_bytes`` host-to-device graph bytes,
 ``hnsw.host_syncs`` device-to-host waits in the search's Python loops,
 and one counter per hand kernel (``kernel.gather_distance``,
-``kernel.beam_search``, ``kernel.flash_decode``) that ``kernels.ops``
-bumps where it launches the kernel and nowhere else — the CPU branch,
-which runs the plain PyTorch version, never counts.
+``kernel.beam_search``, ``kernel.flash_decode``,
+``kernel.distance_topk``) that ``kernels.ops`` bumps where it launches
+the kernel and nowhere else — the CPU branch, which runs the plain
+PyTorch version, never counts.
 
 Counters are bumped at the Python boundary. Not thread-safe by design:
 the serving layer serializes device work onto one dispatcher.
@@ -19,7 +20,7 @@ from collections import defaultdict
 _COUNTS: defaultdict[str, int] = defaultdict(int)
 
 KERNEL_COUNTERS = ("kernel.gather_distance", "kernel.beam_search",
-                   "kernel.flash_decode")
+                   "kernel.flash_decode", "kernel.distance_topk")
 
 
 def bump(name: str, n: int = 1) -> None:

@@ -16,8 +16,9 @@ batched queries return lists of lists with ``None`` for missing slots;
 every mutation bumps ``mutation_epoch``, which is what lets a result cache
 guarantee that a retracted document is never served from a stale entry.
 
-This slice ports the ``hnsw`` backend with no store attached. The other
-kinds, the durable store (WAL, snapshots, warm restore), export/load and
+The ``flat`` and ``hnsw`` backends are ported, on one device and with no
+store attached. ``ivf``/``tiered``, the durable store (WAL, snapshots,
+warm restore), ``state_dict``/``restore_state``, export/load and
 ``compact`` are queued in ROADMAP.md §1 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -34,6 +35,18 @@ class VectorIndex(abc.ABC):
     kind: str
     metric: str
     _epoch: int = 0            # mutation counter; instance attr on first bump
+
+    @property
+    def shard_count(self) -> int:
+        """Number of shards the corpus is partitioned over (1: one
+        device)."""
+        return 1
+
+    @property
+    def storage_dtype(self) -> str:
+        """Row-storage codec name: "fp32" | "bf16" | "int8". Backends that
+        accept ``dtype=`` set it; the serving layer only logs it."""
+        return getattr(self, "dtype", "fp32")
 
     @property
     def mutation_epoch(self) -> int:
@@ -101,6 +114,16 @@ class VectorIndex(abc.ABC):
             "export/load is not ported yet (ROADMAP.md §1: store/warm "
             "restore)")
 
+    def state_dict(self):
+        raise NotImplementedError(
+            "state_dict is not ported yet (ROADMAP.md §1: store/warm "
+            "restore)")
+
+    def restore_state(self, arrays: dict, meta: dict) -> None:
+        raise NotImplementedError(
+            "restore_state is not ported yet (ROADMAP.md §1: store/warm "
+            "restore)")
+
     # --------------------------------------------------------------- query
     def query(self, query, k: int = 10, **kw):
         """ANN top-k -> (keys, dists); a 1-D query returns one row, a
@@ -116,10 +139,9 @@ class VectorIndex(abc.ABC):
         """Batched ANN search: queries [B, D] -> (keys, dists) where keys
         is a list of B lists of k key-or-None and dists is [B, k]."""
 
+    @abc.abstractmethod
     def exact_query(self, query, k: int = 10):
-        raise NotImplementedError(
-            "exact_query is not ported yet (ROADMAP.md §1: distance_topk "
-            "with core/flat.py and exact_query)")
+        """Brute-force top-k over the same live rows -> (keys, dists)."""
 
     @property
     @abc.abstractmethod
@@ -145,24 +167,21 @@ class VectorIndex(abc.ABC):
 # ---------------------------------------------------------------------------
 INDEX_KINDS = ("flat", "ivf", "hnsw", "tiered")
 
-_KIND_ITEMS = {
-    "flat": "distance_topk with core/flat.py and exact_query",
-    "ivf": "IVF/tiered",
-    "tiered": "IVF/tiered",
-}
+_KIND_ITEMS = {"ivf": "IVF/tiered", "tiered": "IVF/tiered"}
 
 
 def make_index(kind: str, store=None, *, device=None, **cfg) -> VectorIndex:
     """Create a VectorIndex backend by name on ``device`` (default cuda).
 
-    Only ``hnsw`` without a store is ported; ``cfg`` passes through to its
-    constructor (metric, M, ef_construction, ef_search, seed, n_shards,
-    dtype, rerank_factor, beam_impl)."""
+    ``flat`` and ``hnsw`` without a store are ported; ``cfg`` passes
+    through to the backend constructor (common: metric, dim, n_shards,
+    dtype, rerank_factor; hnsw: M, ef_construction, ef_search, seed,
+    beam_impl)."""
     kind = kind.lower()
     if kind not in INDEX_KINDS:
         raise ValueError(f"unknown index kind {kind!r}; expected one of "
                          f"{INDEX_KINDS}")
-    if kind != "hnsw":
+    if kind in _KIND_ITEMS:
         raise NotImplementedError(
             f"index kind {kind!r} is not ported yet (ROADMAP.md §1: "
             f"{_KIND_ITEMS[kind]})")
@@ -170,6 +189,11 @@ def make_index(kind: str, store=None, *, device=None, **cfg) -> VectorIndex:
         raise NotImplementedError(
             "a durable index store is not ported yet (ROADMAP.md §1: "
             "store/warm restore)")
+    if kind == "flat":
+        from repro_torch.core.flat import FlatVectorIndex
+        for key in ("M", "ef_construction", "ef_search", "beam_impl"):
+            cfg.pop(key, None)
+        return FlatVectorIndex(device=device, **cfg)
     from repro_torch.core.interface import HNSW
     cfg.pop("dim", None)          # HNSW infers dim from the first insert
     metric = cfg.pop("metric", "cosine")

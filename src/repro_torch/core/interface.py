@@ -15,17 +15,22 @@ key. The first query uploads a capacity-padded ``DeviceGraph``; later
 mutations upload only the builder's dirty-row journal
 (``hnsw.apply_row_updates``).
 
+``exact_query``, the recall oracle, scans the builder's live rows with
+``FlatIndex`` (the ``distance_topk`` kernel on the card).
+
 This slice serves ``n_shards=1``, ``dtype="fp32"`` and the sequential
-builder. Sharding, the lossy codecs, the bulk builder and the exact oracle
-are queued in ROADMAP.md §1 and raise ``NotImplementedError``.
+builder. Sharding, the lossy codecs and the bulk builder are queued in
+ROADMAP.md §1 and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core import hnsw as thnsw
 from repro_torch.core import hnsw_build as build
 from repro_torch.core.codec import get_codec
+from repro_torch.core.flat import FlatIndex
 from repro_torch.core.index import VectorIndex
 from repro_torch.utils import resolve_device
 
@@ -47,6 +52,14 @@ class HNSW(VectorIndex):
         if int(n_shards) != 1:
             raise NotImplementedError(
                 "n_shards > 1 is not ported yet (ROADMAP.md §1: multi-GPU)")
+        # rows are fp32, whose search distances are exact: rerank_factor
+        # never applies
+        self.dtype = get_codec(dtype).name
+        if self.dtype != "fp32":
+            raise NotImplementedError(
+                f"HNSW with dtype={self.dtype!r} is not ported yet (ROADMAP.md"
+                " §1: bf16/int8 variants of gather_distance and beam_search "
+                "plus the lossy ingest and rerank of core/interface.py)")
         if use_bulk_build:
             raise NotImplementedError(
                 "use_bulk_build is not ported yet (ROADMAP.md §1: bulk_build "
@@ -59,9 +72,6 @@ class HNSW(VectorIndex):
         self.ef_construction = ef_construction
         self.ef_search = ef_search
         self.seed = seed
-        # rows are fp32 (get_codec raises for bf16 / int8), whose search
-        # distances are exact: rerank_factor never applies
-        self.dtype = get_codec(dtype).name
         self._keys: list[str] = []               # node id -> key
         self._key2id: dict[str, int] = {}        # live keys only
         self._deleted = np.zeros(0, bool)        # tombstones, capacity-sized
@@ -150,6 +160,31 @@ class HNSW(VectorIndex):
         ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
         keys = [[self._keys[i] if i >= 0 else None for i in row] for row in ids]
         return keys, dists
+
+    def exact_query(self, query, k: int = 10):
+        """Brute-force oracle over the same LIVE rows -> (keys, dists),
+        ``min(k, live)`` columns: a ``FlatIndex`` over the builder's rows
+        (already normalized for cosine) on the index's device."""
+        if self._builder is None:
+            raise ValueError("index is empty")
+        self._ensure_tombstones()
+        n = self._builder.n
+        live = np.flatnonzero(~self._deleted[:n])
+        if live.size == 0:
+            raise ValueError("index is empty")
+        flat = FlatIndex(vectors=torch.as_tensor(self._builder.vectors[live],
+                                                 device=self.device),
+                         metric=self.metric)
+        q = np.asarray(query, np.float32)
+        squeeze = q.ndim == 1
+        if squeeze:
+            q = q[None]
+        d, i = flat.query(q, min(k, live.size))
+        d, i = d.cpu().numpy(), i.cpu().numpy()
+        keys = [[self._keys[int(live[j])] for j in row] for row in i]
+        if squeeze:
+            return keys[0], d[0]
+        return keys, d
 
     @property
     def size(self) -> int:

@@ -27,6 +27,7 @@ SOURCES = {
     "gather_distance": "gather_distance.cu",
     "beam_search": "beam_search.cu",
     "flash_decode": "flash_decode.cu",
+    "distance_topk": "distance_topk.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

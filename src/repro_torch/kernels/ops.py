@@ -9,8 +9,9 @@ that cannot build or launch raises.
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 outputs with ``torch.empty``, launches on the current stream, raises the
 launch error, and bumps its ``kernel.<name>`` counter (core/dispatch.py)
-on the kernel branch only. This slice ports the fp32 row path; encoded
-(bf16/int8) rows raise ``NotImplementedError``.
+on the kernel branch only. ``flat_topk`` takes fp32, bf16 and int8
+(+ scales) rows; ``gather_distance`` and ``beam_search`` take fp32 rows
+and raise ``NotImplementedError`` for encoded ones.
 """
 from __future__ import annotations
 
@@ -36,6 +37,9 @@ _SIGS = {
     "flash_decode": ("flash_decode_f32",
                      [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "distance_topk": ("distance_topk",
+                      [_P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 _FNS: dict[str, tuple] = {}
 
@@ -81,8 +85,9 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
     if t.dtype != dtype:
         if name == "vectors" and t.dtype in (torch.bfloat16, torch.int8):
             raise NotImplementedError(
-                "encoded rows are not ported yet (ROADMAP.md §1: bf16/int8 "
-                "variants of the three kernels plus codec.py)")
+                "encoded rows are not ported yet for this kernel (ROADMAP.md "
+                "§0 queue: HNSW bf16/int8, the codec variants of "
+                "gather_distance and beam_search)")
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
@@ -98,10 +103,12 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _vec4(vectors: torch.Tensor) -> int:
-    """1 when the rows can be read as 16-byte float4s: D % 4 == 0 and a
-    16-byte-aligned base (a sliced view may not be)."""
-    return int(vectors.shape[1] % 4 == 0 and vectors.data_ptr() % 16 == 0)
+def _aligned16(t: torch.Tensor) -> int:
+    """1 when the rows of the 2-D ``t`` can be read as 16-byte vectors:
+    rows of a whole number of 16 bytes and a 16-byte-aligned base (a
+    sliced view may not be)."""
+    return int((t.shape[1] * t.element_size()) % 16 == 0
+               and t.data_ptr() % 16 == 0)
 
 
 def _metric_code(metric: str) -> int:
@@ -131,7 +138,7 @@ def gather_distance(vectors: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
     if b * k:
         with torch.cuda.device(q.device):
             _launch("gather_distance", _ptr(vectors), _ptr(q), _ptr(ids),
-                    _ptr(out), b, k, d, n, l2, _vec4(vectors), _stream(q))
+                    _ptr(out), b, k, d, n, l2, _aligned16(vectors), _stream(q))
     return out
 
 
@@ -170,7 +177,7 @@ def beam_search(vectors: torch.Tensor, neighbors0: torch.Tensor,
         with torch.cuda.device(q.device):
             _launch("beam_search", _ptr(vectors), _ptr(neighbors0), _ptr(q),
                     _ptr(ep), _ptr(ep_dist), _ptr(ids), _ptr(dists), b, n, d, m2, ef, efp, t, budget, hops, l2,
-                    _vec4(vectors), _stream(q))
+                    _aligned16(vectors), _stream(q))
     return ids, dists
 
 
@@ -214,3 +221,71 @@ def _flash_splits(pairs: int, s: int, device) -> tuple[int, int]:
     target = -(-8 * sms // max(pairs, 1))
     chunk = -(-max(-(-s // target), 1) // 32) * 32
     return -(-s // chunk), chunk
+
+
+# row dtype -> the kernel's dtype code
+_ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+TOPK_MAX_K = 256          # list slots the kernel keeps per query
+
+
+def _topk_plan(b: int, n: int, device) -> tuple[int, int, int]:
+    """-> (small, splits, rows_per_split) of one ``distance_topk`` launch.
+
+    B <= 8 takes the kernel's 8-query x 256-row tile (``small``), larger B
+    its 64 x 128 tile. The N rows are cut into ``splits`` ranges of whole
+    tiles so that the grid holds about four blocks per SM; each range
+    yields k partials per query."""
+    small = int(b <= 8)
+    bq, bn = (8, 256) if small else (64, 128)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    tiles = -(-n // bn)
+    splits = max(1, min(tiles, -(-4 * sms // -(-b // bq))))
+    rows = -(-tiles // splits) * bn
+    return small, -(-n // rows), rows
+
+
+def flat_topk(db: torch.Tensor, q: torch.Tensor, k: int, *,
+              metric: str = "cosine", scales: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN: db [N,D] (f32, bf16, or int8 with ``scales`` [N] f32
+    decoding each row by a multiply), q [B,D] f32 -> (dists [B,k] f32,
+    ids [B,k] i32), ascending by (d, id); 1 <= k <= N.
+
+    On the card the kernel writes each row range's k best per query
+    ([B, splits*k] partials) and one stable sort merges them: a range's
+    partials are (d, id)-sorted and ranges ascend in row id, so equal
+    distances already stand in id order (the JAX package merges with
+    ``lax.top_k`` outside Pallas the same way)."""
+    l2 = _metric_code(metric)
+    tensors = (db, q) if scales is None else (db, q, scales)
+    if not _on_cuda(*tensors):
+        return _ref.distance_topk_ref(db, q, k, metric=metric, scales=scales)
+    if db.dtype not in _ROW_DTYPES:
+        raise TypeError(f"db: expected one of {list(_ROW_DTYPES)}, got "
+                        f"{db.dtype}")
+    _check(db, "db", db.dtype, 2)
+    _check(q, "q", torch.float32, 2)
+    n, d = db.shape
+    b = q.shape[0]
+    if q.shape[1] != d:
+        raise ValueError(f"q {tuple(q.shape)} does not match db "
+                         f"{tuple(db.shape)}")
+    if scales is not None:
+        _check(scales, "scales", torch.float32, 1)
+        if scales.shape[0] != n:
+            raise ValueError(f"scales {tuple(scales.shape)} for {n} rows")
+    k = int(k)
+    if not 1 <= k <= min(n, TOPK_MAX_K):
+        raise ValueError(f"flat_topk: k={k} needs 1 <= k <= min(N={n}, "
+                         f"{TOPK_MAX_K})")
+    small, splits, rows = _topk_plan(b, n, q.device)
+    part_d = torch.empty((b, splits * k), dtype=torch.float32,
+                         device=q.device)
+    part_i = torch.empty((b, splits * k), dtype=torch.int32, device=q.device)
+    if b:
+        with torch.cuda.device(q.device):
+            _launch("distance_topk", _ptr(db),
+                    None if scales is None else _ptr(scales), _ptr(q),
+                    _ptr(part_d), _ptr(part_i), b, n, d, k, splits, rows, l2,
+                    _ROW_DTYPES[db.dtype], small, _aligned16(db), _stream(q))
+    return _ref.smallest_k(part_d, part_i, k)

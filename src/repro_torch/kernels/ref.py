@@ -30,6 +30,41 @@ def gather_distance_ref(vectors: torch.Tensor, q: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# exact search
+# ---------------------------------------------------------------------------
+def smallest_k(d: torch.Tensor, ids: torch.Tensor, k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest entries of each row of d [B, W] with their ids,
+    ordered by (d, id) — provided equal distances already stand in
+    ascending id order along the row, which a stable sort then keeps
+    (``lax.top_k`` puts the lower index first among ties; ``torch.topk``
+    leaves the tie order unspecified)."""
+    o = torch.sort(d, dim=-1, stable=True).indices[:, :k]
+    return torch.gather(d, -1, o), torch.gather(ids, -1, o)
+
+
+def distance_topk_ref(db: torch.Tensor, q: torch.Tensor, k: int, *,
+                      metric: str = "cosine",
+                      scales: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """db [N,D] (f32, bf16 or int8 rows; ``scales`` [N] decodes each row
+    by a multiply), q [B,D] f32 -> (dists [B,k] ascending, ids [B,k]
+    i32), ordered by (d, id). cosine/ip score ``1 - <q, x>``; l2 the
+    expanded ``|q|^2 - 2 <q, x> + |x|^2``, as the TPU kernel computes it."""
+    x = db.float()
+    if scales is not None:
+        x = x * scales.float()[:, None]
+    qf = q.float()
+    s = qf @ x.T
+    if metric in ("cosine", "ip"):
+        d = 1.0 - s
+    else:
+        d = ((qf * qf).sum(-1)[:, None] - 2.0 * s) + (x * x).sum(-1)[None, :]
+    ids = torch.arange(x.shape[0], dtype=torch.int32, device=d.device)
+    return smallest_k(d, ids.expand(d.shape[0], -1), k)
+
+
+# ---------------------------------------------------------------------------
 # fused beam search: shared algorithm + plain version
 # ---------------------------------------------------------------------------
 def next_pow2(n: int) -> int:

@@ -4,6 +4,8 @@ of ``repro/launch/serve.py`` on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --requests 12 --max-new 16 --rag --index hnsw [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --rag --index flat \
+        --index-dtype int8 [--device cpu]
 
 The command line runs the architecture's smoke config with random weights
 from ``--seed``. ``run(cfg, args)`` takes any ``LMConfig`` (``chip_smoke.py``
@@ -11,9 +13,12 @@ passes the full-width one). RAG requests arrive closed-loop (a bounded
 window of outstanding requests is kept topped up); the run reports req/s,
 tok/s, ``overlap_ratio`` and ``slot_occupancy``.
 
-Not ported yet (ROADMAP.md §1), and rejected with ``NotImplementedError``:
-``--tenants``, ``--store-dir``, ``--shards`` > 1, index kinds other than
-hnsw, and lossy ``--index-dtype``.
+``--index flat`` serves exact search under the fp32, bf16 or int8 row
+codec (``--index-dtype``; int8 over-fetches and reranks in fp32);
+``--index hnsw`` serves fp32 rows. Not ported yet (ROADMAP.md §1), and
+rejected with ``NotImplementedError``: ``--tenants``, ``--store-dir``,
+``--shards`` > 1, ``--index ivf|tiered``, and a lossy ``--index-dtype``
+with hnsw.
 """
 from __future__ import annotations
 
@@ -81,10 +86,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--index", default="hnsw",
                     choices=("flat", "ivf", "hnsw", "tiered"),
                     help="VectorIndex backend for the RAG retriever "
-                         "(only hnsw is ported)")
+                         "(flat and hnsw are ported)")
     ap.add_argument("--index-dtype", default=None,
                     choices=("fp32", "bf16", "int8"),
-                    help="row-storage codec (only fp32 is ported)")
+                    help="row-storage codec (flat: all three; hnsw: fp32)")
     ap.add_argument("--beam-impl", default=None, choices=("fused", "jnp"),
                     help="HNSW layer-0 beam: 'fused' runs the whole "
                          "ef-beam as one kernel launch; 'jnp' is the "

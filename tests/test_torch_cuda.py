@@ -97,3 +97,78 @@ def test_flash_decode_kernel_matches_plain(cuda_device, g, dh, s):
     torch.testing.assert_close(tops.flash_decode(*args),
                                tref.flash_decode_ref(*args),
                                rtol=0, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# distance_topk (ops.flat_topk)
+# ---------------------------------------------------------------------------
+def _encoded(codec_name, x, device):
+    """fp32 rows -> (device rows, device scales or None) through the port's
+    codec."""
+    from repro_torch.core.codec import device_rows, get_codec
+    enc, scales = get_codec(codec_name).encode(x)
+    return (device_rows(enc, device),
+            None if scales is None else device_rows(scales, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("metric", ["cosine", "ip", "l2"])
+@pytest.mark.parametrize("b,n,d,k", [(1, 5000, 384, 10), (7, 997, 30, 5),
+                                     (130, 3000, 64, 64)])
+def test_flat_topk_kernel_matches_plain(cuda_device, codec, metric, b, n, d,
+                                        k):
+    """Random rows: both tiles (B <= 8 and larger), D % 16 != 0 (scalar
+    row loads), k up to 64. Distances to 1e-5 where the ids agree."""
+    rng = np.random.default_rng(30)
+    x = _unit(rng.normal(size=(n, d)))
+    db, scales = _encoded(codec, x, cuda_device)
+    q = _t(_unit(rng.normal(size=(b, d)))).to(cuda_device)
+    kd, ki = tops.flat_topk(db, q, k, metric=metric, scales=scales)
+    rd, ri = tref.distance_topk_ref(db, q, k, metric=metric, scales=scales)
+    assert ki.dtype == ri.dtype == torch.int32 and ki.shape == (b, k)
+    same = (ki == ri).all(dim=1)
+    assert same.float().mean().item() >= 0.9
+    torch.testing.assert_close(kd[same], rd[same], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("b,n,k", [(3, 771, 10), (100, 1027, 10),
+                                   (5, 4000, 64), (9, 300, 200)])
+def test_flat_topk_kernel_exact_on_integer_ties(cuda_device, codec, b, n, k):
+    """Integer-valued l2 rows in [-2, 2] (exact arithmetic, many equal
+    distances): ids and distances equal the plain version's, ties broken
+    on the smaller id. N = 771 at B 3 and 1027 at B 100 leave the last row
+    range 3 rows, fewer than k; k = 200 takes the widest list."""
+    rng = np.random.default_rng(31)
+    x = rng.integers(-2, 3, size=(n, 32)).astype(np.float32)
+    qn = rng.integers(-2, 3, size=(b, 32)).astype(np.float32)
+    if codec == "int8":
+        db = _t(x.astype(np.int8)).to(cuda_device)
+        scales = torch.ones(n, device=cuda_device)
+    else:
+        db, scales = _encoded(codec, x, cuda_device)
+    q = _t(qn).to(cuda_device)
+    kd, ki = tops.flat_topk(db, q, k, metric="l2", scales=scales)
+    rd, ri = tref.distance_topk_ref(db, q, k, metric="l2", scales=scales)
+    torch.testing.assert_close(ki, ri, rtol=0, atol=0)
+    torch.testing.assert_close(kd, rd, rtol=0, atol=0)
+    assert int(ki.max()) < n and int(ki.min()) >= 0
+
+
+@pytest.mark.cuda
+def test_flat_topk_kernel_short_last_range(cuda_device):
+    """The last row range holds 3 rows, fewer than k: its empty slots
+    (INF, -1) never reach the merged result, and no id >= N appears."""
+    from repro_torch.core import dispatch
+    small, splits, rows = tops._topk_plan(3, 771, cuda_device)
+    assert small and 0 < 771 - (splits - 1) * rows < 10
+    rng = np.random.default_rng(32)
+    db = _t(_unit(rng.normal(size=(771, 64)))).to(cuda_device)
+    q = _t(_unit(rng.normal(size=(3, 64)))).to(cuda_device)
+    dispatch.reset()
+    kd, ki = tops.flat_topk(db, q, 10)
+    assert dispatch.get("kernel.distance_topk") == 1
+    assert bool((ki >= 0).all()) and bool((ki < 771).all())
+    assert bool((kd < 1e30).all())

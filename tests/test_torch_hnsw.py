@@ -215,14 +215,14 @@ def test_hnsw_incremental_sync_matches_full_upload():
 
 def test_unported_surface_raises_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("flat", device="cpu")
+        tmake_index("ivf", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmake_index("hnsw", device="cpu", n_shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmake_index("hnsw", device="cpu", dtype="int8")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmake_index("hnsw", device="cpu", store="/nonexistent")
-    idx = tmake_index("hnsw", device="cpu")
+    idx = tmake_index("flat", device="cpu")
     idx.insert("a", np.ones(4, np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.exact_query(np.ones(4, np.float32))
+        idx.compact()

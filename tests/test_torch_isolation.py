@@ -72,6 +72,7 @@ def test_entry_points_refuse_missing_card(monkeypatch):
     cfg = get_smoke_config("llama3-8b")
     for call in (lambda: HNSW(),
                  lambda: make_index("hnsw"),
+                 lambda: make_index("flat", dtype="int8"),
                  lambda: RAGPipeline(),
                  lambda: tf.init_lm(cfg),
                  lambda: tf.init_cache(cfg, 1, 8),
@@ -83,6 +84,7 @@ def test_entry_points_refuse_missing_card(monkeypatch):
     idx = HNSW(device="cpu")
     idx.insert("a", np.ones(4, np.float32))
     assert idx.query(np.ones(4, np.float32), k=1)[0] == ["a"]
+    assert idx.exact_query(np.ones(4, np.float32), k=1)[0] == ["a"]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
