@@ -13,12 +13,15 @@ Phases (none catches an exception; any failure exits non-zero):
    sizes — MeMemo's 1M x 384 cosine corpus (configs/mememo.py) and the
    llama3-8b decode geometry — each timed with CUDA events beside its
    plain version, its bound and, where PyTorch computes the same function,
-   that call. ``distance_topk`` runs on the rows of a 1M x 384
-   ``FlatVectorIndex`` under each codec (fp32, bf16, int8), at B 1 and
-   128, k 10, on random cosine rows, on integer-valued l2 rows (exact),
-   and on a row count whose last row range holds fewer than k rows; then
-   the 64- and 256-slot lists (k 40, 200), the ip metric and scalar row
-   loads (D 30) on the same rows.
+   that call. ``gather_distance`` and ``beam_search`` run on the same rows,
+   graph, queries and ids under each row codec (fp32; bf16; int8 +
+   scales, encoded by the port's codec), and exactly on integer-valued l2
+   rows (int8 with scales 1.0). ``distance_topk`` runs on the rows of a
+   1M x 384 ``FlatVectorIndex`` under each codec, at B 1 and 128, k 10, on
+   random cosine rows, on integer-valued l2 rows (exact), and on a row
+   count whose last row range holds fewer than k rows; then the 64- and
+   256-slot lists (k 40, 200), the ip metric and scalar row loads (D 30)
+   on the same rows.
 3. The HNSW served path, through ``repro_torch.launch.serve.run`` with
    ``--rag --index hnsw``: full-width llama3-8b (all 32 layers, fp32
    random weights from a seeded ``torch.Generator``) over the built-in
@@ -37,8 +40,27 @@ Phases (none catches an exception; any failure exits non-zero):
    per decode tick; the served keys must equal a CPU ``FlatVectorIndex``
    (int8) of the same corpus, and the kernel's over-fetched candidates
    on the served rows must equal its plain version's. fp32 and bf16 flat
-   indexes on the card must return the CPU's keys, and the fp32 keys must
-   equal phase 3's ``exact_query``.
+   indexes on the card (each run counted) must return the CPU's keys, and
+   the fp32 keys must equal phase 3's ``exact_query``.
+5. The bulk builder: (a) ``bulk_build`` of 20,000 x 64 integer-valued l2
+   rows (M 8, efConstruction 40, batch 1024) on the card equals the same
+   call on the CPU bit for bit; (b) ``make_index("hnsw", M=5,
+   ef_construction=20, use_bulk_build=True, dtype="int8")`` bulk-inserts
+   MeMemo's ``build_1m`` shape (1M x 384 seeded cosine rows): wall time,
+   ``hnsw.h2d_bytes``, kernel launches and the resident device bytes
+   (rows x (384 + 4) plus the graph); ``query_batch`` at ef 64, k 10 over
+   1,024 queries must return the keys of a CPU search of the same host
+   graph on >= 99 % of a 256-query sample; recall@10 against
+   ``exact_query``, and on a 20,000-row prefix the bulk and the
+   sequential builder's recall (bulk >= sequential - 0.05); (c) a
+   32,768-row prefix build, timed and then traced, gives the device's
+   busy and idle share of a build.
+6. The HNSW served path over int8 rows, ``--rag --index hnsw
+   --index-dtype int8``, with the same model shape, corpus and requests:
+   the int8 instances of ``gather_distance`` and ``beam_search`` and
+   ``flash_decode`` must launch; the served keys must equal a CPU
+   ``HNSW(dtype="int8")`` of the same corpus; a bf16 HNSW of the corpus
+   (its run counted) must return the CPU's keys.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -68,10 +90,35 @@ TOPK_K, TOPK_BATCHES = 10, (1, 128)      # configs/base.py retrieval_cand
 CODECS = ("fp32", "bf16", "int8")
 DEC_B, DEC_H, DEC_KVH, DEC_DH, DEC_S = 8, 32, 8, 128, 8192
 SYNTHETIC_DOCS = 2000
+# bulk build: (a) integer-valued l2 rows, card == CPU bit for bit; (b)
+# configs/mememo.py build_1m in int8; its query sample held against the
+# CPU; (c) a prefix build traced for the device's busy share
+BULK_INT = dict(rows=20_000, dim=64, M=8, ef_construction=40,
+                batch_size=1024)
+BULK_ROWS, BULK_QUERIES, BULK_SAMPLE = 1_000_000, 1024, 256
+PROFILE_ROWS = 32_768
+QUALITY_ROWS = 20_000
 # the kernels each served path must launch
 HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
              "kernel.flash_decode")
 FLAT_PATH = ("kernel.distance_topk", "kernel.flash_decode")
+HNSW_INT8_PATH = ("kernel.gather_distance.int8", "kernel.beam_search.int8",
+                  "kernel.flash_decode")
+# kernel record -> the run of the main path whose launches it reports
+MAIN_PATH = {
+    "gather_distance.fp32": "hnsw fp32", "beam_search.fp32": "hnsw fp32",
+    "flash_decode": "hnsw fp32",
+    "gather_distance.bf16": "hnsw bf16", "beam_search.bf16": "hnsw bf16",
+    "gather_distance.int8": "hnsw int8", "beam_search.int8": "hnsw int8",
+    "distance_topk.fp32": "flat fp32", "distance_topk.bf16": "flat bf16",
+    "distance_topk.int8": "flat int8",
+}
+REPLACES = {
+    "gather_distance": "src/repro/kernels/gather_distance.py:170",
+    "beam_search": "src/repro/kernels/beam_search.py:269",
+    "flash_decode": "src/repro/kernels/flash_decode.py:94",
+    "distance_topk": "src/repro/kernels/distance_topk.py:146",
+}
 
 
 def log(msg: str) -> None:
@@ -139,6 +186,122 @@ def phase_environment(torch):
     return smi
 
 
+def encode_rows(torch, x, codec: str, integer: bool = False):
+    """fp32 rows on the card -> (rows, scales or None) of ``codec``, encoded
+    by the port's codec on the host. ``integer``: integer-valued rows,
+    which bf16 holds exactly and int8 holds as themselves with scales 1.0,
+    so that every distance stays exact."""
+    import numpy as np
+    from repro_torch.core.codec import device_rows, get_codec
+
+    if codec == "fp32":
+        return x, None
+    if integer and codec == "int8":
+        return x.to(torch.int8), torch.ones(x.shape[0], device=x.device)
+    enc, scales = get_codec(codec).encode(x.cpu().numpy())
+    return (device_rows(enc, x.device),
+            None if scales is None else torch.from_numpy(
+                np.ascontiguousarray(scales)).to(x.device))
+
+
+def row_bytes(rows, scales) -> int:
+    """Bytes one row of ``rows`` occupies, its scale included."""
+    return rows.shape[1] * rows.element_size() + (0 if scales is None else 4)
+
+
+def check_gather(torch, codec, rows, scales, q, id_sets) -> dict:
+    """``gather_distance`` on ``rows`` (1M x 384 of ``codec``) against its
+    plain version, within 1e-5; timed cold over 8 id sets."""
+    from repro_torch.kernels import ops, ref
+
+    ids = id_sets[0]
+    got = ops.gather_distance(rows, q, ids, scales=scales)
+    want = ref.gather_distance_ref(rows, q, ids, scales=scales)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5, f"gather_distance {codec}: max abs err {err}"
+    # bytes: each distinct row (+ scale) once, q, ids, out; operations: a
+    # multiply-add per element, plus the decode multiply under int8
+    n_rows = torch.unique(ids).numel()
+    per_elem = 2.0 if scales is None else 3.0
+    b_ms, b_by = bound(n_rows * row_bytes(rows, scales) + q.numel() * 4
+                       + ids.numel() * 8, per_elem * ids.numel() * q.shape[1])
+    cyc = itertools.cycle(id_sets)
+    rec = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: ops.gather_distance(
+            rows, q, next(cyc), scales=scales), 48),
+        plain_ms=time_ms(torch, lambda: ref.gather_distance_ref(
+            rows, q, next(cyc), scales=scales), 24),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none",
+        shapes=f"vectors {rows.shape[0]}x{rows.shape[1]} {codec}"
+               + ("" if scales is None else " + scales")
+               + f", q {q.shape[0]}x{q.shape[1]}, ids {tuple(ids.shape)}")
+    log(f"gather_distance {codec} " + json.dumps(rec))
+    return rec
+
+
+def check_beam(torch, codec, rows, scales, nbrs, q, ep, irows, iscales,
+               qint) -> dict:
+    """``beam_search`` on ``rows`` (1M x 384 of ``codec``) against its plain
+    version at T 4 and 1: ids equal on >= 99 % of queries, recall@10
+    against it >= 0.999, distances within 1e-5 where the ids agree; on
+    integer-valued l2 rows ids and distances exactly equal."""
+    from repro_torch.kernels import ops, ref
+
+    ep_d = ref.gather_distance_ref(rows, q, ep[:, None],
+                                   scales=scales)[:, 0].contiguous()
+    ep_di = ref.gather_distance_ref(irows, qint, ep[:, None], metric="l2",
+                                    scales=iscales)[:, 0].contiguous()
+    beam = {}
+    for t in (4, 1):
+        kw = dict(ef=EF, expand_t=t, scales=scales)
+        ki, kd = ops.beam_search(rows, nbrs, q, ep, ep_d, **kw)
+        # the plain version's traversal says what work the search needs:
+        # the distinct rows and neighbor lists all queries touch
+        ri, rd, seen = ref.beam_search_ref(rows, nbrs, q, ep, ep_d,
+                                           return_visited=True, **kw)
+        torch.cuda.synchronize()
+        same = (ki == ri).all(dim=1)
+        frac = same.float().mean().item()
+        err = (kd[same] - rd[same]).abs().max().item()
+        hit = (ki[:, :10, None] == ri[:, None, :10]).any(-1).float()
+        recall = hit.mean().item()
+        what = f"beam_search {codec} T={t}"
+        assert frac >= 0.99, f"{what}: ids equal on {frac} of rows"
+        assert err <= 1e-5, f"{what}: dist err {err}"
+        assert recall >= 0.999, f"{what}: recall@10 {recall}"
+        ikw = dict(ef=EF, expand_t=t, scales=iscales, metric="l2")
+        ki2, kd2 = ops.beam_search(irows, nbrs, qint, ep, ep_di, **ikw)
+        ri2, rd2 = ref.beam_search_ref(irows, nbrs, qint, ep, ep_di, **ikw)
+        torch.cuda.synchronize()
+        assert bool((ki2 == ri2).all()), f"{what} l2: ids differ"
+        assert bool((kd2 == rd2).all()), f"{what} l2: dists differ"
+        n_rows = int(seen["rows"].sum().item())
+        n_lists = int(seen["lists"].sum().item())
+        per_elem = 2.0 if scales is None else 3.0
+        b_ms, b_by = bound(n_rows * row_bytes(rows, scales)
+                           + n_lists * M2 * 4 + q.numel() * 4
+                           + N_QUERIES * 8 + N_QUERIES * EF * 8,
+                           per_elem * seen["pairs"] * q.shape[1])
+        beam[t] = dict(
+            max_abs_err=err, ids_equal_rows=frac, recall_at_10=recall,
+            int_l2_exact=True, distinct_rows=n_rows, distinct_lists=n_lists,
+            query_row_pairs=seen["pairs"],
+            ms=time_ms(torch, lambda: ops.beam_search(
+                rows, nbrs, q, ep, ep_d, **kw), 10),
+            plain_ms=time_ms(torch, lambda: ref.beam_search_ref(
+                rows, nbrs, q, ep, ep_d, **kw), 2, warmup=1),
+            bound_ms=b_ms, bound_by=b_by)
+        log(f"{what} " + json.dumps(beam[t]))
+    return dict(
+        beam[4], library_ms=None, library="none", t1=beam[1],
+        shapes=f"vectors {rows.shape[0]}x{rows.shape[1]} {codec}"
+               + ("" if scales is None else " + scales")
+               + f", neighbors0 {nbrs.shape[0]}x{M2} (10% -1), "
+               f"B {q.shape[0]}, ef {EF}, T 4 (t1: T 1)")
+
+
 def phase_kernels(torch) -> dict:
     """Each kernel against its plain version at the main path's sizes."""
     from repro_torch.kernels import ops, ref
@@ -153,92 +316,38 @@ def phase_kernels(torch) -> dict:
     vec = unit(torch.randn(N_VECTORS, DIM, device=dev, generator=gen))
     q = unit(torch.randn(N_QUERIES, DIM, device=dev, generator=gen))
 
-    # -- gather_distance ------------------------------------------------
+    # -- gather_distance and beam_search, per row codec ------------------
     ids = torch.randint(0, N_VECTORS, (N_QUERIES, K_GATHER), device=dev,
                         generator=gen, dtype=torch.int32)
-    got = ops.gather_distance(vec, q, ids)
-    want = ref.gather_distance_ref(vec, q, ids)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    assert err <= 1e-5, f"gather_distance max abs err {err}"
-    rows = torch.unique(ids).numel()
-    b_ms, b_by = bound(rows * DIM * 4 + q.numel() * 4 + ids.numel() * 8,
-                       2.0 * ids.numel() * DIM)
-    # one call's rows (~50 MB) would fit the 50 MB L2: timed calls cycle
-    # through 8 id sets so that every call finds its rows cold, as the
-    # greedy descent does
-    id_sets = itertools.cycle([ids] + [
+    # one call's rows (~50 MB in fp32) would fit the 50 MB L2: timed calls
+    # cycle through 8 id sets so that every call finds its rows cold, as
+    # the greedy descent does
+    id_sets = [ids] + [
         torch.randint(0, N_VECTORS, ids.shape, device=dev, generator=gen,
-                      dtype=torch.int32) for _ in range(7)])
-    out["gather_distance"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: ops.gather_distance(vec, q, next(id_sets)),
-                   48),
-        plain_ms=time_ms(torch, lambda: ref.gather_distance_ref(
-            vec, q, next(id_sets)), 24),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shapes=f"vectors {N_VECTORS}x{DIM} f32, q {N_QUERIES}x{DIM}, "
-               f"ids {N_QUERIES}x{K_GATHER}")
-    log("gather_distance " + json.dumps(out["gather_distance"]))
-
-    # -- beam_search ----------------------------------------------------
+                      dtype=torch.int32) for _ in range(7)]
     nbrs = torch.randint(0, N_VECTORS, (N_VECTORS, M2), device=dev,
                          generator=gen, dtype=torch.int32)
     pad = torch.rand(N_VECTORS, M2, device=dev, generator=gen) < 0.1
     nbrs = torch.where(pad, -1, nbrs).contiguous()           # -1 padding
     ep = torch.randint(0, N_VECTORS, (N_QUERIES,), device=dev, generator=gen,
                        dtype=torch.int32)
-    ep_d = ref.gather_distance_ref(vec, q, ep[:, None])[:, 0].contiguous()
     # integer-valued rows with l2: exact arithmetic, so ids must match
     vint = torch.randint(-3, 4, (N_VECTORS, DIM), device=dev,
                          generator=gen).float()
     qint = torch.randint(-3, 4, (N_QUERIES, DIM), device=dev,
                          generator=gen).float()
-    ep_di = ref.gather_distance_ref(vint, qint, ep[:, None],
-                                    metric="l2")[:, 0].contiguous()
-    beam = {}
-    for t in (4, 1):
-        ki, kd = ops.beam_search(vec, nbrs, q, ep, ep_d, ef=EF, expand_t=t)
-        # the plain version's traversal says what work the search needs:
-        # the distinct rows and neighbor lists all queries touch
-        ri, rd, seen = ref.beam_search_ref(vec, nbrs, q, ep, ep_d, ef=EF,
-                                           expand_t=t, return_visited=True)
-        torch.cuda.synchronize()
-        same = (ki == ri).all(dim=1)
-        frac = same.float().mean().item()
-        err = (kd[same] - rd[same]).abs().max().item()
-        hit = (ki[:, :10, None] == ri[:, None, :10]).any(-1).float()
-        recall = hit.mean().item()
-        assert frac >= 0.99, f"beam_search T={t}: ids equal on {frac} of rows"
-        assert err <= 1e-5, f"beam_search T={t}: dist err {err}"
-        assert recall >= 0.999, f"beam_search T={t}: recall@10 {recall}"
-        ki2, kd2 = ops.beam_search(vint, nbrs, qint, ep, ep_di, ef=EF,
-                                   expand_t=t, metric="l2")
-        ri2, rd2 = ref.beam_search_ref(vint, nbrs, qint, ep, ep_di, ef=EF,
-                                       expand_t=t, metric="l2")
-        torch.cuda.synchronize()
-        assert bool((ki2 == ri2).all()), f"beam_search T={t} l2: ids differ"
-        assert bool((kd2 == rd2).all()), f"beam_search T={t} l2: dists differ"
-        n_rows = int(seen["rows"].sum().item())
-        n_lists = int(seen["lists"].sum().item())
-        b_ms, b_by = bound(n_rows * DIM * 4 + n_lists * M2 * 4
-                           + q.numel() * 4 + N_QUERIES * 8
-                           + N_QUERIES * EF * 8, 2.0 * seen["pairs"] * DIM)
-        beam[t] = dict(
-            max_abs_err=err, ids_equal_rows=frac, recall_at_10=recall,
-            distinct_rows=n_rows, distinct_lists=n_lists,
-            query_row_pairs=seen["pairs"],
-            ms=time_ms(torch, lambda: ops.beam_search(
-                vec, nbrs, q, ep, ep_d, ef=EF, expand_t=t), 10),
-            plain_ms=time_ms(torch, lambda: ref.beam_search_ref(
-                vec, nbrs, q, ep, ep_d, ef=EF, expand_t=t), 2, warmup=1),
-            bound_ms=b_ms, bound_by=b_by)
-        log(f"beam_search T={t} " + json.dumps(beam[t]))
-    out["beam_search"] = dict(
-        beam[4], library_ms=None, t1=beam[1],
-        shapes=f"vectors {N_VECTORS}x{DIM} f32, neighbors0 {N_VECTORS}x{M2}"
-               f" (10% -1), B {N_QUERIES}, ef {EF}, T 4 (t1: T 1)")
-    del nbrs, pad, vec, q, ids, vint, qint
+    del pad
+    for codec in CODECS:
+        rows, scales = encode_rows(torch, vec, codec)
+        irows, iscales = encode_rows(torch, vint, codec, integer=True)
+        out[f"gather_distance.{codec}"] = check_gather(
+            torch, codec, rows, scales, q, id_sets)
+        out[f"beam_search.{codec}"] = check_beam(
+            torch, codec, rows, scales, nbrs, q, ep, irows, iscales, qint)
+        del rows, scales, irows, iscales
+        torch.cuda.empty_cache()
+    del nbrs, vec, q, ids, id_sets, vint, qint
+    torch.cuda.empty_cache()
 
     # -- flash_decode ---------------------------------------------------
     import torch.nn.functional as F
@@ -276,7 +385,7 @@ def phase_kernels(torch) -> dict:
     log("flash_decode " + json.dumps(out["flash_decode"]))
     del qd, kd, vd
     torch.cuda.empty_cache()
-    out["distance_topk"] = check_distance_topk(torch, dev, gen)
+    out.update(check_distance_topk(torch, dev, gen))
     return out
 
 
@@ -473,17 +582,16 @@ def check_distance_topk(torch, dev, gen) -> dict:
         log(f"distance_topk {codec} index " + json.dumps(recs[codec]))
         del idx, flat, db, scales, dbi, scl_i, xf
         torch.cuda.empty_cache()
-    # the served codec (int8) at B 1 heads the record; every cell beside it
-    out = dict(recs[("int8", 1)])
-    out.update(
-        library="torch.mm (TF32 off) + torch.topk on the decoded fp32 rows:"
-                " no single PyTorch call computes this function",
-        shapes=f"db {N_VECTORS}x{DIM} (rows of a FlatVectorIndex), k {k}, "
-               f"cosine; head: int8 B 1",
-        cells={f"{c} B{b}": recs[(c, b)] for c in CODECS
-               for b in TOPK_BATCHES},
-        device_block_bytes={c: recs[c]["device_block_bytes"]
-                            for c in CODECS})
+    # one record per codec, headed by its B 1 cell, with both cells beside
+    out = {}
+    for c in CODECS:
+        out[f"distance_topk.{c}"] = dict(
+            recs[(c, 1)],
+            library="torch.mm (TF32 off) + torch.topk on the decoded fp32 "
+                    "rows: no single PyTorch call computes this function",
+            shapes=f"db {N_VECTORS}x{DIM} {c} (rows of a FlatVectorIndex),"
+                   f" k {k}, cosine; head: B 1",
+            cells={f"B{b}": recs[(c, b)] for b in TOPK_BATCHES}, **recs[c])
     return out
 
 
@@ -620,6 +728,7 @@ def phase_serve(torch) -> dict:
 def phase_serve_flat(torch, exact_keys) -> dict:
     """The flat served path (int8 rows) at full width; then fp32 and bf16
     flat indexes of the same corpus, on the card against the CPU."""
+    from repro_torch.core import dispatch
     from repro_torch.core.flat import FlatVectorIndex
 
     cfg, args, corpus, res, out = served_run(
@@ -649,7 +758,11 @@ def phase_serve_flat(torch, exact_keys) -> dict:
     assert got == want, f"served flat keys {got} != CPU index {want}"
     out["keys"] = {"int8 served": got}
     for dtype in ("fp32", "bf16"):
-        card, cpu = flat_keys(dtype, "cuda"), flat_keys(dtype, "cpu")
+        # each codec's own run of the flat path, counted
+        dispatch.reset()
+        card = flat_keys(dtype, "cuda")
+        out[f"counters_{dtype}"] = dispatch.snapshot()
+        cpu = flat_keys(dtype, "cpu")
         assert card == cpu, f"flat {dtype}: card {card} != CPU {cpu}"
         out["keys"][dtype] = card
     assert out["keys"]["fp32"] == exact_keys, \
@@ -679,6 +792,219 @@ def check_overfetch(torch, idx, qv, k: int) -> dict:
     return {"rows": flat.n, "queries": q.shape[0], "k": kk,
             "ids_equal_rows": frac,
             "max_abs_err": (got[0] - want[0]).abs().max().item()}
+
+
+def phase_bulk(torch) -> dict:
+    """The bulk builder on the card: (a) bit identity with the CPU on
+    integer-valued l2 rows; (b) an int8 ``HNSW(use_bulk_build=True)`` at
+    MeMemo's ``build_1m`` shape, its resident bytes, its ``query_batch``
+    against a CPU search of the same host graph, its recall against
+    ``exact_query``, and the bulk and sequential builders' recall on a
+    prefix; (c) the device's busy share over a prefix build."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.mememo import CONFIG
+    from repro_torch.core import dispatch
+    from repro_torch.core import hnsw_build as tb
+    from repro_torch.core.index import make_index
+
+    out = {}
+    # (a) integer-valued l2 rows: exact arithmetic, so the card's graph
+    # must equal the CPU's bit for bit
+    n, d = BULK_INT["rows"], BULK_INT["dim"]
+    xi = np.random.default_rng(7).integers(-3, 4, size=(n, d)).astype(
+        np.float32)
+    kw = dict(M=BULK_INT["M"], ef_construction=BULK_INT["ef_construction"],
+              batch_size=BULK_INT["batch_size"], metric="l2", seed=0)
+    dispatch.reset()
+    t0 = time.perf_counter()
+    g_card = tb.bulk_build(xi, device="cuda", **kw)
+    card_s = time.perf_counter() - t0
+    counts = dispatch.snapshot()
+    t0 = time.perf_counter()
+    g_cpu = tb.bulk_build(xi, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    for name in ("neighbors0", "upper", "levels", "vectors"):
+        assert np.array_equal(getattr(g_card, name), getattr(g_cpu, name)), \
+            f"bulk_build on the card: {name} differs from the CPU's"
+    assert (g_card.entry, g_card.max_level) == (g_cpu.entry, g_cpu.max_level)
+    out["int_l2_bit_identical"] = dict(
+        BULK_INT, card_s=card_s, cpu_s=cpu_s, max_level=g_card.max_level,
+        beam_search_launches=counts["kernel.beam_search.fp32"],
+        gather_distance_launches=counts["kernel.gather_distance.fp32"])
+    log("bulk_build card == CPU bit for bit on integer l2 rows "
+        + json.dumps(out["int_l2_bit_identical"]))
+    del g_card, g_cpu, xi
+
+    # (b) the paper's build: 1M x 384 cosine rows, M 5, efC 20, int8
+    cfg = CONFIG.model
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(BULK_ROWS, cfg.dim, device="cuda", generator=gen)
+    qs = torch.randn(BULK_QUERIES, cfg.dim, device="cuda",
+                     generator=gen).cpu().numpy()
+    x = x.cpu().numpy()
+    keys = [f"v{i}" for i in range(BULK_ROWS)]
+    idx = make_index("hnsw", dim=cfg.dim, metric=cfg.metric, M=cfg.M,
+                     ef_construction=cfg.ef_construction,
+                     ef_search=cfg.ef_search, use_bulk_build=True,
+                     dtype="int8", device="cuda")
+    dispatch.reset()
+    t0 = time.perf_counter()
+    idx.bulk_insert(keys, x)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_counts = dispatch.snapshot()
+    batches = -(-(BULK_ROWS - 256) // 1024)
+    dispatch.reset("hnsw.h2d_bytes")
+    t0 = time.perf_counter()
+    dg = idx._dg()                        # the resident int8 graph
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    nb = {name: t.numel() * t.element_size() for name, t in (
+        ("vectors", dg.vectors), ("scales", dg.scales),
+        ("neighbors0", dg.neighbors0), ("upper", dg.upper),
+        ("levels", dg.levels), ("deleted", dg.deleted))}
+    adjacency = nb["neighbors0"] + nb["upper"]
+    assert dg.vectors.dtype == torch.int8
+    assert nb["vectors"] + nb["scales"] == BULK_ROWS * (cfg.dim + 4)
+    assert sum(nb.values()) == (BULK_ROWS * (cfg.dim + 4) + adjacency
+                                + nb["levels"] + nb["deleted"])
+    rec = dict(
+        rows=BULK_ROWS, dim=cfg.dim, M=cfg.M,
+        ef_construction=cfg.ef_construction, dtype="int8", batch_size=1024,
+        bootstrap=256, batches=batches, build_s=build_s,
+        build_s_per_batch=build_s / batches, rows_per_s=BULK_ROWS / build_s,
+        build_h2d_bytes=build_counts["hnsw.h2d_bytes"],
+        beam_search_launches=build_counts["kernel.beam_search"],
+        gather_distance_launches=build_counts["kernel.gather_distance"],
+        host_syncs=build_counts.get("hnsw.host_syncs", 0),
+        max_level=dg.max_level, upload_s=upload_s,
+        upload_h2d_bytes=dispatch.get("hnsw.h2d_bytes"),
+        resident_bytes=sum(nb.values()), resident_by_tensor=nb,
+        rows_and_scales_bytes=nb["vectors"] + nb["scales"],
+        adjacency_bytes=adjacency)
+    assert rec["beam_search_launches"] == batches
+    log("bulk build, MeMemo build_1m in int8 " + json.dumps(rec))
+    out["build_1m_int8"] = rec
+
+    # query_batch at ef 64, k 10 (over-fetch k * 4, host rerank), then the
+    # same host graph searched on the CPU through the plain versions
+    idx.query_batch(qs[:8], k=10, ef=64)                 # warm
+    dispatch.reset()
+    t0 = time.perf_counter()
+    got, _ = idx.query_batch(qs, k=10, ef=64)
+    query_s = time.perf_counter() - t0
+    query_counts = dispatch.snapshot()
+    on_cpu = copy.copy(idx)
+    on_cpu.device = torch.device("cpu")
+    on_cpu._device_graph = None
+    want, _ = on_cpu.query_batch(qs[:BULK_SAMPLE], k=10, ef=64)
+    same = sum(g == w for g, w in zip(got, want)) / BULK_SAMPLE
+    assert same >= 0.99, f"1M int8 index: card == CPU on {same} of queries"
+    exact, _ = idx.exact_query(qs, k=10)
+    recall = sum(len(set(g) & set(e)) for g, e in zip(got, exact)) / (
+        10 * len(exact))
+    out["query_1m_int8"] = dict(
+        queries=BULK_QUERIES, k=10, ef=64, over_fetch=40,
+        wall_s=query_s, queries_per_s=BULK_QUERIES / query_s,
+        counters=query_counts, cpu_sample=BULK_SAMPLE,
+        keys_equal_cpu_rows=same, recall_at_10_vs_exact=recall)
+    log("1M int8 query_batch " + json.dumps(out["query_1m_int8"]))
+    out["build_counters"], out["query_counters"] = build_counts, query_counts
+    del idx, on_cpu, dg
+    release(torch)
+
+    # what recall random 384-d rows allow at M 5: the bulk and the
+    # sequential builder on a prefix, searched on the card, held to the
+    # reference's criterion (tests/test_build.py: bulk >= sequential - 0.05)
+    rq = {}
+    for name, bulk in (("sequential", False), ("bulk", True)):
+        idx = make_index("hnsw", dim=cfg.dim, metric=cfg.metric, M=cfg.M,
+                         ef_construction=cfg.ef_construction,
+                         use_bulk_build=bulk, device="cuda")
+        t0 = time.perf_counter()
+        idx.bulk_insert(keys[:QUALITY_ROWS], x[:QUALITY_ROWS])
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        got, _ = idx.query_batch(qs, k=10, ef=64)
+        exact, _ = idx.exact_query(qs, k=10)
+        rq[name] = dict(build_s=built, recall_at_10_vs_exact=sum(
+            len(set(g) & set(e)) for g, e in zip(got, exact)) / (
+                10 * len(exact)))
+    assert (rq["bulk"]["recall_at_10_vs_exact"]
+            >= rq["sequential"]["recall_at_10_vs_exact"] - 0.05), rq
+    out["prefix_quality"] = dict(rows=QUALITY_ROWS, dtype="fp32", ef=64,
+                                 **rq)
+    log("bulk vs sequential builder on a prefix "
+        + json.dumps(out["prefix_quality"]))
+    del idx
+
+    # (c) where a batch's time goes: a prefix build at the same widths,
+    # timed, then traced -> the device's busy and idle share
+    xp = x[:PROFILE_ROWS]
+    pkw = dict(M=cfg.M, ef_construction=cfg.ef_construction, device="cuda")
+    t0 = time.perf_counter()
+    tb.bulk_build(xp, **pkw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tb.bulk_build(xp, **pkw)
+        torch.cuda.synchronize()
+    busy = sum(r.self_device_time_total for r in prof.key_averages()
+               if r.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    top = sorted(((r.key, r.self_device_time_total / 1e3)
+                  for r in prof.key_averages()
+                  if r.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda kv: -kv[1])[:6]
+    pb = -(-(PROFILE_ROWS - 256) // 1024)
+    out["profile"] = dict(
+        rows=PROFILE_ROWS, batches=pb, wall_s=wall,
+        wall_s_per_batch=wall / pb, device_busy_s=busy,
+        device_idle_share=1.0 - busy / wall, top_device_ms=dict(top))
+    log("bulk build profile " + json.dumps(out["profile"]))
+    return out
+
+
+def phase_serve_int8(torch) -> dict:
+    """The HNSW served path over int8 rows at full width; then a bf16 HNSW
+    of the same corpus, each on the card against the CPU."""
+    from repro_torch.core import dispatch
+    from repro_torch.core.index import make_index
+
+    cfg, args, corpus, res, out = served_run(
+        torch, ["--index", "hnsw", "--index-dtype", "int8"])
+    log("serve hnsw int8 " + json.dumps(out))
+    counts, es, rs = out["counters"], out["engine"], out["retrieval"]
+    for c in HNSW_INT8_PATH:
+        assert counts.get(c, 0) > 0, f"{c} never launched on the int8 path"
+    assert counts["kernel.beam_search.int8"] == rs["searches"]
+    assert counts["kernel.flash_decode"] == cfg.n_layers * es["decode_ticks"]
+    rag, reqs = res["rag"], res["reqs"]
+    got = [[d.key for d in r.docs] for r in reqs]
+    qv = rag.encoder.encode([r.query for r in reqs])
+    keys = [key for key, _ in corpus]
+    vecs = rag.encoder.encode([text for _, text in corpus])
+    conf = rag.index.config_dict()
+    out["graph_max_level"] = rag.index.host_graph().max_level
+    del res, rag
+
+    def hnsw_keys(dtype, device):
+        idx = make_index("hnsw", device=device, **dict(conf, dtype=dtype))
+        idx.bulk_insert(keys, vecs)
+        return idx.query_batch(qv, k=3)[0]
+
+    want = hnsw_keys("int8", "cpu")
+    assert got == want, f"served hnsw int8 keys {got} != CPU index {want}"
+    out["keys"] = {"int8 served": got}
+    dispatch.reset()
+    card = hnsw_keys("bf16", "cuda")
+    out["counters_bf16"] = dispatch.snapshot()
+    cpu = hnsw_keys("bf16", "cpu")
+    assert card == cpu, f"hnsw bf16: card {card} != CPU {cpu}"
+    out["keys"]["bf16"] = card
+    log("hnsw keys (int8 served == CPU; bf16 card == CPU) "
+        + json.dumps(out["keys"]))
+    return out
 
 
 def release(torch) -> float:
@@ -767,24 +1093,32 @@ def main() -> int:
     log(f"phase 3's model released: {left:.2f} GB still allocated")
     assert left < 8, "phase 3's model is still on the card"
     flat_out = phase_serve_flat(torch, serve_out["exact_keys"])
-    paths = {"hnsw": serve_out["counters"], "flat": flat_out["counters"]}
-    sources = {
-        "gather_distance": ("src/repro/kernels/gather_distance.py:170",
-                            "hnsw"),
-        "beam_search": ("src/repro/kernels/beam_search.py:269", "hnsw"),
-        "flash_decode": ("src/repro/kernels/flash_decode.py:94", "hnsw"),
-        "distance_topk": ("src/repro/kernels/distance_topk.py:146", "flat"),
-    }
+    left = release(torch)
+    assert left < 8, "phase 4's model is still on the card"
+    bulk_out = phase_bulk(torch)
+    left = release(torch)
+    log(f"phase 5 released: {left:.2f} GB still allocated")
+    int8_out = phase_serve_int8(torch)
+    paths = {"hnsw fp32": serve_out["counters"],
+             "flat int8": flat_out["counters"],
+             "flat fp32": flat_out["counters_fp32"],
+             "flat bf16": flat_out["counters_bf16"],
+             "bulk build int8": bulk_out["build_counters"],
+             "bulk query int8": bulk_out["query_counters"],
+             "hnsw int8": int8_out["counters"],
+             "hnsw bf16": int8_out["counters_bf16"]}
     line = []
     for name, rec in kern.items():
-        replaces, main_path = sources[name]
+        base = name.split(".")[0]
+        counter = f"kernel.{name}"
+        launches = paths[MAIN_PATH[name]].get(counter, 0)
+        assert launches > 0, f"{name} never launched on {MAIN_PATH[name]}"
         line.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                     "replaces": replaces,
-                     "launches": paths[main_path][f"kernel.{name}"],
+                     "source": f"src/repro_torch/kernels/csrc/{base}.cu",
+                     "replaces": REPLACES[base], "launches": launches,
+                     "main_path": MAIN_PATH[name],
                      "launches_by_path": {
-                         p: c.get(f"kernel.{name}", 0)
-                         for p, c in paths.items()},
+                         p: c.get(counter, 0) for p, c in paths.items()},
                      **rec})
     log(f"total {time.perf_counter() - t0:.1f}s on {smi}")
     print(json.dumps({"kernels": line}))

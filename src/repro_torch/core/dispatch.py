@@ -8,7 +8,9 @@ and one counter per hand kernel (``kernel.gather_distance``,
 ``kernel.beam_search``, ``kernel.flash_decode``,
 ``kernel.distance_topk``) that ``kernels.ops`` bumps where it launches
 the kernel and nowhere else — the CPU branch, which runs the plain
-PyTorch version, never counts.
+PyTorch version, never counts. Beside each, ``kernel.<name>.<codec>``
+(fp32, bf16, int8) counts the launches of the instance for that row
+codec.
 
 Counters are bumped at the Python boundary. Not thread-safe by design:
 the serving layer serializes device work onto one dispatcher.

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dispatch
+from repro_torch.core.codec import device_rows
 from repro_torch.core.hnsw_build import HNSWGraph
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import lexsort2
@@ -41,8 +42,13 @@ class DeviceGraph:
 
     ``deleted`` is the tombstone mask: tombstoned rows stay traversable
     during the search (hnswlib-style) but are never returned.
+
+    ``vectors`` holds the rows in their storage dtype: f32, or bf16/int8
+    under a lossy codec, with ``scales`` carrying the int8 per-row decode
+    scales. Every distance decodes to fp32 inside the kernels, so device
+    memory holds the small encoding while the math stays fp32.
     """
-    vectors: torch.Tensor      # [N, D] f32 (normalised if cosine)
+    vectors: torch.Tensor      # [N, D] f32/bf16/int8 (normalised if cosine)
     neighbors0: torch.Tensor   # [N, 2M] int32 (-1 pad)
     upper: torch.Tensor        # [L, N, M] int32 (-1 pad); L may be 0
     levels: torch.Tensor       # [N] int32
@@ -50,6 +56,7 @@ class DeviceGraph:
     deleted: torch.Tensor      # [N] bool tombstones
     max_level: int
     metric: str
+    scales: torch.Tensor | None = None   # [N] f32 decode scales (int8)
 
     @property
     def n(self) -> int:
@@ -60,27 +67,46 @@ class DeviceGraph:
         return self.vectors.device
 
 
-def _graph_bytes_per_row(g: HNSWGraph) -> int:
-    return (g.vectors.shape[1] * 4 + 4 * g.neighbors0.shape[1]
-            + 4 * g.upper.shape[0] * (g.upper.shape[2]
-                                      if g.upper.shape[0] else 0) + 4)
+def _adjacency_bytes_per_row(g: HNSWGraph) -> int:
+    return 4 * (g.neighbors0.shape[1]
+                + g.upper.shape[0] * (g.upper.shape[2]
+                                      if g.upper.shape[0] else 0))
+
+
+def _graph_bytes_per_row(g: HNSWGraph, enc: np.ndarray | None = None,
+                         scales: np.ndarray | None = None) -> int:
+    """Bytes one row moves host -> device: its vector in storage dtype,
+    its adjacency, its level and, with a scale table, its scale."""
+    return (g.vectors.shape[1] * (4 if enc is None else enc.itemsize)
+            + _adjacency_bytes_per_row(g) + 4
+            + (4 if scales is not None else 0))
+
+
+def _up(a: np.ndarray, dtype, dev) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(dev)
 
 
 def to_device_graph(g: HNSWGraph, deleted: np.ndarray | None = None, *,
+                    enc: np.ndarray | None = None,
+                    scales: np.ndarray | None = None,
                     device) -> DeviceGraph:
     """Full host -> device upload (the from-scratch path; incremental
-    updates go through :func:`apply_row_updates`)."""
+    updates go through :func:`apply_row_updates`).
+
+    ``enc``/``scales``: codec-encoded rows (+ int8 scales) to upload
+    INSTEAD of the host f32 vectors, in the same [N, D] capacity view."""
     n = g.vectors.shape[0]
     if deleted is None:
         deleted = np.zeros(n, bool)
-    dispatch.bump("hnsw.h2d_bytes", n * _graph_bytes_per_row(g))
+    dispatch.bump("hnsw.h2d_bytes", n * _graph_bytes_per_row(g, enc, scales))
     dev = torch.device(device)
 
     def up(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype).to(dev)
+        return _up(a, dtype, dev)
 
     return DeviceGraph(
-        vectors=up(g.vectors, torch.float32),
+        vectors=(up(g.vectors, torch.float32) if enc is None
+                 else device_rows(enc, dev)),
         neighbors0=up(g.neighbors0, torch.int32),
         upper=up(g.upper, torch.int32),
         levels=up(g.levels, torch.int32),
@@ -88,40 +114,81 @@ def to_device_graph(g: HNSWGraph, deleted: np.ndarray | None = None, *,
         deleted=up(deleted[:n], torch.bool),
         max_level=int(g.max_level),
         metric=g.metric,
+        scales=None if scales is None else up(scales, torch.float32),
     )
 
 
+def _padded_rows(rows) -> np.ndarray:
+    """Sorted row ids padded to a power of two with repeats of the first
+    (idempotent copies): the JAX package pads so that its scatter compiles
+    once per bucket; the port pads so that ``hnsw.h2d_bytes`` counts the
+    same bytes."""
+    rows = np.asarray(sorted(int(r) for r in rows), np.int64)
+    if not rows.size:
+        return rows
+    bucket = 1 << (int(rows.size) - 1).bit_length()
+    return np.concatenate([rows, np.full(bucket - rows.size, rows[0])])
+
+
+def _copy_adjacency(dg: DeviceGraph, g: HNSWGraph, rp: np.ndarray,
+                    idx: torch.Tensor) -> None:
+    dev = dg.device
+    dg.neighbors0.index_copy_(0, idx, _up(g.neighbors0[rp], torch.int32, dev))
+    if g.upper.shape[0]:
+        dg.upper.index_copy_(1, idx, _up(g.upper[:, rp], torch.int32, dev))
+
+
 def apply_row_updates(dg: DeviceGraph, g: HNSWGraph, rows,
-                      deleted: np.ndarray | None = None) -> DeviceGraph:
+                      deleted: np.ndarray | None = None, *,
+                      enc: np.ndarray | None = None,
+                      scales: np.ndarray | None = None) -> DeviceGraph:
     """Incremental device-graph sync: copy only the dirty ``rows`` of the
     host graph into the resident tensors, IN PLACE (``index_copy_``; the
     JAX package donates the buffers to a functional scatter instead).
     Shapes must match the resident graph. ``deleted`` refreshes the
-    tombstone mask; entry/max_level are always refreshed. The row set pads
-    to a power of two with repeats of its first row, so ``hnsw.h2d_bytes``
-    counts the same bytes as the reference."""
+    tombstone mask; entry/max_level are always refreshed.
+
+    ``enc``/``scales``: the codec-encoded rows when the resident graph
+    stores encoded rows, indexed by dirty row id (the canonical [n, D]
+    arrays serve as they are: every dirty row is < n) — the encoded row
+    and its scale travel instead of the f32 vector."""
     if tuple(dg.vectors.shape) != g.vectors.shape \
             or tuple(dg.upper.shape) != g.upper.shape:
         raise ValueError("capacity/layer shape changed; full rebuild required")
-    rows = np.asarray(sorted(int(r) for r in rows), np.int64)
+    rp = _padded_rows(rows)
     dev = dg.device
-    if rows.size:
-        bucket = 1 << (int(rows.size) - 1).bit_length()
-        rp = np.concatenate([rows, np.full(bucket - rows.size, rows[0])])
-        dispatch.bump("hnsw.h2d_bytes", bucket * _graph_bytes_per_row(g))
+    if rp.size:
+        dispatch.bump("hnsw.h2d_bytes",
+                      rp.size * _graph_bytes_per_row(g, enc, scales))
         idx = torch.as_tensor(rp).to(dev)
-
-        def up(a, dtype):
-            return torch.as_tensor(np.ascontiguousarray(a),
-                                   dtype=dtype).to(dev)
-
-        dg.vectors.index_copy_(0, idx, up(g.vectors[rp], torch.float32))
-        dg.neighbors0.index_copy_(0, idx, up(g.neighbors0[rp], torch.int32))
-        if g.upper.shape[0]:
-            dg.upper.index_copy_(1, idx, up(g.upper[:, rp], torch.int32))
-        dg.levels.index_copy_(0, idx, up(g.levels[rp], torch.int32))
+        dg.vectors.index_copy_(0, idx, _up(g.vectors[rp], torch.float32, dev)
+                               if enc is None else device_rows(enc[rp], dev))
+        if scales is not None:
+            dg.scales.index_copy_(0, idx, _up(scales[rp], torch.float32, dev))
+        dg.levels.index_copy_(0, idx, _up(g.levels[rp], torch.int32, dev))
+        _copy_adjacency(dg, g, rp, idx)
     if deleted is not None:
         dg.deleted.copy_(torch.as_tensor(deleted[: dg.n]).to(dev))
+    dg.entry = max(int(g.entry), 0)
+    dg.max_level = int(g.max_level)
+    return dg
+
+
+def apply_adjacency_updates(dg: DeviceGraph, g: HNSWGraph,
+                            rows) -> DeviceGraph:
+    """Copy only neighbors0/upper of the dirty ``rows`` (vectors, scales and
+    levels untouched) IN PLACE, and refresh entry/max_level. Bulk ingest's
+    reciprocal connect rewrites the neighbor lists of rows whose vectors
+    are unchanged: only their int32 adjacency travels."""
+    if tuple(dg.neighbors0.shape) != g.neighbors0.shape \
+            or tuple(dg.upper.shape) != g.upper.shape:
+        raise ValueError("capacity/layer shape changed; full rebuild required")
+    rp = _padded_rows(rows)
+    dev = dg.device
+    if rp.size:
+        dispatch.bump("hnsw.h2d_bytes",
+                      rp.size * _adjacency_bytes_per_row(g))
+        _copy_adjacency(dg, g, rp, torch.as_tensor(rp).to(dev))
     dg.entry = max(int(g.entry), 0)
     dg.max_level = int(g.max_level)
     return dg
@@ -168,7 +235,8 @@ def _greedy_layer(g: DeviceGraph, q: torch.Tensor, ep: torch.Tensor,
         nbrs = nbr_table[ep.long()]                          # [B, M]
         valid = nbrs >= 0
         ids = nbrs.clamp(0, g.n - 1).contiguous()
-        d = ops.gather_distance(g.vectors, q, ids, metric=g.metric)
+        d = ops.gather_distance(g.vectors, q, ids, metric=g.metric,
+                                scales=g.scales)
         d = torch.where(valid, d, INF)
         j = torch.argmin(d, dim=-1, keepdim=True)
         best_d = torch.gather(d, 1, j)[:, 0]
@@ -208,7 +276,8 @@ def _beam_search(g: DeviceGraph, q: torch.Tensor, ep: torch.Tensor,
         nbrs = g.neighbors0[cur.clamp(0, g.n - 1).long()]
         valid = (nbrs >= 0) & has[:, None]
         ids = nbrs.clamp(0, g.n - 1).contiguous()
-        d = ops.gather_distance(g.vectors, q, ids, metric=g.metric)
+        d = ops.gather_distance(g.vectors, q, ids, metric=g.metric,
+                                scales=g.scales)
         d = torch.where(valid, d, INF)
         # merge into the beam: two-key sort, then adjacent-dup masking
         all_d = torch.cat([beam_d, d], dim=1)                # [B, ef+2M]
@@ -236,6 +305,7 @@ def _beam_search_fused(g: DeviceGraph, q: torch.Tensor, ep: torch.Tensor,
     return ops.beam_search(
         g.vectors, g.neighbors0, q, ep.to(torch.int32).contiguous(),
         ep_dist.float().contiguous(), ef=ef, metric=g.metric,
+        scales=g.scales,
         expand_t=DEFAULT_EXPAND_T if expand_t is None else expand_t,
         max_iters=max_iters)
 
@@ -254,7 +324,9 @@ def search_core(g: DeviceGraph, q: torch.Tensor, k: int, ef: int,
                          "expected 'fused' or 'jnp'")
     b = q.shape[0]
     ep = torch.full((b,), g.entry, dtype=torch.int32, device=q.device)
-    x0 = g.vectors[ep.long()]
+    x0 = g.vectors[ep.long()].float()
+    if g.scales is not None:                 # decode the entry row
+        x0 = x0 * g.scales[ep.long()][:, None]
     ep_dist = batched_dist(g.metric, q, x0[:, None])[:, 0]
     for layer in range(g.max_level, 0, -1):
         ep, ep_dist = _greedy_layer(g, q, ep, ep_dist, layer)

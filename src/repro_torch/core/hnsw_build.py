@@ -1,13 +1,19 @@
-"""HNSW construction, host half.
+"""HNSW construction, ported from ``repro/core/hnsw_build.py``.
 
-``SequentialBuilder`` is a faithful Malkov & Yashunin (Alg. 1-4, incl. the
-neighbor-selection heuristic) in numpy — the mutable host graph behind
-``core/interface.py:HNSW`` and the recall reference. It is a copy of the
-reference's numpy builder (``repro/core/hnsw_build.py``), so a graph built
-from the same rows and seed is bit-identical in both packages.
+Two builders, both emitting the same dense ``HNSWGraph``:
 
-The device-resident ``bulk_build`` waits for its own slice (ROADMAP.md §1,
-"bulk_build with select_neighbors").
+* ``SequentialBuilder`` — a faithful Malkov & Yashunin (Alg. 1-4, incl.
+  the neighbor-selection heuristic) in numpy: the mutable host graph
+  behind ``core/interface.py:HNSW`` and the recall reference. It is a copy
+  of the reference's numpy builder, so a graph built from the same rows
+  and seed is bit-identical in both packages.
+
+* ``bulk_build`` — batched lock-step inserts against ONE resident
+  ``DeviceGraph``: levels drawn up front from the same numpy stream, a
+  sequential bootstrap prefix, then per batch one ``search_graph`` over
+  the resident graph (``gather_distance`` + ``beam_search`` on the card),
+  the batched ``select_neighbors`` op for forward edges, a grouped
+  reciprocal connect, and an adjacency-only device sync.
 """
 from __future__ import annotations
 
@@ -15,6 +21,9 @@ import dataclasses
 import heapq
 
 import numpy as np
+import torch
+
+from repro_torch.utils import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -286,9 +295,8 @@ def build_sequential(vectors: np.ndarray, *, M: int = 16,
 def select_heuristic_host(metric: str, vectors: np.ndarray, q: np.ndarray,
                           cand: list[tuple[float, int]], m: int) -> np.ndarray:
     """Module-level host oracle for the batched select op (Malkov Alg. 4
-    with keepPrunedConnections backfill) — the loop the reference's
-    vectorized ``select_neighbors`` is pinned against, and the port's will
-    be when ``bulk_build`` is ported. Identical to
+    with keepPrunedConnections backfill) — the loop the vectorized
+    ``kernels.ops.select_neighbors`` is pinned against. Identical to
     ``SequentialBuilder._select_heuristic`` plus keep-first dedup of
     candidate ids, which the batched reciprocal connect needs: a batch
     member can select a destination whose forward list already contains
@@ -321,3 +329,244 @@ def select_heuristic_host(metric: str, vectors: np.ndarray, q: np.ndarray,
                 selected.append((d_q, e))
     return np.array([e for _, e in selected], np.int32)
 
+
+
+# ---------------------------------------------------------------------------
+# Bulk builder: batched lock-step inserts against a resident device graph
+# ---------------------------------------------------------------------------
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def _select_batched(dev_vectors: torch.Tensor, q: np.ndarray,
+                    cand: np.ndarray, *, m: int, metric: str) -> np.ndarray:
+    """Run ``ops.select_neighbors`` in row chunks on the device of
+    ``dev_vectors``: q [R, D] f32, cand [R, C] i32 -1-pad -> ids [R, m]
+    i32 -1-pad. The chunk bounds the op's [chunk, C, C] pairwise block to
+    ~256 MB however wide the candidate lists get."""
+    from repro_torch.kernels import ops
+
+    r, c = cand.shape
+    if r == 0:
+        return np.zeros((0, m), np.int32)
+    chunk = min(max(1 << 26 >> (2 * (max(c, 1).bit_length() - 1)), 16), 4096)
+    dev = dev_vectors.device
+    out = np.empty((r, m), np.int32)
+    for s in range(0, r, chunk):
+        e = min(s + chunk, r)
+        ids, _ = ops.select_neighbors(
+            dev_vectors, torch.as_tensor(q[s:e], dtype=torch.float32).to(dev),
+            torch.as_tensor(cand[s:e], dtype=torch.int32).to(dev),
+            m=m, metric=metric)
+        out[s:e] = ids.cpu().numpy()
+    return out
+
+
+def _connect_reciprocal(b: SequentialBuilder, e_src: np.ndarray,
+                        e_dst: np.ndarray, e_lay: np.ndarray,
+                        dev_vectors: torch.Tensor | None = None,
+                        impl: str = "op") -> list[int]:
+    """Batched reciprocal connect: apply one batch's back-edges (src ->
+    dst at layer) by DESTINATION — group the edge list with a host
+    sort-segment pass, then re-select each touched row once from (current
+    adjacency ∪ new sources) with the same Alg. 4 heuristic, vectorized
+    over all destinations of a layer. Sources merge in ascending id order,
+    so the result does not depend on how the edge list was produced.
+    ``impl`` selects the vectorized op ("op", on ``dev_vectors``'s
+    device) or the host-loop oracle ("host"). Returns the touched row ids
+    (the adjacency-dirty set the device sync must copy)."""
+    dirty: list[int] = []
+    for lc in np.unique(e_lay):
+        sel_m = e_lay == lc
+        ordi = np.lexsort((e_src[sel_m], e_dst[sel_m]))
+        dst = e_dst[sel_m][ordi]
+        src = e_src[sel_m][ordi]
+        udst, starts, cnts = np.unique(dst, return_index=True,
+                                       return_counts=True)
+        gcount = len(udst)
+        gmax = int(cnts.max())
+        cap = b.m_max0 if lc == 0 else b.M
+        adj = (b.neighbors0[udst] if lc == 0
+               else b.upper[lc - 1, udst])                  # [G, cap]
+        srcs = np.full((gcount, _pow2_ceil(gmax)), -1, np.int32)
+        srcs[np.repeat(np.arange(gcount), cnts),
+             np.arange(len(src)) - np.repeat(starts, cnts)] = src
+        cand = np.concatenate([adj, srcs], axis=1)
+        if impl == "op":
+            sel = _select_batched(dev_vectors, b.vectors[udst], cand,
+                                  m=cap, metric=b.metric)
+        else:                                     # host-loop oracle
+            sel = np.full((gcount, cap), -1, np.int32)
+            for gi, e in enumerate(udst):
+                ids = cand[gi][cand[gi] >= 0]
+                ev = b.vectors[int(e)]
+                cd = list(zip(_dist(b.metric, ev, b.vectors[ids]),
+                              [int(c) for c in ids]))
+                keep = select_heuristic_host(b.metric, b.vectors, ev, cd, cap)
+                sel[gi, : len(keep)] = keep
+        if lc == 0:
+            b.neighbors0[udst] = sel
+        else:
+            b.upper[lc - 1, udst] = sel
+        dirty.extend(int(x) for x in udst)
+    return dirty
+
+
+def bulk_build(vectors: np.ndarray, *, M: int = 16, ef_construction: int = 200,
+               metric: str = "cosine", seed: int = 0,
+               bootstrap: int = 256, batch_size: int = 1024,
+               prenormalized: bool = False, max_level_cap: int = 12,
+               beam_impl: str = "fused", connect_impl: str = "op",
+               device=None) -> HNSWGraph:
+    """Device-resident bulk ingest on ``device`` (default: the card).
+
+    Assign levels up front; bootstrap a sequential prefix; then insert
+    the remainder in batches against ONE capacity-padded resident
+    ``DeviceGraph``. Per batch:
+
+      1. one ``search_graph`` finds every member's
+         ``min(ef_construction, prefix)`` candidates over the prefix (the
+         upper-layer hops launch ``gather_distance``, layer 0 one
+         ``beam_search``); nothing re-uploads;
+      2. a host self-distance block adds each member's intra-batch
+         top-K, so batch members can become each other's neighbors;
+      3. forward edges: every (member, layer) row goes through the
+         batched Alg. 4 select op (``kernels.ops.select_neighbors``);
+      4. back edges: :func:`_connect_reciprocal` re-selects each touched
+         destination row once, vectorized per layer;
+      5. only the adjacency of batch ∪ touched rows is copied to the
+         device (``apply_adjacency_updates``).
+
+    The device holds the fp32 rows it builds over: under a lossy codec
+    the caller passes the decoded rows with ``prenormalized`` (they are
+    already in their final stored form) and encodes nothing here.
+    Deterministic for fixed inputs: no data-dependent host iteration
+    order survives the sort-segment grouping."""
+    from repro_torch.core import hnsw as thnsw   # hnsw imports this module
+
+    if connect_impl not in ("op", "host"):
+        raise ValueError(f"unknown connect_impl {connect_impl!r}")
+    dev = resolve_device(device)
+    v = (np.ascontiguousarray(vectors, dtype=np.float32) if prenormalized
+         else _prep(vectors, metric))
+    n, d = v.shape
+    rng = np.random.default_rng(seed)
+    mL = 1.0 / np.log(M) if M > 1 else 1.0
+    levels = np.minimum(
+        (-np.log(rng.uniform(1e-12, 1.0, n)) * mL).astype(np.int32),
+        max_level_cap)
+    # bootstrap prefix: highest-level points first so the hierarchy exists
+    # (and the entry point / max_level never move after the bootstrap)
+    order = np.argsort(-levels, kind="stable")
+    v_ord = v[order]
+    lv_ord = levels[order]
+
+    nb = max(min(bootstrap, n), 1)     # >= 1: the beam needs an entry point
+    b = SequentialBuilder(d, M=M, ef_construction=ef_construction,
+                          metric=metric, capacity=n,
+                          max_level_cap=max_level_cap, seed=seed)
+    for i in range(nb):
+        b.insert(v_ord[i], level=int(lv_ord[i]), prenormalized=prenormalized)
+    if b.n >= n:
+        return _permute_graph(b.graph(), order)
+
+    lmax_cap = max(int(lv_ord.max(initial=0)), 1)
+    ef_b = max(ef_construction, M + 1)
+
+    # resident graph: ALL vectors/levels go up in the one full upload —
+    # rows beyond the live prefix have no edges, so the beam cannot reach
+    # them, but their payloads are gatherable by id, which is what the
+    # intra-batch select needs. After this, batches ship int32 adjacency.
+    b._grow(n)
+    b.vectors[nb:n] = v_ord[nb:n]
+    b.levels[nb:n] = lv_ord[nb:n]
+    host_g = b.graph_full_capacity(lmax_cap)
+    dg = thnsw.to_device_graph(host_g, device=dev)
+
+    while b.n < n:
+        lo = b.n
+        hi = min(lo + batch_size, n)
+        bsz = hi - lo
+        batch = v_ord[lo:hi]
+        k_cand = min(ef_construction, lo)      # the live prefix caps it
+        # 1. one search over exactly bsz queries
+        cand_ids, _ = thnsw.search_graph(dg, batch, k=k_cand, ef=ef_b,
+                                         beam_impl=beam_impl)
+        cand_ids = cand_ids.cpu().numpy().astype(np.int32)
+        # 2. intra-batch top-K via one host self-distance block
+        kb = min(bsz - 1, k_cand)
+        if kb > 0:
+            if metric in ("cosine", "ip"):
+                blk = 1.0 - batch @ batch.T
+            else:
+                sq = np.einsum("bd,bd->b", batch, batch)
+                blk = sq[:, None] - 2.0 * (batch @ batch.T) + sq[None, :]
+            np.fill_diagonal(blk, np.inf)
+            part = np.argpartition(blk, kb - 1, axis=1)[:, :kb]
+            ordl = np.argsort(np.take_along_axis(blk, part, axis=1),
+                              axis=1, kind="stable")
+            top = np.take_along_axis(part, ordl, axis=1)
+            cand_ids = np.concatenate(
+                [cand_ids, (lo + top).astype(np.int32)], axis=1)
+        # 3. forward edges: one (member, layer) row per live layer,
+        # level-masked candidates, batched select at m=M
+        lvls = lv_ord[lo:hi].astype(np.int64)
+        counts = lvls + 1
+        pj = np.repeat(np.arange(bsz), counts)
+        plc = (np.arange(counts.sum())
+               - np.repeat(np.cumsum(counts) - counts, counts))
+        crows = cand_ids[pj]                                  # [R, C]
+        clev = np.where(crows >= 0, b.levels[np.clip(crows, 0, n - 1)], -1)
+        crows = np.where(clev >= plc[:, None], crows, -1)
+        sel = _select_batched(dg.vectors, batch[pj], crows, m=M,
+                              metric=metric)                  # [R, M]
+        nodes = (lo + pj).astype(np.int32)
+        for lc in np.unique(plc):
+            rm = plc == lc
+            if lc == 0:
+                b.neighbors0[nodes[rm], :M] = sel[rm]   # fresh rows: -1 tail
+            else:
+                b.upper[lc - 1, nodes[rm]] = sel[rm]
+        # 4. reciprocal connect, grouped by destination
+        vm = sel.ravel() >= 0
+        dirty = _connect_reciprocal(
+            b, np.repeat(nodes, M)[vm], sel.ravel()[vm],
+            np.repeat(plc, M)[vm].astype(np.int32),
+            dev_vectors=dg.vectors, impl=connect_impl)
+        b.n = hi
+        # 5. adjacency-only copy of the dirty rows
+        thnsw.apply_adjacency_updates(dg, host_g,
+                                      set(range(lo, hi)) | set(dirty))
+
+    return _permute_graph(b.graph(), order)
+
+
+def _permute_graph(g: HNSWGraph, order: np.ndarray) -> HNSWGraph:
+    """Graph built over permuted rows -> graph in original row order."""
+    n = g.n
+    new_of_old = np.asarray(order[:n], np.int64)   # builder id -> original id
+
+    def remap_ids(a):
+        out = np.full_like(a, -1)
+        valid = a >= 0
+        out[valid] = new_of_old[a[valid]]
+        return out
+
+    return HNSWGraph(
+        vectors=_scatter_rows(g.vectors, new_of_old),
+        neighbors0=_scatter_rows(remap_ids(g.neighbors0), new_of_old),
+        upper=np.stack([_scatter_rows(remap_ids(u), new_of_old)
+                        for u in g.upper])
+              if g.upper.shape[0] else g.upper,
+        levels=_scatter_rows(g.levels, new_of_old),
+        entry=int(new_of_old[g.entry]) if g.entry >= 0 else -1,
+        max_level=g.max_level,
+        metric=g.metric,
+        n=n,
+    )
+
+
+def _scatter_rows(a: np.ndarray, new_of_old: np.ndarray) -> np.ndarray:
+    out = np.empty_like(a)
+    out[new_of_old] = a
+    return out

@@ -176,7 +176,7 @@ def make_index(kind: str, store=None, *, device=None, **cfg) -> VectorIndex:
     ``flat`` and ``hnsw`` without a store are ported; ``cfg`` passes
     through to the backend constructor (common: metric, dim, n_shards,
     dtype, rerank_factor; hnsw: M, ef_construction, ef_search, seed,
-    beam_impl)."""
+    use_bulk_build, beam_impl)."""
     kind = kind.lower()
     if kind not in INDEX_KINDS:
         raise ValueError(f"unknown index kind {kind!r}; expected one of "

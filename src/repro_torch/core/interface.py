@@ -15,12 +15,23 @@ key. The first query uploads a capacity-padded ``DeviceGraph``; later
 mutations upload only the builder's dirty-row journal
 (``hnsw.apply_row_updates``).
 
+Row codecs (``dtype``): a lossy codec (bf16, int8) quantizes each row once
+at ingest, after the metric normalization. The encoded rows (+ int8
+scales) are canonical: the device graph holds them, and the builder's fp32
+rows are their exact decode. ANN queries over-fetch ``k · rerank_factor``
+candidates and rerank them exactly in fp32 against the builder's rows.
+
+``use_bulk_build``: the first ``bulk_insert`` into an empty index builds
+the graph with ``hnsw_build.bulk_build`` on the index's device (over the
+decoded rows under a lossy codec) and adopts it as the builder's state, so
+later inserts append.
+
 ``exact_query``, the recall oracle, scans the builder's live rows with
 ``FlatIndex`` (the ``distance_topk`` kernel on the card).
 
-This slice serves ``n_shards=1``, ``dtype="fp32"`` and the sequential
-builder. Sharding, the lossy codecs and the bulk builder are queued in
-ROADMAP.md §1 and raise ``NotImplementedError``.
+This slice serves ``n_shards=1``; sharding, ``compact``, ``state_dict``
+and the durable store are queued in ROADMAP.md §0 and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,8 +40,9 @@ import torch
 
 from repro_torch.core import hnsw as thnsw
 from repro_torch.core import hnsw_build as build
-from repro_torch.core.codec import get_codec
+from repro_torch.core.codec import effective_rerank, get_codec, rerank_exact
 from repro_torch.core.flat import FlatIndex
+from repro_torch.core.hnsw_build import normalize_rows
 from repro_torch.core.index import VectorIndex
 from repro_torch.utils import resolve_device
 
@@ -51,19 +63,15 @@ class HNSW(VectorIndex):
                              "expected 'fused' or 'jnp'")
         if int(n_shards) != 1:
             raise NotImplementedError(
-                "n_shards > 1 is not ported yet (ROADMAP.md §1: multi-GPU)")
-        # rows are fp32, whose search distances are exact: rerank_factor
-        # never applies
-        self.dtype = get_codec(dtype).name
-        if self.dtype != "fp32":
-            raise NotImplementedError(
-                f"HNSW with dtype={self.dtype!r} is not ported yet (ROADMAP.md"
-                " §1: bf16/int8 variants of gather_distance and beam_search "
-                "plus the lossy ingest and rerank of core/interface.py)")
-        if use_bulk_build:
-            raise NotImplementedError(
-                "use_bulk_build is not ported yet (ROADMAP.md §1: bulk_build "
-                "with select_neighbors)")
+                "n_shards > 1 is not ported yet (ROADMAP.md §0 queue: "
+                "multi-GPU)")
+        self.n_shards = 1
+        self.use_bulk_build = use_bulk_build
+        # row-storage codec: a lossy codec quantizes each row once at
+        # ingest; ANN queries over-fetch k·rerank_factor, rerank in fp32
+        self.dtype = str(dtype)
+        self.rerank_factor = rerank_factor
+        self._codec = get_codec(self.dtype)
         self.device = resolve_device(device)
         self.metric = distance_function
         # layer-0 beam: "fused" is one kernel launch; "jnp" the per-hop loop
@@ -76,24 +84,98 @@ class HNSW(VectorIndex):
         self._key2id: dict[str, int] = {}        # live keys only
         self._deleted = np.zeros(0, bool)        # tombstones, capacity-sized
         self._builder: build.SequentialBuilder | None = None
+        # canonical encoded rows [n, D] + per-row scales [n] (lossy only;
+        # node-id aligned with the builder, appended per insert)
+        self._enc: np.ndarray | None = None
+        self._scales: np.ndarray | None = None
         self._device_graph: thnsw.DeviceGraph | None = None
         self._deleted_dirty = False
 
     # ------------------------------------------------------------ mutation
+    def _quantize(self, v: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray, float | None]:
+        """Put one raw row in its final stored form: metric normalization,
+        then ONE codec encode whose decode becomes the stored fp32 row."""
+        if self.metric == "cosine":
+            v = v / max(float(np.linalg.norm(v)), 1e-12)
+        enc, scales = self._codec.encode(v[None])
+        v = self._codec.decode(enc, scales)[0]
+        return v, enc[0], (None if scales is None else scales[0])
+
+    def _append_enc(self, enc_row: np.ndarray,
+                    scale: float | None) -> None:
+        if self._enc is None:
+            self._enc = np.zeros((0, enc_row.shape[-1]),
+                                 self._codec.enc_dtype)
+        self._enc = np.concatenate([self._enc, enc_row[None]])
+        if scale is not None:
+            if self._scales is None:
+                self._scales = np.zeros(0, np.float32)
+            self._scales = np.concatenate(
+                [self._scales, np.asarray([scale], np.float32)])
+
+    def _insert_node(self, key: str, v: np.ndarray,
+                     enc_row: np.ndarray | None = None,
+                     scale: float | None = None) -> None:
+        """Commit one row to the builder and, with its encoding, the
+        encoded side arrays. A row with an encoding is already final
+        (``_quantize``); a raw fp32 row is normalized by the builder."""
+        if self._builder is None:
+            self._builder = build.SequentialBuilder(
+                v.shape[-1], M=self.M, ef_construction=self.ef_construction,
+                metric=self.metric, seed=self.seed)
+        node = self._builder.insert(v, prenormalized=enc_row is not None)
+        if node != len(self._keys):
+            raise RuntimeError("builder node ids out of step with the keys")
+        self._keys.append(key)
+        self._key2id[key] = node
+        if enc_row is not None:
+            self._append_enc(enc_row, scale)
+        self._bump_epoch()
+
     def _insert_impl(self, key: str, value: np.ndarray) -> None:
         """Upsert one (key, vector); existing keys are updated in place."""
         if key in self._key2id:
             self._delete_impl(key)
         v = np.asarray(value, np.float32)
-        if self._builder is None:
-            self._builder = build.SequentialBuilder(
-                v.shape[-1], M=self.M, ef_construction=self.ef_construction,
-                metric=self.metric, seed=self.seed)
-        node = self._builder.insert(v)
-        if node != len(self._keys):
-            raise RuntimeError("builder node ids out of step with the keys")
-        self._keys.append(key)
-        self._key2id[key] = node
+        if self._codec.lossy:
+            self._insert_node(key, *self._quantize(v))
+        else:
+            self._insert_node(key, v)
+
+    def _bulk_insert_impl(self, keys: list[str], values: np.ndarray) -> None:
+        if self.use_bulk_build and self._builder is None:
+            values = np.asarray(values, np.float32)
+            if self._codec.lossy:
+                # normalize + quantize the whole batch once; the graph is
+                # built over the decoded (final, stored) rows
+                if self.metric == "cosine":
+                    values = normalize_rows(values)
+                enc, scales = self._codec.encode(values)
+                values = self._codec.decode(enc, scales)
+                self._enc = enc
+                self._scales = scales
+            self._adopt_bulk_graph(keys, values,
+                                   prenormalized=self._codec.lossy)
+            return
+        for k, v in zip(keys, values):
+            self._insert_impl(k, v)
+
+    def _adopt_bulk_graph(self, keys: list[str], values: np.ndarray,
+                          prenormalized: bool) -> None:
+        """Build a whole graph with the device-resident bulk ingest and
+        adopt it as mutable builder state, so a LATER bulk_insert / insert
+        appends instead of replacing the graph."""
+        g = build.bulk_build(
+            values, M=self.M, ef_construction=self.ef_construction,
+            metric=self.metric, seed=self.seed,
+            prenormalized=prenormalized, beam_impl=self.beam_impl,
+            device=self.device)
+        self._builder = build.SequentialBuilder.from_graph(
+            g, ef_construction=self.ef_construction, seed=self.seed)
+        self._keys = list(keys)
+        self._key2id = {k: i for i, k in enumerate(self._keys)}
+        self._device_graph = None
         self._bump_epoch()
 
     bulkInsert = VectorIndex.bulk_insert   # TS-parity alias
@@ -118,8 +200,26 @@ class HNSW(VectorIndex):
             self._deleted = np.concatenate([self._deleted, pad])
 
     # ----------------------------------------------------- device residency
+    def _enc_capacity(self, cap: int
+                      ) -> tuple[np.ndarray | None, np.ndarray | None]:
+        """Canonical encoded rows padded to the builder's capacity view
+        (zeros beyond ``n``, as the builder's rows), the shape the device
+        graph uses."""
+        if self._enc is None:
+            return None, None
+        n, d = self._enc.shape
+        enc = np.zeros((cap, d), self._codec.enc_dtype)
+        enc[:n] = self._enc
+        scl = None
+        if self._scales is not None:
+            scl = np.zeros(cap, np.float32)
+            scl[:n] = self._scales
+        return enc, scl
+
     def _dg(self) -> thnsw.DeviceGraph:
-        """Resident device graph, synced incrementally when possible."""
+        """Resident device graph, synced incrementally when possible.
+        Under a lossy codec the resident rows are the ENCODED rows (+ the
+        int8 scale table); every distance decodes inside the kernels."""
         if self._builder is None:
             raise ValueError("index is empty")
         b = self._builder
@@ -128,15 +228,18 @@ class HNSW(VectorIndex):
         dg = self._device_graph
         if dg is None or tuple(dg.vectors.shape) != g.vectors.shape:
             # first upload, or capacity growth: full conversion
+            enc, scl = self._enc_capacity(g.vectors.shape[0])
             self._device_graph = thnsw.to_device_graph(
-                g, self._deleted, device=self.device)
+                g, self._deleted, enc=enc, scales=scl, device=self.device)
             b.journal.clear()
             self._deleted_dirty = False
         elif b.journal or self._deleted_dirty or dg.max_level != g.max_level:
-            # incremental: only dirty rows travel to the device
+            # incremental: only dirty rows travel to the device; the
+            # canonical [n, D] encoded arrays are indexed by dirty row id
             self._device_graph = thnsw.apply_row_updates(
                 dg, g, b.journal,
-                self._deleted if self._deleted_dirty else None)
+                self._deleted if self._deleted_dirty else None,
+                enc=self._enc, scales=self._scales)
             b.journal.clear()
             self._deleted_dirty = False
         return self._device_graph
@@ -149,15 +252,23 @@ class HNSW(VectorIndex):
 
     # --------------------------------------------------------------- query
     def query_batch(self, queries, k: int = 10, ef: int | None = None):
-        """One lock-step device search for the whole [B, D] batch."""
+        """One lock-step device search for the whole [B, D] batch. Under a
+        lossy codec it over-fetches ``k · rerank_factor`` candidates and
+        reranks them exactly in fp32 against the builder's rows."""
         q = np.asarray(queries, np.float32)
         if q.ndim != 2:
             raise ValueError(f"query_batch expects [B, D], got {q.shape}")
-        # fp32 rows: the beam's distances are exact, so nothing reranks
-        ids, dists = thnsw.search_graph(self._dg(), q, k=k,
+        rf = effective_rerank(self._codec, self.rerank_factor)
+        ids, dists = thnsw.search_graph(self._dg(), q, k=k * rf,
                                         ef=ef or self.ef_search,
                                         beam_impl=self.beam_impl)
         ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
+        if rf > 1:
+            # the beam already dropped tombstoned ids: every candidate is
+            # live
+            n = self._builder.n
+            dists, ids = rerank_exact(self._builder.vectors[:n], q, ids, k,
+                                      metric=self.metric)
         keys = [[self._keys[i] if i >= 0 else None for i in row] for row in ids]
         return keys, dists
 
@@ -185,6 +296,15 @@ class HNSW(VectorIndex):
         if squeeze:
             return keys[0], d[0]
         return keys, d
+
+    def config_dict(self) -> dict:
+        return {"metric": self.metric, "M": self.M,
+                "ef_construction": self.ef_construction,
+                "ef_search": self.ef_search, "seed": self.seed,
+                "use_bulk_build": self.use_bulk_build,
+                "n_shards": self.n_shards, "dtype": self.dtype,
+                "rerank_factor": self.rerank_factor,
+                "beam_impl": self.beam_impl}
 
     @property
     def size(self) -> int:

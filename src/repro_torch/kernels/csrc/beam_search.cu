@@ -1,5 +1,5 @@
-// Whole layer-0 HNSW ef-beam search in one launch, fp32 rows, for NVIDIA
-// Hopper (sm_90a).
+// Whole layer-0 HNSW ef-beam search in one launch, fp32, bf16 or
+// int8(+scales) rows, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/beam_search.py
 // (beam_search_pallas / _kernel). The plain version, with the same
@@ -17,7 +17,9 @@
 //      is not already in the beam, and no earlier valid slot holds the
 //      same id (ref.beam_dedup_valid);
 //   4. computes each kept candidate's distance, one warp per row, with
-//      the same summation order as gather_distance.cu (row_distance.cuh);
+//      the same decode and summation order as gather_distance.cu
+//      (row_distance.cuh): bf16 widened, int8 multiplied by its row's
+//      scale, read with the row, element by element before the FMA;
 //   5. bitonic-sorts the candidates DESCENDING by (d, id) and
 //      bitonic-merges them with the ascending beam (beam | INF plateau |
 //      candidates is bitonic); entries past ef reset to (INF, -1).
@@ -26,13 +28,15 @@
 // the visit order is the one-at-a-time search of core/hnsw.py.
 //
 // What bounds it on this card: bytes, and their latency. Every hop reads
-// up to T*2M random D-float rows for 2*D flops each. The TPU kernel
+// up to T*2M random rows (4, 2 or 1 byte a dimension, plus a 4-byte scale
+// for int8) for 2*D flops each. The TPU kernel
 // double-buffered its row DMAs inside one core; here the card keeps many
 // queries' blocks resident per SM, so one block's row loads overlap the
 // others' sort and merge phases, and every row is read with coalesced
 // 128-byte warp loads. The search state never leaves shared memory.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,8 +69,10 @@ __device__ __forceinline__ int next_pow2(int n) {
   return p;
 }
 
+template <typename RowT>
 __global__ void __launch_bounds__(kThreads)
-beam_search_kernel(const float* __restrict__ vectors,     // [N, D]
+beam_search_kernel(const RowT* __restrict__ vectors,      // [N, D]
+                   const float* __restrict__ scales,      // [N] or null
                    const int32_t* __restrict__ nbrs,      // [N, m2]
                    const float* __restrict__ q,           // [B, D]
                    const int32_t* __restrict__ ep,        // [B]
@@ -74,7 +80,7 @@ beam_search_kernel(const float* __restrict__ vectors,     // [N, D]
                    int32_t* __restrict__ out_ids,         // [B, ef]
                    float* __restrict__ out_d,             // [B, ef]
                    int N, int D, int m2, int ef, int efp, int T, int budget,
-                   int hops, int l2, int vec4) {
+                   int hops, int l2, int vec) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -174,8 +180,9 @@ beam_search_kernel(const float* __restrict__ vectors,     // [N, D]
       int id = -1;
       if (r < w && valid[r]) {
         id = cand[r];
-        dist = warp_row_distance(vectors + (size_t)id * D, q_s, D, lane, l2,
-                                 vec4);
+        dist = warp_row_distance<RowT>(
+            vectors + (size_t)id * D,
+            scales == nullptr ? nullptr : scales + id, q_s, D, lane, l2, vec);
       }
       if (lane == 0) {
         md[cbase + r] = dist;
@@ -229,42 +236,60 @@ beam_search_kernel(const float* __restrict__ vectors,     // [N, D]
   }
 }
 
+template <typename RowT>
+int launch(const void* vectors, const void* scales, const void* nbrs,
+           const void* q, const void* ep, const void* ep_dist, void* out_ids,
+           void* out_d, int B, int N, int D, int m2, int ef, int efp, int t,
+           int budget, int hops, int l2, int vec, void* stream) {
+  if (B <= 0) return 0;
+  int wp = 1;
+  while (wp < t * m2) wp <<= 1;
+  int W = 1;
+  while (W < efp + wp) W <<= 1;
+  const int w = t * m2;
+  const size_t smem = sizeof(float) * (size_t)D + (size_t)efp * 12 +
+                      (size_t)W * 12 + (size_t)w * 12 + (size_t)t * 4 + 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        beam_search_kernel<RowT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  beam_search_kernel<RowT><<<B, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const RowT*>(vectors), static_cast<const float*>(scales),
+      static_cast<const int32_t*>(nbrs), static_cast<const float*>(q),
+      static_cast<const int32_t*>(ep), static_cast<const float*>(ep_dist),
+      static_cast<int32_t*>(out_ids), static_cast<float*>(out_d), N, D, m2,
+      ef, efp, t, budget, hops, l2, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// vectors [N, D] f32, nbrs [N, m2] i32 (-1 pad), q [B, D] f32, ep [B] i32,
-// ep_dist [B] f32 -> out_ids [B, ef] i32, out_d [B, ef] f32. efp =
-// next_pow2(ef); T, budget, hops as ref.beam_schedule gives them; l2 = 1
-// for squared L2, 0 for 1 - <q, x>; vec4 = 1 promises D % 4 == 0 and a
-// 16-byte-aligned vectors pointer. Returns the launch's cudaError_t (0 on
-// success).
-extern "C" int beam_search_f32(const void* vectors, const void* nbrs,
-                               const void* q, const void* ep,
-                               const void* ep_dist, void* out_ids, void* out_d,
-                               int B, int N, int D, int m2,
-                               int ef, int efp, int T, int budget, int hops,
-                               int l2, int vec4, void* stream) {
-  if (B <= 0) return 0;
-  int wp = 1;
-  while (wp < T * m2) wp <<= 1;
-  int W = 1;
-  while (W < efp + wp) W <<= 1;
-  const int w = T * m2;
-  const size_t smem = sizeof(float) * (size_t)D + (size_t)efp * 12 +
-                      (size_t)W * 12 + (size_t)w * 12 + (size_t)T * 4 + 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        beam_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// vectors [N, D] (f32, bf16 or int8), scales [N] f32 or null, nbrs [N, m2]
+// i32 (-1 pad), q [B, D] f32, ep [B] i32, ep_dist [B] f32 -> out_ids
+// [B, ef] i32, out_d [B, ef] f32. efp = next_pow2(ef); T, budget, hops as
+// ref.beam_schedule gives them; l2 = 1 for squared L2, 0 for 1 - <q, x>;
+// vec = 1 promises a row of a whole number of 16 bytes and a
+// 16-byte-aligned vectors pointer. Each returns the launch's cudaError_t
+// (0 on success).
+#define BEAM_SEARCH_ENTRY(NAME, RowT)                                        \
+  extern "C" int NAME(const void* vectors, const void* scales,             \
+                      const void* nbrs, const void* q, const void* ep,     \
+                      const void* ep_dist, void* out_ids, void* out_d,     \
+                      int B, int N, int D, int m2, int ef, int efp,        \
+                      int T, int budget, int hops, int l2, int vec,        \
+                      void* stream) {                                      \
+    return launch<RowT>(vectors, scales, nbrs, q, ep, ep_dist, out_ids,    \
+                        out_d, B, N, D, m2, ef, efp, T, budget, hops, l2,  \
+                        vec, stream);                                      \
   }
-  beam_search_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vectors), static_cast<const int32_t*>(nbrs),
-      static_cast<const float*>(q), static_cast<const int32_t*>(ep),
-      static_cast<const float*>(ep_dist), static_cast<int32_t*>(out_ids),
-      static_cast<float*>(out_d), N, D, m2, ef, efp, T, budget, hops, l2, vec4);
-  return (int)cudaGetLastError();
-}
+
+BEAM_SEARCH_ENTRY(beam_search_f32, float)
+BEAM_SEARCH_ENTRY(beam_search_bf16, __nv_bfloat16)
+BEAM_SEARCH_ENTRY(beam_search_int8, int8_t)

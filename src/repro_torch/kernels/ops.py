@@ -9,9 +9,11 @@ that cannot build or launch raises.
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 outputs with ``torch.empty``, launches on the current stream, raises the
 launch error, and bumps its ``kernel.<name>`` counter (core/dispatch.py)
-on the kernel branch only. ``flat_topk`` takes fp32, bf16 and int8
-(+ scales) rows; ``gather_distance`` and ``beam_search`` take fp32 rows
-and raise ``NotImplementedError`` for encoded ones.
+on the kernel branch only, beside ``kernel.<name>.<codec>`` for the row
+codec it read (fp32, bf16, int8). ``gather_distance``, ``beam_search``
+and ``flat_topk`` take fp32, bf16 and int8 (+ fp32 scales) rows: one CUDA
+kernel per function, instantiated per row type. ``select_neighbors`` is
+plain PyTorch on either device (the JAX package keeps it jnp-only too).
 """
 from __future__ import annotations
 
@@ -27,12 +29,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# kernel name -> (C symbol, argtypes)
+# row dtype -> codec name (counter suffix, C symbol suffix)
+CODEC_OF = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.int8: "int8"}
+_SYM_SUFFIX = {"fp32": "f32", "bf16": "bf16", "int8": "int8"}
+
+# kernel name -> (C symbol, argtypes); a symbol with "{}" has one entry
+# point per row codec
 _SIGS = {
-    "gather_distance": ("gather_distance_f32",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "beam_search": ("beam_search_f32",
-                    [_P, _P, _P, _P, _P, _P, _P,
+    "gather_distance": ("gather_distance_{}",
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "beam_search": ("beam_search_{}",
+                    [_P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash_decode": ("flash_decode_f32",
                      [_P, _P, _P, _P, _P, _P, _P,
@@ -41,32 +48,34 @@ _SIGS = {
                       [_P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
-_FNS: dict[str, tuple] = {}
+_FNS: dict[tuple[str, str], tuple] = {}
 
 
-def _kernel(name: str):
-    """-> (C function, error-string function) of kernel ``name``."""
-    fns = _FNS.get(name)
+def _kernel(name: str, codec: str):
+    """-> (C function, error-string function) of kernel ``name`` for rows
+    of ``codec``."""
+    fns = _FNS.get((name, codec))
     if fns is None:
         lib = build.library(name)
         sym, argtypes = _SIGS[name]
-        fn = getattr(lib, sym)
+        fn = getattr(lib, sym.format(_SYM_SUFFIX[codec]))
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         err = lib.kernel_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        fns = _FNS[name] = (fn, err)
+        fns = _FNS[(name, codec)] = (fn, err)
     return fns
 
 
-def _launch(name: str, *args) -> None:
-    fn, err = _kernel(name)
+def _launch(name: str, codec: str, *args) -> None:
+    fn, err = _kernel(name, codec)
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")
     dispatch.bump(f"kernel.{name}")
+    dispatch.bump(f"kernel.{name}.{codec}")
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -83,11 +92,6 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
     if t.dtype != dtype:
-        if name == "vectors" and t.dtype in (torch.bfloat16, torch.int8):
-            raise NotImplementedError(
-                "encoded rows are not ported yet for this kernel (ROADMAP.md "
-                "§0 queue: HNSW bf16/int8, the codec variants of "
-                "gather_distance and beam_search)")
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
@@ -118,16 +122,45 @@ def _metric_code(metric: str) -> int:
     return 1 if metric == "l2" else 0
 
 
+def _check_rows(vectors: torch.Tensor, scales: torch.Tensor | None) -> str:
+    """The row table of a kernel -> its codec: fp32 and bf16 rows without
+    scales, int8 rows with fp32 scales [N]; all contiguous."""
+    codec = CODEC_OF.get(vectors.dtype)
+    if codec is None:
+        raise TypeError(f"vectors: expected one of {list(CODEC_OF)}, got "
+                        f"{vectors.dtype}")
+    _check(vectors, "vectors", vectors.dtype, 2)
+    if (scales is not None) != (codec == "int8"):
+        need = "need" if codec == "int8" else "take no"
+        raise ValueError(f"{codec} rows {need} per-row scales")
+    if scales is not None:
+        _check(scales, "scales", torch.float32, 1)
+        if scales.shape[0] != vectors.shape[0]:
+            raise ValueError(f"scales {tuple(scales.shape)} for "
+                             f"{vectors.shape[0]} rows")
+    return codec
+
+
+def _opt_ptr(t: torch.Tensor | None):
+    return None if t is None else _ptr(t)
+
+
 # ---------------------------------------------------------------------------
 def gather_distance(vectors: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
-                    *, metric: str = "cosine") -> torch.Tensor:
-    """Fused gather + distance: vectors [N,D], q [B,D], ids [B,K] -> [B,K]
-    f32 (``1 - <q,x>`` for cosine/ip, squared L2 for l2). Callers
-    pre-clip ids to [0, N) and mask invalid slots after the call."""
+                    *, metric: str = "cosine",
+                    scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused gather + distance: vectors [N,D] (f32, bf16, or int8 with
+    ``scales`` [N] decoding each row by a multiply), q [B,D] f32, ids
+    [B,K] i32 -> [B,K] f32 (``1 - <q,x>`` for cosine/ip, squared L2 for
+    l2). Callers pre-clip ids to [0, N) and mask invalid slots after the
+    call."""
     l2 = _metric_code(metric)
-    if not _on_cuda(vectors, q, ids):
-        return _ref.gather_distance_ref(vectors, q, ids, metric=metric)
-    _check(vectors, "vectors", torch.float32, 2)
+    tensors = (vectors, q, ids) if scales is None else (vectors, q, ids,
+                                                         scales)
+    if not _on_cuda(*tensors):
+        return _ref.gather_distance_ref(vectors, q, ids, metric=metric,
+                                        scales=scales)
+    codec = _check_rows(vectors, scales)
     _check(q, "q", torch.float32, 2)
     _check(ids, "ids", torch.int32, 2)
     n, d = vectors.shape
@@ -137,27 +170,33 @@ def gather_distance(vectors: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
     out = torch.empty((b, k), dtype=torch.float32, device=q.device)
     if b * k:
         with torch.cuda.device(q.device):
-            _launch("gather_distance", _ptr(vectors), _ptr(q), _ptr(ids),
-                    _ptr(out), b, k, d, n, l2, _aligned16(vectors), _stream(q))
+            _launch("gather_distance", codec, _ptr(vectors), _opt_ptr(scales),
+                    _ptr(q), _ptr(ids), _ptr(out), b, k, d, n, l2,
+                    _aligned16(vectors), _stream(q))
     return out
 
 
 def beam_search(vectors: torch.Tensor, neighbors0: torch.Tensor,
                 q: torch.Tensor, ep: torch.Tensor, ep_dist: torch.Tensor, *,
-                ef: int, metric: str = "cosine", expand_t: int = 4,
+                ef: int, metric: str = "cosine",
+                scales: torch.Tensor | None = None, expand_t: int = 4,
                 max_iters: int | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Whole layer-0 ef-beam HNSW search in ONE launch: per hop, the top
     ``expand_t`` unexpanded beam entries expand together (neighbor gather,
-    dedup, fused row distance, bitonic merge). vectors [N,D], neighbors0
-    [N,2M] i32, q [B,D], ep/ep_dist [B] -> (ids [B,ef] i32, dists [B,ef]
-    f32) ascending by (d, id), empty slots (-1, INF)."""
+    dedup, fused decode + row distance, bitonic merge). vectors [N,D]
+    (f32, bf16, or int8 with ``scales`` [N]), neighbors0 [N,2M] i32, q
+    [B,D], ep/ep_dist [B] -> (ids [B,ef] i32, dists [B,ef] f32) ascending
+    by (d, id), empty slots (-1, INF)."""
     l2 = _metric_code(metric)
-    if not _on_cuda(vectors, neighbors0, q, ep, ep_dist):
+    tensors = (vectors, neighbors0, q, ep, ep_dist)
+    if scales is not None:
+        tensors += (scales,)
+    if not _on_cuda(*tensors):
         return _ref.beam_search_ref(vectors, neighbors0, q, ep, ep_dist,
-                                    ef=ef, metric=metric, expand_t=expand_t,
-                                    max_iters=max_iters)
-    _check(vectors, "vectors", torch.float32, 2)
+                                    ef=ef, metric=metric, scales=scales,
+                                    expand_t=expand_t, max_iters=max_iters)
+    codec = _check_rows(vectors, scales)
     _check(neighbors0, "neighbors0", torch.int32, 2)
     _check(q, "q", torch.float32, 2)
     _check(ep, "ep", torch.int32, 1)
@@ -175,10 +214,34 @@ def beam_search(vectors: torch.Tensor, neighbors0: torch.Tensor,
     dists = torch.empty((b, ef), dtype=torch.float32, device=q.device)
     if b:
         with torch.cuda.device(q.device):
-            _launch("beam_search", _ptr(vectors), _ptr(neighbors0), _ptr(q),
-                    _ptr(ep), _ptr(ep_dist), _ptr(ids), _ptr(dists), b, n, d, m2, ef, efp, t, budget, hops, l2,
-                    _aligned16(vectors), _stream(q))
+            _launch("beam_search", codec, _ptr(vectors), _opt_ptr(scales),
+                    _ptr(neighbors0), _ptr(q), _ptr(ep), _ptr(ep_dist),
+                    _ptr(ids), _ptr(dists), b, n, d, m2, ef, efp, t, budget,
+                    hops, l2, _aligned16(vectors), _stream(q))
     return ids, dists
+
+
+def select_neighbors(vectors: torch.Tensor, q: torch.Tensor,
+                     cand_ids: torch.Tensor, *, m: int,
+                     metric: str = "cosine",
+                     scales: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched HNSW neighbor-selection heuristic (Malkov Alg. 4 with the
+    pruned-candidate backfill): vectors [N,D] (any codec dtype, ``scales``
+    [N] decodes), q [B,D], cand_ids [B,C] i32 -1-pad -> (ids [B,m] i32
+    -1-pad, dists [B,m] f32 INF-pad), per row output-identical to the host
+    ``select_heuristic_host`` oracle.
+
+    Plain PyTorch on every device, as the JAX package keeps it jnp-only:
+    one [B,C,C] einsum (full fp32: it needs TF32 off, PyTorch's default)
+    and a C-step masked keep-scan. It is no TPU kernel, so nothing counts
+    its launches."""
+    _metric_code(metric)
+    if torch.backends.cuda.matmul.allow_tf32 and q.device.type == "cuda":
+        raise RuntimeError("select_neighbors needs full-fp32 matmuls: "
+                           "torch.backends.cuda.matmul.allow_tf32 is set")
+    return _ref.select_neighbors_ref(vectors, q, cand_ids, m=m,
+                                     metric=metric, scales=scales)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -207,9 +270,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           device=q.device)
     if b:
         with torch.cuda.device(q.device):
-            _launch("flash_decode", _ptr(q), _ptr(k), _ptr(v), _ptr(cur),
-                    _ptr(out), _ptr(part_acc), _ptr(part_ml), b, h, s, kvh,
-                    dh, splits, chunk, dh ** -0.5, _stream(q))
+            _launch("flash_decode", "fp32", _ptr(q), _ptr(k), _ptr(v),
+                    _ptr(cur), _ptr(out), _ptr(part_acc), _ptr(part_ml), b,
+                    h, s, kvh, dh, splits, chunk, dh ** -0.5, _stream(q))
     return out
 
 
@@ -223,8 +286,8 @@ def _flash_splits(pairs: int, s: int, device) -> tuple[int, int]:
     return -(-s // chunk), chunk
 
 
-# row dtype -> the kernel's dtype code
-_ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# row dtype -> distance_topk's dtype code (0 f32, 1 bf16, 2 int8)
+_ROW_DTYPES = {dt: i for i, dt in enumerate(CODEC_OF)}
 TOPK_MAX_K = 256          # list slots the kernel keeps per query
 
 
@@ -260,20 +323,13 @@ def flat_topk(db: torch.Tensor, q: torch.Tensor, k: int, *,
     tensors = (db, q) if scales is None else (db, q, scales)
     if not _on_cuda(*tensors):
         return _ref.distance_topk_ref(db, q, k, metric=metric, scales=scales)
-    if db.dtype not in _ROW_DTYPES:
-        raise TypeError(f"db: expected one of {list(_ROW_DTYPES)}, got "
-                        f"{db.dtype}")
-    _check(db, "db", db.dtype, 2)
+    codec = _check_rows(db, scales)
     _check(q, "q", torch.float32, 2)
     n, d = db.shape
     b = q.shape[0]
     if q.shape[1] != d:
         raise ValueError(f"q {tuple(q.shape)} does not match db "
                          f"{tuple(db.shape)}")
-    if scales is not None:
-        _check(scales, "scales", torch.float32, 1)
-        if scales.shape[0] != n:
-            raise ValueError(f"scales {tuple(scales.shape)} for {n} rows")
     k = int(k)
     if not 1 <= k <= min(n, TOPK_MAX_K):
         raise ValueError(f"flat_topk: k={k} needs 1 <= k <= min(N={n}, "
@@ -284,8 +340,8 @@ def flat_topk(db: torch.Tensor, q: torch.Tensor, k: int, *,
     part_i = torch.empty((b, splits * k), dtype=torch.int32, device=q.device)
     if b:
         with torch.cuda.device(q.device):
-            _launch("distance_topk", _ptr(db),
-                    None if scales is None else _ptr(scales), _ptr(q),
-                    _ptr(part_d), _ptr(part_i), b, n, d, k, splits, rows, l2,
-                    _ROW_DTYPES[db.dtype], small, _aligned16(db), _stream(q))
+            _launch("distance_topk", codec, _ptr(db), _opt_ptr(scales),
+                    _ptr(q), _ptr(part_d), _ptr(part_i), b, n, d, k, splits,
+                    rows, l2, _ROW_DTYPES[db.dtype], small, _aligned16(db),
+                    _stream(q))
     return _ref.smallest_k(part_d, part_i, k)

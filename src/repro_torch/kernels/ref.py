@@ -17,11 +17,16 @@ METRICS = ("cosine", "ip", "l2")
 
 
 def gather_distance_ref(vectors: torch.Tensor, q: torch.Tensor,
-                        ids: torch.Tensor, *,
-                        metric: str = "cosine") -> torch.Tensor:
-    """vectors [N,D], q [B,D], ids [B,K] (valid, clamped) -> dists [B,K]:
-    ``1 - <q, x>`` for cosine/ip, squared L2 otherwise, in fp32."""
-    x = vectors[ids.long()].float()                      # [B,K,D]
+                        ids: torch.Tensor, *, metric: str = "cosine",
+                        scales: torch.Tensor | None = None) -> torch.Tensor:
+    """vectors [N,D] (f32, bf16 or int8 rows), q [B,D], ids [B,K] (valid,
+    clamped) -> dists [B,K]: ``1 - <q, x>`` for cosine/ip, squared L2
+    otherwise, in fp32. ``scales`` [N] decodes each gathered row as
+    ``row · scale`` in fp32 before the distance."""
+    idl = ids.long()
+    x = vectors[idl].float()                             # [B,K,D]
+    if scales is not None:
+        x = x * scales[idl].float()[..., None]
     qf = q.float()
     if metric in ("cosine", "ip"):
         return 1.0 - torch.einsum("bd,bkd->bk", qf, x)
@@ -217,15 +222,17 @@ def beam_schedule(ef: int, expand_t: int,
 
 def beam_search_ref(vectors: torch.Tensor, neighbors0: torch.Tensor,
                     q: torch.Tensor, ep: torch.Tensor, ep_dist: torch.Tensor,
-                    *, ef: int, metric: str = "cosine", expand_t: int = 4,
+                    *, ef: int, metric: str = "cosine",
+                    scales: torch.Tensor | None = None, expand_t: int = 4,
                     max_iters: int | None = None,
                     return_visited: bool = False):
     """Plain version of the fused layer-0 ef-beam search: frontier
     selection, dedup and merge per hop, with the row gather done by
-    ``gather_distance_ref``. vectors [N, D], neighbors0 [N, 2M] i32 (-1
-    pad), q [B, D] f32, ep/ep_dist [B] -> (ids [B, ef] i32, dists [B, ef]
-    f32) ascending by (d, id); empty slots (-1, INF). At expand_t=1 the
-    visit order is the one-at-a-time ``core.hnsw._beam_search`` order.
+    ``gather_distance_ref``. vectors [N, D] (any codec dtype; ``scales``
+    [N] decodes), neighbors0 [N, 2M] i32 (-1 pad), q [B, D] f32,
+    ep/ep_dist [B] -> (ids [B, ef] i32, dists [B, ef] f32) ascending by
+    (d, id); empty slots (-1, INF). At expand_t=1 the visit order is the
+    one-at-a-time ``core.hnsw._beam_search`` order.
 
     ``return_visited`` adds a third result, the work the search needs:
     ``rows`` (bool [N], rows whose distance some query needed — valid
@@ -252,7 +259,8 @@ def beam_search_ref(vectors: torch.Tensor, neighbors0: torch.Tensor,
         nbrs = neighbors0[nodes.clamp(0, n - 1).long()]         # [B, t, 2M]
         valid = ((nodes >= 0)[:, :, None] & (nbrs >= 0)).reshape(b, t * m2)
         cand = nbrs.clamp(0, n - 1).reshape(b, t * m2)
-        d = gather_distance_ref(vectors, q, cand, metric=metric)
+        d = gather_distance_ref(vectors, q, cand, metric=metric,
+                                scales=scales)
         valid = beam_dedup_valid(cand, valid, bi)
         cd = torch.where(valid, d, BEAM_INF)
         ci = torch.where(valid, cand, -1).to(torch.int32)
@@ -267,6 +275,82 @@ def beam_search_ref(vectors: torch.Tensor, neighbors0: torch.Tensor,
         return bi[:, :ef], bd[:, :ef], dict(rows=rows, lists=lists,
                                             pairs=int(pairs))
     return bi[:, :ef], bd[:, :ef]
+
+
+# ---------------------------------------------------------------------------
+# batched neighbor-selection heuristic (HNSW construction)
+# ---------------------------------------------------------------------------
+INT32_MAX = 2 ** 31 - 1
+
+
+def select_neighbors_ref(vectors: torch.Tensor, q: torch.Tensor,
+                         cand_ids: torch.Tensor, *, m: int,
+                         metric: str = "cosine",
+                         scales: torch.Tensor | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched Malkov & Yashunin Alg. 4 (``keepPrunedConnections=True``),
+    per row output-identical to the host oracle
+    ``core.hnsw_build.select_heuristic_host``.
+
+    vectors [N, D] (any codec dtype; ``scales`` [N] decodes), q [B, D]
+    f32, cand_ids [B, C] i32 with -1 padding -> (ids [B, m] i32 -1-pad,
+    dists [B, m] f32 INF-pad, in selection order).
+
+    Per row: duplicate ids keep their first occurrence; candidates sort
+    by the two-key (dist-to-q, id) order; a masked keep-scan walks them
+    in that order, keeping candidate ``i`` iff no already-kept ``j`` has
+    ``pd[i, j] < d[i]``; the first ``m`` keeps are the picks, and
+    pruned candidates backfill in sorted order. ``pd`` is one [B, C, C]
+    einsum, which runs in full fp32 (TF32 stays off, PyTorch's default).
+    The scan is a C-step Python loop of tensor ops: no host sync."""
+    b, c = cand_ids.shape
+    dev = q.device
+    cand_ids = cand_ids.to(torch.int32)
+    if c < m:                      # width must cover the output slots
+        cand_ids = torch.cat([cand_ids, torch.full(
+            (b, m - c), -1, dtype=torch.int32, device=dev)], dim=1)
+        c = m
+    n = vectors.shape[0]
+    valid = cand_ids >= 0
+    idc = cand_ids.clamp(0, n - 1)
+    # keep-first dedup (the mask construction of beam_dedup_valid)
+    eq = idc[:, :, None] == idc[:, None, :]
+    ar = torch.arange(c, device=dev)
+    earlier = ar[:, None] > ar[None, :]
+    valid = valid & ~(eq & earlier[None] & valid[:, None, :]).any(dim=-1)
+    d = gather_distance_ref(vectors, q, idc, metric=metric, scales=scales)
+    d = torch.where(valid, d, BEAM_INF)
+    sid = torch.where(valid, cand_ids, INT32_MAX)
+    sd, si, _ = lexsort2(d, sid, sid)                  # (d, id) ascending
+    svalid = sd < BEAM_INF
+    # pairwise distances between the sorted candidates, decoded in fp32
+    sil = si.clamp(0, n - 1).long()
+    x = vectors[sil].float()
+    if scales is not None:
+        x = x * scales[sil].float()[..., None]
+    dots = torch.einsum("bid,bjd->bij", x, x)
+    if metric in ("cosine", "ip"):
+        pd = 1.0 - dots
+    else:
+        sq = (x * x).sum(dim=-1)
+        pd = (sq[:, :, None] - 2.0 * dots) + sq[:, None, :]
+    # rej[:, i, j]: a kept j would reject candidate i (the host oracle's
+    # strict test pd[i, j] < d(i, q))
+    rej = pd < sd[:, :, None]
+    kept = torch.zeros((b, c), dtype=torch.bool, device=dev)
+    for i in range(c):
+        kept[:, i] = svalid[:, i] & ~(kept & rej[:, i, :]).any(dim=-1)
+    ki = kept.to(torch.int32)
+    primary = kept & ((torch.cumsum(ki, dim=-1) - ki) < m)
+    # heuristic picks first (in sorted order), then the backfill in sorted
+    # order; invalid slots sorted to the very end by construction
+    pos = ar.expand(b, c)
+    order = torch.argsort(torch.where(primary, pos, pos + c), dim=-1)[:, :m]
+    out_i = torch.gather(si, 1, order)
+    out_d = torch.gather(sd, 1, order)
+    out_v = torch.gather(svalid, 1, order)
+    return (torch.where(out_v, out_i, -1).to(torch.int32),
+            torch.where(out_v, out_d, BEAM_INF))
 
 
 # ---------------------------------------------------------------------------

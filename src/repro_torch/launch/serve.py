@@ -4,6 +4,8 @@ of ``repro/launch/serve.py`` on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --requests 12 --max-new 16 --rag --index hnsw [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --rag --index hnsw \
+        --index-dtype int8 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --rag --index flat \
         --index-dtype int8 [--device cpu]
 
@@ -13,12 +15,11 @@ passes the full-width one). RAG requests arrive closed-loop (a bounded
 window of outstanding requests is kept topped up); the run reports req/s,
 tok/s, ``overlap_ratio`` and ``slot_occupancy``.
 
-``--index flat`` serves exact search under the fp32, bf16 or int8 row
-codec (``--index-dtype``; int8 over-fetches and reranks in fp32);
-``--index hnsw`` serves fp32 rows. Not ported yet (ROADMAP.md §1), and
-rejected with ``NotImplementedError``: ``--tenants``, ``--store-dir``,
-``--shards`` > 1, ``--index ivf|tiered``, and a lossy ``--index-dtype``
-with hnsw.
+``--index flat`` serves exact search and ``--index hnsw`` the graph
+search, each under the fp32, bf16 or int8 row codec (``--index-dtype``;
+int8 over-fetches and reranks in fp32). Not ported yet (ROADMAP.md §0),
+and rejected with ``NotImplementedError``: ``--tenants``, ``--store-dir``,
+``--shards`` > 1 and ``--index ivf|tiered``.
 """
 from __future__ import annotations
 
@@ -89,7 +90,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(flat and hnsw are ported)")
     ap.add_argument("--index-dtype", default=None,
                     choices=("fp32", "bf16", "int8"),
-                    help="row-storage codec (flat: all three; hnsw: fp32)")
+                    help="row-storage codec of the flat or hnsw index")
     ap.add_argument("--beam-impl", default=None, choices=("fused", "jnp"),
                     help="HNSW layer-0 beam: 'fused' runs the whole "
                          "ef-beam as one kernel launch; 'jnp' is the "

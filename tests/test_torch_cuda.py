@@ -172,3 +172,152 @@ def test_flat_topk_kernel_short_last_range(cuda_device):
     assert dispatch.get("kernel.distance_topk") == 1
     assert bool((ki >= 0).all()) and bool((ki < 771).all())
     assert bool((kd < 1e30).all())
+
+
+# ---------------------------------------------------------------------------
+# gather_distance and beam_search over encoded rows (bf16, int8 + scales)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+@pytest.mark.parametrize("metric,d,offset", [
+    ("cosine", 384, 0), ("l2", 384, 0), ("ip", 30, 0),   # D 30: scalar loads
+    ("l2", 384, 1)])                                      # unaligned rows
+def test_gather_distance_codec_kernel_matches_plain(cuda_device, codec,
+                                                    metric, d, offset):
+    """The bf16 and int8 instances against the plain version, on both row
+    loads: 16-byte vectors, and scalar loads for D 30 or a view whose
+    base is not 16-byte aligned."""
+    from repro_torch.core.codec import get_codec
+    rng = np.random.default_rng(23)
+    n = 5000
+    enc, scales = get_codec(codec).encode(_unit(rng.normal(size=(n, d))))
+    flat = np.zeros(n * d + offset, enc.dtype)
+    flat[offset:] = enc.reshape(-1)
+    rows = _encoded_flat(flat, codec, cuda_device)[offset:].view(n, d)
+    scl = None if scales is None else _t(scales).to(cuda_device)
+    q = _t(_unit(rng.normal(size=(33, d)))).to(cuda_device)
+    ids = _t(rng.integers(0, n, size=(33, 17)).astype(np.int32)).to(
+        cuda_device)
+    assert bool(tops._aligned16(rows)) == (offset == 0 and d == 384)
+    torch.testing.assert_close(
+        tops.gather_distance(rows, q, ids, metric=metric, scales=scl),
+        tref.gather_distance_ref(rows, q, ids, metric=metric, scales=scl),
+        rtol=0, atol=1e-5)
+
+
+def _encoded_flat(flat, codec, device):
+    """A flat encoded host array -> a 1-D device tensor of the row dtype
+    (bf16 bits viewed as torch.bfloat16)."""
+    from repro_torch.core.codec import device_rows
+    return device_rows(flat[None], device)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+@pytest.mark.parametrize("expand_t,ef,d,m2", [
+    (1, 24, 32, 16), (4, 24, 32, 16),
+    (3, 10, 30, 10),               # non-pow2 ef, T*2M and scalar loads
+    (4, 64, 384, 10)])             # the served width, M 5
+def test_beam_search_codec_kernel_exact_on_integer_rows(cuda_device, codec,
+                                                        expand_t, ef, d, m2):
+    """Integer-valued l2 rows (int8 with scales 1.0; bf16 holds small
+    integers exactly): the kernel's ids and distances equal the plain
+    version's."""
+    vec, nbrs, q, ep = _int_graph(24, n=2000, d=d, m2=m2, b=40)
+    if codec == "int8":
+        rows = _t(vec.astype(np.int8)).to(cuda_device)
+        scl = torch.ones(2000, device=cuda_device)
+    else:
+        from repro_torch.core.codec import device_rows, get_codec
+        rows = device_rows(get_codec("bf16").encode(vec)[0], cuda_device)
+        scl = None
+    nb, qq, e = (_t(a).to(cuda_device) for a in (nbrs, q, ep))
+    ep_d = tref.gather_distance_ref(rows, qq, e[:, None], metric="l2",
+                                    scales=scl)[:, 0].contiguous()
+    kw = dict(ef=ef, metric="l2", scales=scl, expand_t=expand_t)
+    ki, kd = tops.beam_search(rows, nb, qq, e, ep_d, **kw)
+    ri, rd = tref.beam_search_ref(rows, nb, qq, e, ep_d, **kw)
+    torch.testing.assert_close(ki, ri, rtol=0, atol=0)
+    torch.testing.assert_close(kd, rd, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+@pytest.mark.parametrize("d", [30, 384])
+def test_beam_search_codec_kernel_matches_plain(cuda_device, codec, d):
+    """Random cosine rows through the port's codec: ids equal on most
+    queries, distances within 1e-5 where they are."""
+    from repro_torch.core.codec import device_rows, get_codec
+    rng = np.random.default_rng(25)
+    n, m2, b = 3000, 16, 64
+    enc, scales = get_codec(codec).encode(_unit(rng.normal(size=(n, d))))
+    rows = device_rows(enc, cuda_device)
+    scl = None if scales is None else _t(scales).to(cuda_device)
+    nbrs = _t(rng.integers(0, n, size=(n, m2)).astype(np.int32)).to(
+        cuda_device)
+    q = _t(_unit(rng.normal(size=(b, d)))).to(cuda_device)
+    ep = _t(rng.integers(0, n, size=b).astype(np.int32)).to(cuda_device)
+    ep_d = tref.gather_distance_ref(rows, q, ep[:, None],
+                                    scales=scl)[:, 0].contiguous()
+    ki, kd = tops.beam_search(rows, nbrs, q, ep, ep_d, ef=32, scales=scl)
+    ri, rd = tref.beam_search_ref(rows, nbrs, q, ep, ep_d, ef=32,
+                                  scales=scl)
+    same = (ki == ri).all(dim=1)
+    assert same.float().mean().item() >= 0.9
+    torch.testing.assert_close(kd[same], rd[same], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_codec_kernels_check_their_rows(cuda_device):
+    """int8 rows need fp32 scales; bf16 and fp32 rows take none."""
+    rows = torch.zeros(10, 16, dtype=torch.int8, device=cuda_device)
+    q = torch.zeros(2, 16, device=cuda_device)
+    ids = torch.zeros(2, 3, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="scales"):
+        tops.gather_distance(rows, q, ids)
+    with pytest.raises(ValueError, match="scales"):
+        tops.gather_distance(rows.to(torch.bfloat16), q, ids,
+                             scales=torch.ones(10, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_bulk_build_on_card_bit_identical_to_cpu(cuda_device, metric):
+    """Integer-valued rows (exact arithmetic): the graph bulk-built on the
+    card — searches through the kernels, selects and connects on the card
+    — equals the same call on the CPU bit for bit."""
+    from repro_torch.core import dispatch
+    from repro_torch.core import hnsw_build as tbuild
+    rng = np.random.default_rng(26)
+    data = rng.integers(-4, 5, size=(3000, 32)).astype(np.float32)
+    kw = dict(M=8, ef_construction=40, metric=metric, seed=2, bootstrap=64,
+              batch_size=512)
+    dispatch.reset()
+    gc = tbuild.bulk_build(data, device=cuda_device, **kw)
+    assert dispatch.get("kernel.beam_search") == 6     # one per batch
+    assert dispatch.get("kernel.gather_distance") > 0
+    gh = tbuild.bulk_build(data, device="cpu", **kw)
+    for name in ("neighbors0", "upper", "levels", "vectors"):
+        np.testing.assert_array_equal(getattr(gc, name), getattr(gh, name),
+                                      err_msg=name)
+    assert (gc.entry, gc.max_level) == (gh.entry, gh.max_level)
+
+
+@pytest.mark.cuda
+def test_select_neighbors_on_card_refuses_tf32(cuda_device):
+    """The pairwise block must be full fp32 for the build to equal the
+    CPU's; with TF32 matmuls switched on the op raises."""
+    v = torch.randint(-4, 5, (20, 8), device=cuda_device).float()
+    cand = torch.randint(-1, 20, (3, 6), device=cuda_device,
+                         dtype=torch.int32)
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="tf32"):
+            tops.select_neighbors(v, v[:3], cand, m=4, metric="l2")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    ids, _ = tops.select_neighbors(v, v[:3], cand, m=4, metric="l2")
+    want, _ = tref.select_neighbors_ref(v.cpu(), v[:3].cpu(), cand.cpu(),
+                                        m=4, metric="l2")
+    assert torch.equal(ids.cpu(), want)

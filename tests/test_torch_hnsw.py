@@ -219,7 +219,9 @@ def test_unported_surface_raises_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmake_index("hnsw", device="cpu", n_shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("hnsw", device="cpu", dtype="int8")
+        tmake_index("hnsw", device="cpu", dtype="int8", n_shards=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmake_index("hnsw", device="cpu", dtype="int8", store="/nonexistent")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmake_index("hnsw", device="cpu", store="/nonexistent")
     idx = tmake_index("flat", device="cpu")
