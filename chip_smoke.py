@@ -21,7 +21,13 @@ Phases (none catches an exception; any failure exits non-zero):
    random cosine rows, on integer-valued l2 rows (exact), and on a row
    count whose last row range holds fewer than k rows; then the 64- and
    256-slot lists (k 40, 200), the ip metric and scalar row loads (D 30)
-   on the same rows.
+   on the same rows. ``embedding_bag`` runs at MIND's published table
+   (1M x 64, fp32 and bf16; configs/mind.py) with bags of L 50 at the
+   recsys serve batches 512 and 262,144, ``sum`` and ``mean``, against its
+   plain version (rtol 1e-5, atol 1e-5) and, on integer-valued rows with
+   0/1 weights, exactly; beside it ``torch.nn.functional.embedding_bag``
+   on the fp32 table. No model path calls this kernel; its entry point,
+   ``ops.embedding_bag``, is run once more per table dtype, counted.
 3. The HNSW served path, through ``repro_torch.launch.serve.run`` with
    ``--rag --index hnsw``: full-width llama3-8b (all 32 layers, fp32
    random weights from a seeded ``torch.Generator``) over the built-in
@@ -54,15 +60,28 @@ Phases (none catches an exception; any failure exits non-zero):
    ``exact_query``, and on a 20,000-row prefix the bulk and the
    sequential builder's recall (bulk >= sequential - 0.05); (c) a
    32,768-row prefix build, timed and then traced, gives the device's
-   busy and idle share of a build.
+   busy and idle share of a build; (d) the durable store on (b)'s index:
+   attach an ``IndexStore`` and snapshot, apply 32 inserts, 32 updates
+   and 64 deletes (WAL-logged), drop the index, warm-restore it with
+   ``make_index("hnsw", store=...)`` and hold it against the live one
+   (the same keys on the 1,024 queries, the same ``mutation_epoch``,
+   equal ``state_dict`` arrays), timing the snapshot and the restore
+   (read, replay, first upload) beside (b)'s build; (e) compact with
+   secure delete on a 20,000-row int8 prefix: no deleted row's bytes in
+   any file of the store, and the compacted store restores with the live
+   keys.
 6. The HNSW served path over int8 rows, ``--rag --index hnsw
    --index-dtype int8``, with the same model shape, corpus and requests:
    the int8 instances of ``gather_distance`` and ``beam_search`` and
    ``flash_decode`` must launch; the served keys must equal a CPU
    ``HNSW(dtype="int8")`` of the same corpus; a bf16 HNSW of the corpus
    (its run counted) must return the CPU's keys.
+7. The same int8 HNSW served path with ``--store-dir``, cold and then
+   warm: the warm run restores the index, inserts nothing (the epoch, the
+   WAL and the snapshots stay as the cold run left them) and retrieves
+   the cold run's keys.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+Each phase's seconds are logged. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 repository around it, the script exits non-zero and prints no result.
 """
@@ -72,8 +91,10 @@ import copy
 import gc
 import itertools
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -98,6 +119,18 @@ BULK_INT = dict(rows=20_000, dim=64, M=8, ef_construction=40,
 BULK_ROWS, BULK_QUERIES, BULK_SAMPLE = 1_000_000, 1024, 256
 PROFILE_ROWS = 32_768
 QUALITY_ROWS = 20_000
+# embedding_bag at MIND's published table (src/repro/configs/mind.py:
+# n_items, embed_dim, seq_len) and the recsys serve shapes of
+# configs/base.py RECSYS_SHAPES (serve_p99, serve_bulk). No model path of
+# either package calls the kernel; its entry point is ops.embedding_bag,
+# whose counted run is one call at serve_p99 per table dtype.
+BAG_ROWS, BAG_DIM, BAG_LEN = 1_000_000, 64, 50
+BAG_BATCHES = (512, 262_144)
+BAG_ENTRY = "ops.embedding_bag (MIND serve_p99)"
+# store phase: logged mutations on the restored 1M int8 index, and the
+# compact + secure-delete prefix
+STORE_INSERTS, STORE_UPDATES, STORE_DELETES = 32, 32, 64
+COMPACT_ROWS, COMPACT_DELETES = 20_000, 200
 # the kernels each served path must launch
 HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
              "kernel.flash_decode")
@@ -112,12 +145,14 @@ MAIN_PATH = {
     "gather_distance.int8": "hnsw int8", "beam_search.int8": "hnsw int8",
     "distance_topk.fp32": "flat fp32", "distance_topk.bf16": "flat bf16",
     "distance_topk.int8": "flat int8",
+    "embedding_bag.fp32": BAG_ENTRY, "embedding_bag.bf16": BAG_ENTRY,
 }
 REPLACES = {
     "gather_distance": "src/repro/kernels/gather_distance.py:170",
     "beam_search": "src/repro/kernels/beam_search.py:269",
     "flash_decode": "src/repro/kernels/flash_decode.py:94",
     "distance_topk": "src/repro/kernels/distance_topk.py:146",
+    "embedding_bag": "src/repro/kernels/embedding_bag.py:101",
 }
 
 
@@ -386,7 +421,134 @@ def phase_kernels(torch) -> dict:
     del qd, kd, vd
     torch.cuda.empty_cache()
     out.update(check_distance_topk(torch, dev, gen))
+    out.update(check_embedding_bag(torch, dev, gen))
     return out
+
+
+def check_embedding_bag(torch, dev, gen) -> dict:
+    """``embedding_bag`` at MIND's 1M x 64 table, fp32 and bf16, bags of
+    L 50 at B 512 and 262,144, ``sum`` and ``mean``, against its plain
+    version (rtol 1e-5, atol 1e-5); integer-valued rows with 0/1 weights
+    exactly. Ids are uniform; the weights are a behaviour mask (each bag's
+    first n_b members, n_b uniform in [1, L], the tail 0)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    table32 = torch.randn(BAG_ROWS, BAG_DIM, device=dev, generator=gen)
+    tint32 = torch.randint(-8, 9, (BAG_ROWS, BAG_DIM), device=dev,
+                           generator=gen).float()
+    pos = torch.arange(BAG_LEN, device=dev)
+    recs = {}
+    for b in BAG_BATCHES:
+        # B 512 rows fit the 50 MB L2: timed calls cycle over 8 bag sets
+        sets = []
+        for _ in range(8 if b == BAG_BATCHES[0] else 1):
+            ids = torch.randint(0, BAG_ROWS, (b, BAG_LEN), device=dev,
+                                generator=gen, dtype=torch.int32)
+            n_b = torch.randint(1, BAG_LEN + 1, (b, 1), device=dev,
+                                generator=gen)
+            sets.append((ids, (pos[None, :] < n_b).float().contiguous()))
+        ids, w = sets[0]
+        live = w > 0
+        n_rows = torch.unique(ids[live]).numel()
+        members = int(live.sum().item())
+        for dtype, tname in ((torch.float32, "fp32"),
+                             (torch.bfloat16, "bf16")):
+            table = table32.to(dtype)
+            tint = tint32.to(dtype)
+            got = ops.embedding_bag(tint, ids, w, combine="sum")
+            want = ref.embedding_bag_ref(tint, ids, w, combine="sum")
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), \
+                f"embedding_bag {tname} B={b}: integer rows differ"
+            for combine in ("sum", "mean"):
+                got = ops.embedding_bag(table, ids, w, combine=combine)
+                want = ref.embedding_bag_ref(table, ids, w, combine=combine)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+                err = (got - want).abs().max().item()
+                b_ms, b_by = bound(
+                    n_rows * BAG_DIM * table.element_size()
+                    + ids.numel() * 8 + b * BAG_DIM * 4,
+                    2.0 * members * BAG_DIM)
+                cyc = itertools.cycle(sets)
+
+                def kernel():
+                    i, ww = next(cyc)
+                    return ops.embedding_bag(table, i, ww, combine=combine)
+
+                def plain():
+                    i, ww = next(cyc)
+                    return ref.embedding_bag_ref(table, i, ww,
+                                                 combine=combine)
+
+                library_ms = lib_err = None
+                if dtype == torch.float32 and combine == "sum":
+                    # one PyTorch call computes this function (not bf16:
+                    # it would sum in bf16; not mean: it takes no weights)
+                    def library():
+                        i, ww = next(cyc)
+                        return F.embedding_bag(i, table, mode="sum",
+                                               per_sample_weights=ww)
+
+                    lib_err = (F.embedding_bag(ids, table, mode="sum",
+                                               per_sample_weights=w)
+                               - want).abs().max().item()
+                    library_ms = time_ms(torch, library, 20)
+                recs[(tname, b, combine)] = dict(
+                    max_abs_err=err, int_rows_exact=True,
+                    ms=time_ms(torch, kernel, 20),
+                    plain_ms=time_ms(torch, plain, 5, warmup=1),
+                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                    library_max_abs_err=lib_err, distinct_rows=n_rows,
+                    weighted_members=members)
+                log(f"embedding_bag {tname} B={b} {combine} "
+                    + json.dumps(recs[(tname, b, combine)]))
+            del table, tint
+        del sets, ids, w, live
+        torch.cuda.empty_cache()
+    # one record per table dtype, headed by its serve_bulk sum cell, with
+    # every cell beside
+    head = (BAG_BATCHES[-1], "sum")
+    out = {}
+    for t in ("fp32", "bf16"):
+        out[f"embedding_bag.{t}"] = dict(
+            recs[(t, *head)],
+            library=("torch.nn.functional.embedding_bag(mode='sum', "
+                     "per_sample_weights=w) on the fp32 table"
+                     if t == "fp32" else "none: PyTorch's embedding_bag "
+                     "sums a bf16 table in bf16, another function"),
+            shapes=f"table {BAG_ROWS}x{BAG_DIM} {t}, ids [B, {BAG_LEN}] "
+                   "uniform, weights a behaviour mask; head: B "
+                   f"{head[0]} {head[1]}",
+            cells={f"B{b} {c}": recs[(t, b, c)] for b in BAG_BATCHES
+                   for c in ("sum", "mean")})
+    del table32, tint32
+    torch.cuda.empty_cache()
+    return out
+
+
+def bag_entry_run(torch) -> dict:
+    """The kernel's own entry point, counted: ``ops.embedding_bag`` once
+    per table dtype at MIND serve_p99 (B 512, L 50, sum), counters zeroed
+    just before and read just after."""
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    table = torch.randn(BAG_ROWS, BAG_DIM, device=dev, generator=gen)
+    ids = torch.randint(0, BAG_ROWS, (BAG_BATCHES[0], BAG_LEN), device=dev,
+                        generator=gen, dtype=torch.int32)
+    tables = (table, table.to(torch.bfloat16))
+    dispatch.reset()
+    outs = [ops.embedding_bag(t, ids) for t in tables]
+    torch.cuda.synchronize()
+    counts = dispatch.snapshot()
+    for o in outs:
+        assert o.shape == (BAG_BATCHES[0], BAG_DIM)
+        assert bool(torch.isfinite(o).all())
+    return counts
 
 
 def device_split(torch, fn, kernel: str, reps: int = 5) -> dict:
@@ -911,8 +1073,20 @@ def phase_bulk(torch) -> dict:
         keys_equal_cpu_rows=same, recall_at_10_vs_exact=recall)
     log("1M int8 query_batch " + json.dumps(out["query_1m_int8"]))
     out["build_counters"], out["query_counters"] = build_counts, query_counts
-    del idx, on_cpu, dg
-    release(torch)
+    del on_cpu, dg
+    # (d) the durable store on this index, whose restore replaces the
+    # build: snapshot + logged mutations, then the index is dropped and
+    # the card's cache emptied, then the warm restore
+    d = store_dir("store_1m")
+    try:
+        live = store_snapshot_and_mutate(idx, keys, x, qs, d)
+        del idx
+        live["left_on_card_gb"] = release(torch)
+        assert live["left_on_card_gb"] < 0.5, "the live index is still held"
+        out["store_1m_int8"] = store_restore(torch, live, qs, build_s, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out["compact_prefix"] = store_compact(torch, keys, x, qs)
 
     # what recall random 384-d rows allow at M 5: the bulk and the
     # sequential builder on a prefix, searched on the card, held to the
@@ -965,6 +1139,186 @@ def phase_bulk(torch) -> dict:
     return out
 
 
+def store_dir(name: str) -> Path:
+    """A fresh directory for a store under the checkout's gitignored
+    ``build/scratch/``, with the disk's free space logged."""
+    root = ROOT / "build" / "scratch"
+    root.mkdir(parents=True, exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix=f"{name}_", dir=root))
+    free = shutil.disk_usage(d).free / 1e9
+    log(f"store dir {d}: {free:.1f} GB free")
+    return d
+
+
+def dir_bytes(d: Path) -> int:
+    return sum(p.stat().st_size for p in d.rglob("*") if p.is_file())
+
+
+def store_snapshot_and_mutate(idx, keys, x, qs, d: Path) -> dict:
+    """Phase 5 (d), first half: attach an ``IndexStore`` in ``d`` to the
+    1M x 384 int8 HNSW, snapshot it, and apply a few logged mutations.
+    Each lossy sequential insert concatenates the whole encoded array
+    (``HNSW._append_enc``), so they are kept few. Returns what the live
+    index answers and holds, for the restore to be held against."""
+    import numpy as np
+    from repro_torch.store import IndexStore
+
+    store = IndexStore(str(d))
+    store.attach(idx)
+    t0 = time.perf_counter()
+    snap = store.snapshot(idx)
+    snap_s = time.perf_counter() - t0
+    n = len(keys)
+    rng = np.random.default_rng(13)
+    fresh = rng.normal(size=(STORE_INSERTS + STORE_UPDATES,
+                             x.shape[1])).astype(np.float32)
+    t0 = time.perf_counter()
+    for j in range(STORE_INSERTS):
+        idx.insert(f"new{j}", fresh[j])
+    for j, r in enumerate(rng.choice(n, STORE_UPDATES, replace=False)):
+        idx.update(keys[int(r)], fresh[STORE_INSERTS + j])
+    deletes = 0
+    for r in rng.choice(n, STORE_DELETES, replace=False):
+        if keys[int(r)] in idx:
+            idx.delete(keys[int(r)])
+            deletes += 1
+    mutate_s = time.perf_counter() - t0
+    got, _ = idx.query_batch(qs, k=10, ef=64)
+    arrays, meta = idx.state_dict()
+    return dict(snapshot=snap, snapshot_s=snap_s, mutate_s=mutate_s,
+                deletes=deletes, wal_bytes=store.wal.size_bytes, keys=got,
+                epoch=idx.mutation_epoch, size=idx.size, arrays=arrays,
+                meta=meta)
+
+
+def store_restore(torch, live: dict, qs, build_s: float, d: Path) -> dict:
+    """Phase 5 (d), second half: warm-restore the dropped index with
+    ``make_index("hnsw", store=...)`` and hold it against the live one:
+    the same keys on the 1,024 queries, the same ``mutation_epoch`` and
+    equal ``state_dict`` arrays. The restore is timed apart as the
+    snapshot read (a separate call), the rest of ``make_index`` (adopting
+    the pages and replaying the WAL) and the first query's upload."""
+    import numpy as np
+    from repro_torch.core import dispatch
+    from repro_torch.core.index import make_index
+    from repro_torch.store import read_snapshot
+
+    t0 = time.perf_counter()
+    read_snapshot(live["snapshot"])
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = make_index("hnsw", store=str(d), device="cuda")
+    restore_s = time.perf_counter() - t0
+    assert restored._device_graph is None
+    dispatch.reset("hnsw.h2d_bytes")
+    t0 = time.perf_counter()
+    restored._dg()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    upload_bytes = dispatch.get("hnsw.h2d_bytes")
+    got, _ = restored.query_batch(qs, k=10, ef=64)
+    assert restored.mutation_epoch == live["epoch"], "restored epoch differs"
+    assert restored.size == live["size"]
+    assert got == live["keys"], "restored index: keys differ from the live"
+    arrays, meta = restored.state_dict()
+    assert meta == live["meta"], "restored state_dict meta differs"
+    assert set(arrays) == set(live["arrays"])
+    for name, a in arrays.items():
+        assert a.dtype == live["arrays"][name].dtype, name
+        assert np.array_equal(a, live["arrays"][name]), \
+            f"restored state_dict array {name} differs"
+    snap_bytes = dir_bytes(Path(live["snapshot"]))
+    rec = dict(
+        nodes=len(live["meta"]["keys"]), live_rows=live["size"],
+        dtype="int8",
+        snapshot_s=live["snapshot_s"], snapshot_bytes=snap_bytes,
+        snapshot_mb_per_s=snap_bytes / 1e6 / live["snapshot_s"],
+        inserts=STORE_INSERTS, updates=STORE_UPDATES,
+        deletes=live["deletes"], mutate_s=live["mutate_s"],
+        wal_bytes=live["wal_bytes"],
+        left_on_card_gb=live["left_on_card_gb"], restore_s=restore_s,
+        snapshot_read_s=read_s, replay_and_adopt_s=restore_s - read_s,
+        first_upload_s=upload_s, first_upload_h2d_bytes=upload_bytes,
+        restore_total_s=restore_s + upload_s, bulk_build_s=build_s,
+        build_over_restore=build_s / (restore_s + upload_s),
+        epoch=live["epoch"], queries=len(qs), keys_equal_live=True,
+        state_dict_arrays_equal=True, disk_bytes=dir_bytes(d))
+    log("store on the 1M int8 index " + json.dumps(rec))
+    return rec
+
+
+def store_compact(torch, keys, x, qs) -> dict:
+    """Phase 5 (e): compact with secure delete on a 20,000-row int8 prefix
+    (``_compact_impl`` rebuilds sequentially, so not at 1M): no deleted
+    row's encoded bytes, fp32 decode or raw payload, and no deleted key,
+    in any file under the store dir; no deleted row's scale in the stored
+    scale column beyond live rows that share its value; the compacted
+    store restores with the live index's keys."""
+    import numpy as np
+    from repro_torch.core.index import make_index
+    from repro_torch.store import read_snapshot
+
+    n = COMPACT_ROWS
+    d = store_dir("store_compact")
+    try:
+        idx = make_index("hnsw", store=str(d), M=5, ef_construction=20,
+                         dtype="int8", use_bulk_build=True, device="cuda")
+        idx.bulk_insert(keys[:n], x[:n])
+        idx._store.snapshot(idx)
+        rng = np.random.default_rng(14)
+        rows = rng.choice(n, COMPACT_DELETES, replace=False)
+        gone = [keys[int(r)] for r in rows]
+        forms = []
+        for r, k in zip(rows, gone):
+            node = idx._key2id[k]
+            forms.append((idx._enc[node].tobytes(),
+                          idx._builder.vectors[node].tobytes(),
+                          x[int(r)].tobytes(), float(idx._scales[node])))
+            idx.delete(k)
+        blob = b"".join(p.read_bytes() for p in d.rglob("*") if p.is_file())
+        assert all(e in blob for e, *_ in forms)   # on disk before compact
+        t0 = time.perf_counter()
+        idx._store.compact(idx)
+        compact_s = time.perf_counter() - t0
+        files = [p for p in d.rglob("*") if p.is_file()]
+        for p in files:
+            data = p.read_bytes()
+            for enc, dec, raw, _ in forms:
+                assert enc not in data and dec not in data \
+                    and raw not in data, f"a deleted row survives in {p}"
+            for k in gone:
+                assert f'"{k}"'.encode() not in data, f"{k} survives in {p}"
+        (snap,) = idx._store.snapshots()
+        _, arrays = read_snapshot(str(d / snap))
+        live_scales = set(idx._scales.tolist())
+        stored = arrays["scales"][:idx.size]
+        shared = 0
+        for *_, scl in forms:
+            hits = int((stored == np.float32(scl)).sum())
+            if scl in live_scales:
+                shared += 1
+            else:
+                assert hits == 0, "a deleted row's scale survives"
+        assert np.array_equal(stored, idx._scales)
+        live, _ = idx.query_batch(qs, k=10, ef=64)
+        del idx
+        release(torch)
+        restored = make_index("hnsw", store=str(d), device="cuda")
+        got, _ = restored.query_batch(qs, k=10, ef=64)
+        assert got == live, "compacted store: restored keys differ"
+        rec = dict(rows=n, dtype="int8", deleted=len(gone),
+                   compact_s=compact_s, files=len(files),
+                   disk_bytes=dir_bytes(d),
+                   deleted_scales_shared_with_live_rows=shared,
+                   restored_keys_equal_live=True)
+        log(f"compact + secure delete on a {n:,}-row int8 prefix "
+            + json.dumps(rec))
+        del restored
+        return rec
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def phase_serve_int8(torch) -> dict:
     """The HNSW served path over int8 rows at full width; then a bf16 HNSW
     of the same corpus, each on the card against the CPU."""
@@ -1005,6 +1359,44 @@ def phase_serve_int8(torch) -> dict:
     log("hnsw keys (int8 served == CPU; bf16 card == CPU) "
         + json.dumps(out["keys"]))
     return out
+
+
+def phase_serve_store(torch) -> dict:
+    """The int8 HNSW served path with a durable store, ``--store-dir``,
+    once cold (embeds the corpus, snapshots on exit) and once warm
+    (restores; inserts nothing, so the epoch, the WAL and the snapshots
+    stay as they were, and retrieves the cold run's keys)."""
+    d = store_dir("serve_store")
+    try:
+        argv = ["--index", "hnsw", "--index-dtype", "int8",
+                "--store-dir", str(d)]
+        runs = {}
+        for name in ("cold", "warm"):
+            cfg, _, _, res, rec = served_run(torch, argv)
+            idx = res["rag"].index
+            rec.update(
+                keys=[[doc.key for doc in r.docs] for r in res["reqs"]],
+                epoch=idx.mutation_epoch, size=idx.size,
+                wal_bytes=(d / "wal.log").stat().st_size,
+                snapshots=sorted(p.name for p in d.glob("snap_*")),
+                disk_bytes=dir_bytes(d))
+            counts = rec["counters"]
+            for c in HNSW_INT8_PATH:
+                assert counts.get(c, 0) > 0, f"{c} never launched ({name})"
+            log(f"serve hnsw int8 --store-dir, {name} " + json.dumps(rec))
+            runs[name] = rec
+            del res, idx
+            release(torch)
+        cold, warm = runs["cold"], runs["warm"]
+        assert cold["size"] > 0 and len(cold["snapshots"]) == 1
+        for what in ("epoch", "size", "wal_bytes", "snapshots", "keys"):
+            assert warm[what] == cold[what], \
+                f"warm served run: {what} {warm[what]} != cold {cold[what]}"
+        # the warm run's one graph upload is the restored graph's
+        assert warm["counters"].get("hnsw.h2d_bytes", 0) > 0
+        return {"cold": cold, "warm": warm, "model": cfg.name}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def release(torch) -> float:
@@ -1086,19 +1478,28 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     t0 = time.perf_counter()
-    smi = phase_environment(torch)
-    kern = phase_kernels(torch)
-    serve_out = phase_serve(torch)
-    left = release(torch)
-    log(f"phase 3's model released: {left:.2f} GB still allocated")
-    assert left < 8, "phase 3's model is still on the card"
-    flat_out = phase_serve_flat(torch, serve_out["exact_keys"])
-    left = release(torch)
-    assert left < 8, "phase 4's model is still on the card"
-    bulk_out = phase_bulk(torch)
-    left = release(torch)
-    log(f"phase 5 released: {left:.2f} GB still allocated")
-    int8_out = phase_serve_int8(torch)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        left = release(torch)
+        seconds[name] = time.perf_counter() - t
+        log(f"phase {name}: {seconds[name]:.1f}s, {left:.2f} GB still "
+            "allocated")
+        assert left < 8, f"phase {name} left its model on the card"
+        return res
+
+    smi = phase("1 environment", phase_environment, torch)
+    kern = phase("2 kernels", phase_kernels, torch)
+    bag_counts = phase("2 embedding_bag entry", bag_entry_run, torch)
+    serve_out = phase("3 serve hnsw", phase_serve, torch)
+    flat_out = phase("4 serve flat", phase_serve_flat, torch,
+                     serve_out["exact_keys"])
+    bulk_out = phase("5 bulk build and store", phase_bulk, torch)
+    int8_out = phase("6 serve hnsw int8", phase_serve_int8, torch)
+    store_out = phase("7 serve hnsw int8 with a store", phase_serve_store,
+                      torch)
     paths = {"hnsw fp32": serve_out["counters"],
              "flat int8": flat_out["counters"],
              "flat fp32": flat_out["counters_fp32"],
@@ -1106,7 +1507,10 @@ def main() -> int:
              "bulk build int8": bulk_out["build_counters"],
              "bulk query int8": bulk_out["query_counters"],
              "hnsw int8": int8_out["counters"],
-             "hnsw bf16": int8_out["counters_bf16"]}
+             "hnsw bf16": int8_out["counters_bf16"],
+             "hnsw int8 store cold": store_out["cold"]["counters"],
+             "hnsw int8 store warm": store_out["warm"]["counters"],
+             BAG_ENTRY: bag_counts}
     line = []
     for name, rec in kern.items():
         base = name.split(".")[0]
@@ -1120,6 +1524,7 @@ def main() -> int:
                      "launches_by_path": {
                          p: c.get(counter, 0) for p, c in paths.items()},
                      **rec})
+    log("phase seconds " + json.dumps(seconds))
     log(f"total {time.perf_counter() - t0:.1f}s on {smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

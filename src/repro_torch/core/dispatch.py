@@ -6,11 +6,11 @@ beam launches, ``hnsw.h2d_bytes`` host-to-device graph bytes,
 ``hnsw.host_syncs`` device-to-host waits in the search's Python loops,
 and one counter per hand kernel (``kernel.gather_distance``,
 ``kernel.beam_search``, ``kernel.flash_decode``,
-``kernel.distance_topk``) that ``kernels.ops`` bumps where it launches
-the kernel and nowhere else — the CPU branch, which runs the plain
-PyTorch version, never counts. Beside each, ``kernel.<name>.<codec>``
-(fp32, bf16, int8) counts the launches of the instance for that row
-codec.
+``kernel.distance_topk``, ``kernel.embedding_bag``) that ``kernels.ops``
+bumps where it launches the kernel and nowhere else — the CPU branch,
+which runs the plain PyTorch version, never counts. Beside each,
+``kernel.<name>.<codec>`` (fp32, bf16, int8) counts the launches of the
+instance for that row (or table) codec.
 
 Counters are bumped at the Python boundary. Not thread-safe by design:
 the serving layer serializes device work onto one dispatcher.
@@ -22,7 +22,8 @@ from collections import defaultdict
 _COUNTS: defaultdict[str, int] = defaultdict(int)
 
 KERNEL_COUNTERS = ("kernel.gather_distance", "kernel.beam_search",
-                   "kernel.flash_decode", "kernel.distance_topk")
+                   "kernel.flash_decode", "kernel.distance_topk",
+                   "kernel.embedding_bag")
 
 
 def bump(name: str, n: int = 1) -> None:

@@ -17,7 +17,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.codec import device_rows, effective_rerank, get_codec
+from repro_torch.core.codec import (check_codec_arrays, device_rows,
+                                    effective_rerank, get_codec)
 from repro_torch.core.hnsw_build import normalize_rows
 from repro_torch.core.index import VectorIndex
 from repro_torch.core.sharded import ShardedRows
@@ -122,6 +123,13 @@ class FlatVectorIndex(VectorIndex):
         self._rows.tombstone(key)
         self._bump_epoch()
 
+    def _compact_impl(self) -> None:
+        """Physically drop tombstoned rows: live rows re-pack
+        contiguously on the host, and the next search re-packs the
+        device rows from them."""
+        self._rows.compact()
+        self._bump_epoch()
+
     # --------------------------------------------------------------- query
     def query_batch(self, queries, k: int = 10, **kw):
         """ONE device search for the whole [B, D] batch. Under a lossy
@@ -143,10 +151,42 @@ class FlatVectorIndex(VectorIndex):
     def exact_query(self, query, k: int = 10):
         return self.query(query, k)        # flat IS the brute-force oracle
 
+    # --------------------------------------------------------- persistence
+    # Canonical state only: placement is derived from the keys. Under a
+    # lossy codec the persisted rows are the ENCODED bytes + scales; the
+    # fp32 side is their exact decode, so restore stays bit for bit.
     def config_dict(self) -> dict:
         return {"metric": self.metric, "dim": self.dim,
                 "n_shards": self.n_shards, "dtype": self.dtype,
                 "rerank_factor": self.rerank_factor}
+
+    def state_dict(self) -> tuple[dict, dict]:
+        if self._codec.lossy:
+            arrays = {"vectors_enc":
+                      self._codec.to_storage(self._rows.encoded),
+                      "alive": self._rows.alive}
+            if self._rows.scales is not None:
+                arrays["scales"] = self._rows.scales
+        else:
+            arrays = {"vectors": self._rows.vectors,
+                      "alive": self._rows.alive}
+        meta = {"keys": list(self._rows.key_list), "epoch": self._epoch}
+        return arrays, meta
+
+    def restore_state(self, arrays: dict, meta: dict) -> None:
+        check_codec_arrays(self._codec, arrays, self.kind)
+        if self._codec.lossy:
+            self._rows.restore_encoded(arrays["vectors_enc"],
+                                       arrays.get("scales"),
+                                       list(meta["keys"]),
+                                       np.asarray(arrays["alive"], bool))
+        else:
+            self._rows.restore(np.asarray(arrays["vectors"], np.float32),
+                               list(meta["keys"]),
+                               np.asarray(arrays["alive"], bool))
+        if self._rows.dim:
+            self.dim = self._rows.dim
+        self._epoch = int(meta["epoch"])
 
     def _row_count(self) -> int:
         return self._rows.row_count

@@ -29,9 +29,16 @@ later inserts append.
 ``exact_query``, the recall oracle, scans the builder's live rows with
 ``FlatIndex`` (the ``distance_topk`` kernel on the card).
 
-This slice serves ``n_shards=1``; sharding, ``compact``, ``state_dict``
-and the durable store are queued in ROADMAP.md §0 and raise
-``NotImplementedError``.
+Persistence (``state_dict``/``restore_state``, the store, export/load):
+the builder's capacity-padded arrays go to disk as they are, with the
+builder's RNG state, so a restore adopts them without a rebuild and WAL
+replay of later inserts draws the same levels; lossy codecs persist the
+canonical encoded rows. After a restore the device graph is uploaded by
+the first query. ``compact`` rebuilds the graph over the live rows and
+carries their encoded rows through (secure delete).
+
+This slice serves ``n_shards=1``; sharding is queued in ROADMAP.md §0 and
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -40,7 +47,8 @@ import torch
 
 from repro_torch.core import hnsw as thnsw
 from repro_torch.core import hnsw_build as build
-from repro_torch.core.codec import effective_rerank, get_codec, rerank_exact
+from repro_torch.core.codec import (check_codec_arrays, effective_rerank,
+                                    get_codec, rerank_exact)
 from repro_torch.core.flat import FlatIndex
 from repro_torch.core.hnsw_build import normalize_rows
 from repro_torch.core.index import VectorIndex
@@ -193,6 +201,45 @@ class HNSW(VectorIndex):
         self._deleted_dirty = True
         self._bump_epoch()
 
+    def _compact_impl(self) -> None:
+        """Physically drop tombstoned rows: rebuild the graph from scratch
+        over the live rows only (fresh builder, fresh RNG). The canonical
+        encoded rows of the live rows ride through the rebuild, so a
+        deleted row's encoded bytes and scale die with its fp32 bytes and
+        no live row is re-quantized."""
+        if self._builder is None:
+            self._bump_epoch()
+            return
+        self._ensure_tombstones()
+        n = self._builder.n
+        live = np.flatnonzero(~self._deleted[:n])
+        vecs = self._builder.vectors[live].copy()
+        keys = [self._keys[i] for i in live]
+        enc = self._enc[live].copy() if self._enc is not None else None
+        scl = self._scales[live].copy() if self._scales is not None else None
+        self._clear()
+        if self._codec.lossy:
+            for i, (k, v) in enumerate(zip(keys, vecs)):
+                self._insert_node(k, v, enc[i],    # bumps epoch per insert
+                                  None if scl is None else scl[i])
+        else:
+            for k, v in zip(keys, vecs):
+                self._insert_impl(k, v)            # bumps epoch per insert
+        if not keys:
+            self._bump_epoch()
+
+    def _clear(self) -> None:
+        """Drop every row: no builder, keys, tombstones or device graph
+        (the epoch stays)."""
+        self._builder = None
+        self._keys = []
+        self._key2id = {}
+        self._deleted = np.zeros(0, bool)
+        self._enc = None
+        self._scales = None
+        self._device_graph = None
+        self._deleted_dirty = False
+
     def _ensure_tombstones(self):
         cap = self._builder.vectors.shape[0] if self._builder is not None else 0
         if self._deleted.shape[0] < cap:
@@ -297,6 +344,7 @@ class HNSW(VectorIndex):
             return keys[0], d[0]
         return keys, d
 
+    # ------------------------------------------------------- persistence
     def config_dict(self) -> dict:
         return {"metric": self.metric, "M": self.M,
                 "ef_construction": self.ef_construction,
@@ -305,6 +353,93 @@ class HNSW(VectorIndex):
                 "n_shards": self.n_shards, "dtype": self.dtype,
                 "rerank_factor": self.rerank_factor,
                 "beam_impl": self.beam_impl}
+
+    def state_dict(self) -> tuple[dict, dict]:
+        """Full mutation-determined host state, CAPACITY-padded: the
+        builder's fixed-shape arrays go to disk as they are, so restore
+        adopts them directly and the first query does one plain device
+        upload — no graph rebuild. The builder RNG state rides along so
+        WAL replay of later inserts draws the same levels. An index with
+        no builder (nothing inserted, or compacted down to zero live
+        rows) serializes as the empty state."""
+        if self._builder is None:
+            arrays = {"levels": np.zeros(0, np.int32),
+                      "neighbors0": np.zeros((0, 2 * self.M), np.int32),
+                      "upper": np.zeros((0, 0, self.M), np.int32),
+                      "deleted": np.zeros(0, bool)}
+            if self._codec.lossy:
+                arrays["vectors_enc"] = self._codec.to_storage(
+                    np.zeros((0, 0), self._codec.enc_dtype))
+                if self._codec.uses_scales:
+                    arrays["scales"] = np.zeros(0, np.float32)
+            else:
+                arrays["vectors"] = np.zeros((0, 0), np.float32)
+            meta = {"keys": [], "epoch": self._epoch, "n": 0, "entry": -1,
+                    "max_level": -1, "max_level_cap": 12, "rng_state": None}
+            return arrays, meta
+        b = self._builder
+        self._ensure_tombstones()
+        arrays = {"levels": b.levels, "neighbors0": b.neighbors0,
+                  "upper": b.upper, "deleted": self._deleted}
+        if self._codec.lossy:
+            # the CANONICAL encoded rows + scales, capacity-padded like
+            # the builder arrays; restore decodes them to the exact
+            # builder rows
+            enc, scl = self._enc_capacity(b.vectors.shape[0])
+            arrays["vectors_enc"] = self._codec.to_storage(enc)
+            if scl is not None:
+                arrays["scales"] = scl
+        else:
+            arrays["vectors"] = b.vectors
+        meta = {"keys": list(self._keys), "epoch": self._epoch,
+                "n": int(b.n), "entry": int(b.entry),
+                "max_level": int(b.max_level),
+                "max_level_cap": int(b.max_level_cap),
+                "rng_state": b.rng.bit_generator.state}
+        return arrays, meta
+
+    def restore_state(self, arrays: dict, meta: dict) -> None:
+        check_codec_arrays(self._codec, arrays, self.kind)
+        if int(meta.get("n_shards", 1)) != 1:
+            raise NotImplementedError(
+                "restoring a state recorded at n_shards="
+                f"{meta['n_shards']} needs resharding, which is not ported "
+                "yet (ROADMAP.md §0 queue: multi-GPU)")
+        self._clear()
+        self._epoch = int(meta["epoch"])
+        n = int(meta["n"])
+        if n == 0:                        # empty state: no builder yet
+            return
+        if self._codec.lossy:
+            # adopt the stored ENCODED rows as canonical and decode the
+            # builder's fp32 side from them — never re-encode
+            enc_cap = self._codec.from_storage(arrays["vectors_enc"])
+            scl_cap = (np.asarray(arrays["scales"], np.float32)
+                       if "scales" in arrays else None)
+            vectors = self._codec.decode(enc_cap, scl_cap)
+            self._enc = np.ascontiguousarray(enc_cap[:n])
+            self._scales = (None if scl_cap is None
+                            else np.ascontiguousarray(scl_cap[:n]))
+        else:
+            vectors = np.asarray(arrays["vectors"], np.float32)
+        b = build.SequentialBuilder(
+            vectors.shape[1], M=self.M,
+            ef_construction=self.ef_construction, metric=self.metric,
+            capacity=vectors.shape[0], max_level_cap=meta["max_level_cap"],
+            seed=self.seed)
+        b.vectors = vectors
+        b.levels = np.asarray(arrays["levels"], np.int32)
+        b.neighbors0 = np.asarray(arrays["neighbors0"], np.int32)
+        b.upper = np.asarray(arrays["upper"], np.int32)
+        b.n = n
+        b.entry = int(meta["entry"])
+        b.max_level = int(meta["max_level"])
+        b.rng.bit_generator.state = meta["rng_state"]
+        self._builder = b
+        self._keys = list(meta["keys"])
+        self._deleted = np.asarray(arrays["deleted"], bool).copy()
+        self._key2id = {k: i for i, k in enumerate(self._keys)
+                        if not self._deleted[i]}
 
     @property
     def size(self) -> int:
@@ -320,3 +455,8 @@ class HNSW(VectorIndex):
         n = self._row_count()
         self._ensure_tombstones()
         return [self._keys[i] for i in range(n) if not self._deleted[i]]
+
+    export_index = VectorIndex.export
+    exportIndex = VectorIndex.export
+    load_index = VectorIndex.load
+    loadIndex = VectorIndex.load

@@ -13,8 +13,10 @@ Two layers of state:
 
 Placement bookkeeping (``shard_of_key`` routing, per-shard slot tables
 with free-slot reuse) is kept as the reference has it, so ``shard_stats``
-agrees. Several shards (a mesh of cards) and ``compact`` are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP.md item.
+agrees. The canonical arrays are what a snapshot persists; ``compact``
+and ``restore``/``restore_encoded`` adopt new canonical arrays and
+re-derive placement. Several shards (a mesh of cards) are not ported yet
+and raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -37,11 +39,6 @@ def shard_of_key(key: str, n_shards: int) -> int:
     return int.from_bytes(h, "little") % n_shards
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md §1: {item})")
-
-
 class ShardedRows:
     """Keyed mutable row storage on one device. All mutators are host-side
     and cheap; the device ``FlatIndex`` is packed lazily on the first
@@ -53,7 +50,8 @@ class ShardedRows:
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         if n_shards > 1:
-            raise _not_ported("n_shards > 1", "multi-GPU")
+            raise NotImplementedError(
+                "n_shards > 1 is not ported yet (ROADMAP.md §1: multi-GPU)")
         self.n_shards = n_shards
         self.metric = metric
         self.dim = dim
@@ -78,6 +76,32 @@ class ShardedRows:
         self._live_rows: np.ndarray | None = None
 
     # ------------------------------------------------------------ canonical
+    @property
+    def vectors(self) -> np.ndarray:
+        return self._vecs
+
+    @property
+    def encoded(self) -> np.ndarray | None:
+        """Canonical codec-encoded rows [T, D] (None for fp32)."""
+        return self._enc
+
+    @property
+    def scales(self) -> np.ndarray | None:
+        """Canonical per-row decode scales [T] (int8 codec only)."""
+        return self._scales
+
+    @property
+    def alive(self) -> np.ndarray:
+        return self._alive
+
+    @property
+    def key_list(self) -> list[str]:
+        return self._keys
+
+    @property
+    def key2row(self) -> dict[str, int]:
+        return self._key2row
+
     @property
     def size(self) -> int:
         return len(self._key2row)
@@ -188,7 +212,72 @@ class ShardedRows:
         return key in self._key2row
 
     def compact(self) -> None:
-        raise _not_ported("compact", "store/warm restore")
+        """Physically drop tombstoned rows: the canonical arrays re-pack
+        over live rows and the slot tables are rebuilt dense. After this
+        a deleted row's bytes — the fp32 decode AND the encoded bytes +
+        scale — exist in no host array and in no device block."""
+        live = np.flatnonzero(self._alive)
+        vecs = np.ascontiguousarray(self._vecs[live])
+        keys = [self._keys[i] for i in live]
+        enc = (np.ascontiguousarray(self._enc[live])
+               if self._enc is not None else None)
+        scales = (np.ascontiguousarray(self._scales[live])
+                  if self._scales is not None else None)
+        self._reset_layout(vecs, keys, np.ones(live.size, bool),
+                           enc=enc, scales=scales)
+
+    def _reset_layout(self, vecs: np.ndarray, keys: list[str],
+                      alive: np.ndarray, enc: np.ndarray | None = None,
+                      scales: np.ndarray | None = None) -> None:
+        """Adopt canonical arrays and re-derive placement from scratch
+        (compaction and restore land here)."""
+        self._vecs = np.asarray(vecs, np.float32)
+        if self._enc is not None:
+            if enc is None:
+                raise ValueError(
+                    f"{self.codec.name} rows need their encoded arrays; "
+                    "got fp32-only state (cross-dtype restore?)")
+            self._enc = np.asarray(enc, self.codec.enc_dtype)
+        if self._scales is not None:
+            self._scales = np.asarray(scales, np.float32)
+        if self._vecs.shape[1]:
+            self.dim = int(self._vecs.shape[1])
+        self._keys = list(keys)
+        self._alive = np.asarray(alive, bool).copy()
+        self._key2row = {k: i for i, k in enumerate(self._keys)
+                         if self._alive[i]}
+        n = len(self._keys)
+        self._row_shard = np.full(n, -1, np.int32)
+        self._row_slot = np.full(n, -1, np.int32)
+        self._slots = [[] for _ in range(self.n_shards)]
+        self._free = [[] for _ in range(self.n_shards)]
+        for row in range(n):
+            if not self._alive[row]:
+                continue                 # dead rows own no slot
+            shard = shard_of_key(self._keys[row], self.n_shards)
+            self._row_shard[row] = shard
+            self._row_slot[row] = self._claim_slot(shard, row)
+        self._invalidate()
+
+    def restore(self, vecs: np.ndarray, keys: list[str],
+                alive: np.ndarray) -> None:
+        """Inverse of the canonical accessors for fp32 rows; placement is
+        re-derived."""
+        if self.codec.lossy:
+            raise ValueError(
+                f"{self.codec.name} rows restore from encoded state "
+                "(restore_encoded); got fp32-only state — the store was "
+                "written by a different storage dtype")
+        self._reset_layout(vecs, keys, alive)
+
+    def restore_encoded(self, enc: np.ndarray, scales: np.ndarray | None,
+                        keys: list[str], alive: np.ndarray) -> None:
+        """Adopt snapshotted encoded rows (+ scales) as canonical and
+        re-derive the fp32 side by decoding — the encoded array is never
+        re-derived, so restore is bit for bit."""
+        enc = self.codec.from_storage(enc)
+        self._reset_layout(self.codec.decode(enc, scales), keys, alive,
+                           enc=enc, scales=scales)
 
     # --------------------------------------------------------------- pack
     def pack(self):

@@ -28,6 +28,7 @@ SOURCES = {
     "beam_search": "beam_search.cu",
     "flash_decode": "flash_decode.cu",
     "distance_topk": "distance_topk.cu",
+    "embedding_bag": "embedding_bag.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

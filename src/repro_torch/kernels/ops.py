@@ -12,8 +12,9 @@ launch error, and bumps its ``kernel.<name>`` counter (core/dispatch.py)
 on the kernel branch only, beside ``kernel.<name>.<codec>`` for the row
 codec it read (fp32, bf16, int8). ``gather_distance``, ``beam_search``
 and ``flat_topk`` take fp32, bf16 and int8 (+ fp32 scales) rows: one CUDA
-kernel per function, instantiated per row type. ``select_neighbors`` is
-plain PyTorch on either device (the JAX package keeps it jnp-only too).
+kernel per function, instantiated per row type; ``embedding_bag`` takes
+fp32 and bf16 tables. ``select_neighbors`` is plain PyTorch on either
+device (the JAX package keeps it jnp-only too).
 """
 from __future__ import annotations
 
@@ -47,6 +48,8 @@ _SIGS = {
     "distance_topk": ("distance_topk",
                       [_P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "embedding_bag": ("embedding_bag_{}",
+                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 _FNS: dict[tuple[str, str], tuple] = {}
 
@@ -345,3 +348,38 @@ def flat_topk(db: torch.Tensor, q: torch.Tensor, k: int, *,
                     rows, l2, _ROW_DTYPES[db.dtype], small, _aligned16(db),
                     _stream(q))
     return _ref.smallest_k(part_d, part_i, k)
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  weights: torch.Tensor | None = None, *,
+                  combine: str = "sum") -> torch.Tensor:
+    """EmbeddingBag: table [R,E] (f32 or bf16), ids [B,L] i32, weights
+    [B,L] f32 or None -> bags [B,E] f32, ``sum`` or ``mean`` (by L, or by
+    ``max(sum w, 1e-9)`` with weights). Ids must lie in [0, R): the
+    kernel, like the TPU's, does not range-check them."""
+    if combine not in ("sum", "mean"):
+        raise ValueError(f"unknown combine {combine!r}; expected 'sum' or "
+                         "'mean'")
+    tensors = (table, ids) if weights is None else (table, ids, weights)
+    if not _on_cuda(*tensors):
+        return _ref.embedding_bag_ref(table, ids, weights, combine=combine)
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"table: expected float32 or bfloat16, got "
+                        f"{table.dtype}")
+    _check(table, "table", table.dtype, 2)
+    _check(ids, "ids", torch.int32, 2)
+    if weights is not None:
+        _check(weights, "weights", torch.float32, 2)
+        if weights.shape != ids.shape:
+            raise ValueError(f"weights {tuple(weights.shape)} do not match "
+                             f"ids {tuple(ids.shape)}")
+    b, l = ids.shape
+    e = table.shape[1]
+    out = torch.empty((b, e), dtype=torch.float32, device=table.device)
+    if b and e:
+        with torch.cuda.device(table.device):
+            _launch("embedding_bag", CODEC_OF[table.dtype], _ptr(table),
+                    _ptr(ids), _opt_ptr(weights), _ptr(out), b, l, e,
+                    int(combine == "mean"), _aligned16(table),
+                    _stream(table))
+    return out

@@ -377,3 +377,27 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
     return out.reshape(b, h, dh)
+
+
+# ---------------------------------------------------------------------------
+# embedding bag
+# ---------------------------------------------------------------------------
+def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
+                      weights: torch.Tensor | None = None, *,
+                      combine: str = "sum") -> torch.Tensor:
+    """table [R,E] (f32 or bf16), ids [B,L] in [0, R), weights [B,L] f32
+    or None -> bags [B,E] f32: the gathered rows [B,L,E] in fp32, times
+    their weights, summed over L; ``mean`` divides by L without weights
+    and by ``max(sum w, 1e-9)`` with them. ``index_select`` raises on an
+    id outside [0, R) (the JAX oracle's ``jnp.take`` fills instead)."""
+    b, l = ids.shape
+    g = table.index_select(0, ids.reshape(-1).long()).reshape(
+        b, l, table.shape[1]).float()
+    if weights is not None:
+        g = g * weights.float()[..., None]
+    s = g.sum(dim=1)
+    if combine == "mean":
+        n = (l if weights is None else torch.clamp_min(
+            weights.float().sum(-1, keepdim=True), 1e-9))
+        s = s / n
+    return s

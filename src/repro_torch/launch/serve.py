@@ -17,9 +17,12 @@ tok/s, ``overlap_ratio`` and ``slot_occupancy``.
 
 ``--index flat`` serves exact search and ``--index hnsw`` the graph
 search, each under the fp32, bf16 or int8 row codec (``--index-dtype``;
-int8 over-fetches and reranks in fp32). Not ported yet (ROADMAP.md §0),
-and rejected with ``NotImplementedError``: ``--tenants``, ``--store-dir``,
-``--shards`` > 1 and ``--index ivf|tiered``.
+int8 over-fetches and reranks in fp32). ``--store-dir`` makes the index
+durable: the first run embeds the corpus and snapshots the index on exit,
+a later run restores it warm (snapshot + WAL replay) and only registers
+the texts. Not ported yet (ROADMAP.md §0), and rejected with
+``NotImplementedError``: ``--tenants``, ``--shards`` > 1 and ``--index
+ivf|tiered``.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from repro_torch.data.corpus import BUILTIN_CORPUS
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.rag import RAGPipeline
+from repro_torch.store import IndexStore
 from repro_torch.utils import logger, resolve_device
 
 QUERIES = ("how does hnsw search work",
@@ -102,8 +106,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--shards", type=int, default=None,
                     help="index shards (only 1 is ported)")
     ap.add_argument("--store-dir", default=None,
-                    help="durable IndexStore directory (not ported)")
-    ap.add_argument("--snapshot-every", type=int, default=0)
+                    help="durable IndexStore directory: restarts restore "
+                         "the index warm (snapshot + WAL replay) instead "
+                         "of re-embedding the corpus")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="auto-snapshot the store every N mutations "
+                         "(0: only the final snapshot on exit)")
     ap.add_argument("--tenants", type=int, default=0,
                     help="multi-tenant serving (not ported)")
     ap.add_argument("--max-resident", type=int, default=64)
@@ -128,10 +136,6 @@ def run(cfg, args: argparse.Namespace, corpus=BUILTIN_CORPUS) -> dict:
     if args.tenants:
         raise NotImplementedError(
             "--tenants is not ported yet (ROADMAP.md §1: tenancy)")
-    if args.store_dir:
-        raise NotImplementedError(
-            "--store-dir is not ported yet (ROADMAP.md §1: store/warm "
-            "restore)")
     device = resolve_device(args.device)
     model = tf.init_lm(cfg, seed=args.seed, device=device)
 
@@ -157,13 +161,25 @@ def run(cfg, args: argparse.Namespace, corpus=BUILTIN_CORPUS) -> dict:
         return {"engine": engine, "rag": None, "reqs": outs, "seconds": dt,
                 "tokens": engine.tokens_out}
 
-    rag = RAGPipeline(index_kind=args.index,
+    store = None
+    if args.store_dir:
+        store = IndexStore(args.store_dir,
+                           snapshot_every=args.snapshot_every or None)
+    rag = RAGPipeline(index_kind=args.index, index_store=store,
                       retrieval_batch=args.retrieval_batch,
                       retrieval_cache=args.retrieval_cache,
                       index_shards=args.shards,
                       index_dtype=args.index_dtype,
                       index_beam_impl=args.beam_impl, device=device)
-    rag.add_documents(list(corpus))
+    if rag.index.size:
+        # warm restore: the embeddings came back from the store, epoch
+        # included (the retrieval cache keys on it); only the text
+        # side-table needs refilling
+        logger.info(f"warm restore from {args.store_dir}: {rag.index.size} "
+                    f"docs @ mutation_epoch {rag.index.mutation_epoch}")
+        rag.register_texts(list(corpus))
+    else:
+        rag.add_documents(list(corpus))
     engine = build_engine(rag)
     queries = [QUERIES[i % len(QUERIES)] for i in range(args.requests)]
     reqs, dt = _serve_closed_loop(engine, queries, k=3, max_new=args.max_new)
@@ -180,6 +196,10 @@ def run(cfg, args: argparse.Namespace, corpus=BUILTIN_CORPUS) -> dict:
         f"retrieval: {rs['requests']} requests in {rs['searches']} searches "
         f"({rs['searched_queries']} searched + {rs['padded_queries']} "
         f"bucket pad, cache hit rate {rs['hit_rate']:.2f})")
+    if store is not None:
+        path = store.snapshot(rag.index)
+        logger.info(f"store snapshot: {path} (epoch "
+                    f"{rag.index.mutation_epoch}; next start restores warm)")
     return {"engine": engine, "rag": rag, "reqs": reqs, "seconds": dt,
             "tokens": engine.tokens_out}
 

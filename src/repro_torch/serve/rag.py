@@ -10,8 +10,12 @@ the index's CRUD: documents can be added, re-embedded (update) and
 retracted (delete) after indexing. Retrieval goes through a
 ``RetrievalEngine``, whose LRU cache every mutation invalidates.
 
-The multi-tenant pool mode and the durable ``index_store`` wait for
-ROADMAP.md §1 ("tenancy", "store/warm restore") and raise
+``index_store=`` (an ``IndexStore`` or a directory) makes the index
+durable: a warm store restores the previous session's index, its
+``mutation_epoch`` included, instead of building a fresh one, and
+``register_texts`` refills the text side-table without re-embedding.
+
+The multi-tenant pool mode waits for ROADMAP.md §1 ("tenancy") and raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -76,7 +80,8 @@ class RAGPipeline:
                  index_beam_impl: str | None = None,
                  device=None):
         # index_shards / index_dtype / index_beam_impl: None keeps the
-        # backend default; the index rejects what is not ported yet
+        # backend default (on a warm restore, the stored value); the index
+        # rejects what is not ported yet
         self.encoder = encoder or HashingEncoder()
         cfg = {}
         if index_shards is not None:
@@ -105,6 +110,18 @@ class RAGPipeline:
         self.index.bulk_insert(keys, vecs)
         for k, t in docs:
             self.store.add(k, t)
+
+    def register_texts(self, docs: list[tuple[str, str]],
+                       tenant: str | None = None):
+        """Warm-restart companion to ``add_documents``: (re)populate the
+        text store WITHOUT touching the index. A warm-restored index
+        already holds the embeddings; re-inserting them would cost WAL
+        records and epoch bumps for nothing. Only documents the index
+        knows are registered."""
+        reject_tenant(tenant)
+        for k, t in docs:
+            if k in self.index:
+                self.store.add(k, t)
 
     def add_document(self, key: str, text: str, tenant: str | None = None):
         reject_tenant(tenant)

@@ -13,7 +13,10 @@
     repeats without a search. It is validated against the index's
     ``mutation_epoch``: every insert/update/delete bumps the epoch and
     drops the cache, so a retracted document is never served from a stale
-    entry.
+    entry. The epoch is durable: a store-backed index restores at the
+    epoch it died at and the engine adopts it at construction (never
+    assuming 0), so cache validity survives restarts; ``compact()`` bumps
+    the epoch, so it flushes the cache like any other mutation.
 
 The multi-tenant ``IndexPool`` front end waits for ROADMAP.md §1
 ("tenancy"): a ``tenant`` argument raises ``NotImplementedError``.
@@ -104,7 +107,8 @@ class RetrievalEngine:
         self.stats = RetrievalStats()
         self._next_rid = 0
         # LRU: (qhash, dim, k, ef) -> (keys, dists), valid only for the
-        # epoch the index was at when the entry was stored
+        # epoch the index was at when the entry was stored; a restored
+        # index starts at its restored epoch
         self._cache: "collections.OrderedDict[tuple, tuple]" = \
             collections.OrderedDict()
         self._cache_epoch = index.mutation_epoch

@@ -321,3 +321,75 @@ def test_select_neighbors_on_card_refuses_tf32(cuda_device):
     want, _ = tref.select_neighbors_ref(v.cpu(), v[:3].cpu(), cand.cpu(),
                                         m=4, metric="l2")
     assert torch.equal(ids.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [10, 32, 64])      # scalar, vector loads
+@pytest.mark.parametrize("l", [1, 50])
+@pytest.mark.parametrize("weights", ["none", "zero", "random"])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_kernel_matches_plain(cuda_device, e, l, weights,
+                                            combine, dtype):
+    """The kernel against its plain version (rtol 1e-5 / atol 1e-5: fp32
+    summation order only); integer-valued rows with 0/1 weights exactly."""
+    from repro_torch.core import dispatch
+    rng = np.random.default_rng(27 + e + l)
+    r, b = 5000, 77                      # B no multiple of a warp block
+    table = _t(rng.normal(size=(r, e)).astype(np.float32)).to(
+        cuda_device, dtype)
+    ids = _t(rng.integers(0, r, size=(b, l)).astype(np.int32)).to(
+        cuda_device)
+    w = None
+    if weights != "none":
+        wn = rng.random((b, l)).astype(np.float32)
+        if weights == "zero":
+            wn[:] = 0.0
+        wn[3] = 0.0                      # one all-zero bag in every case
+        w = _t(wn).to(cuda_device)
+    dispatch.reset()
+    got = tops.embedding_bag(table, ids, w, combine=combine)
+    assert dispatch.get("kernel.embedding_bag") == 1
+    want = tref.embedding_bag_ref(table, ids, w, combine=combine)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    tint = _t(rng.integers(-8, 9, size=(r, e)).astype(np.float32)).to(
+        cuda_device, dtype)
+    wint = _t((rng.random((b, l)) < 0.5).astype(np.float32)).to(cuda_device)
+    got = tops.embedding_bag(tint, ids, wint, combine=combine)
+    want = tref.embedding_bag_ref(tint, ids, wint, combine=combine)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hnsw", "flat"])
+def test_int8_store_restores_onto_card(cuda_device, kind, tmp_path):
+    """A small int8 store warm-restored onto the card gives the keys its
+    restore onto the CPU gives; the restored HNSW uploads its graph on the
+    first query."""
+    from repro_torch.core import dispatch
+    from repro_torch.core.index import make_index
+    from repro_torch.store import IndexStore
+    rng = np.random.default_rng(28)
+    data = rng.normal(size=(400, 32)).astype(np.float32)
+    q = rng.normal(size=(16, 32)).astype(np.float32)
+    sd = str(tmp_path / "s")
+    cfg = dict(dim=32, M=8, ef_construction=40, dtype="int8")
+    idx = make_index(kind, store=sd, device="cpu", **cfg)
+    idx.bulk_insert([f"d{i}" for i in range(400)], data)
+    idx._store.snapshot(idx)
+    for i in range(10):
+        idx.delete(f"d{i}")
+    idx.insert("late", data[10] + 0.5)
+    card = IndexStore(sd).load_index(device=cuda_device)
+    cpu = IndexStore(sd).load_index(device="cpu")
+    assert card.mutation_epoch == cpu.mutation_epoch == idx.mutation_epoch
+    dispatch.reset()
+    kc, dc = card.query_batch(q, k=5)
+    ki, di = cpu.query_batch(q, k=5)
+    assert kc == ki
+    np.testing.assert_allclose(dc, di, rtol=1e-5, atol=1e-5)
+    counter = ("kernel.beam_search.int8" if kind == "hnsw"
+               else "kernel.distance_topk.int8")
+    assert dispatch.get(counter) == 1
+    if kind == "hnsw":
+        assert dispatch.get("hnsw.h2d_bytes") > 0

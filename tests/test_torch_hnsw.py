@@ -213,7 +213,7 @@ def test_hnsw_incremental_sync_matches_full_upload():
     assert idx._device_graph.entry == full.entry
 
 
-def test_unported_surface_raises_not_implemented():
+def test_unported_surface_raises_not_implemented(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmake_index("ivf", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -221,10 +221,12 @@ def test_unported_surface_raises_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmake_index("hnsw", device="cpu", dtype="int8", n_shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("hnsw", device="cpu", dtype="int8", store="/nonexistent")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("hnsw", device="cpu", store="/nonexistent")
-    idx = tmake_index("flat", device="cpu")
+        tmake_index("ivf", device="cpu", store=str(tmp_path / "ivf"))
+    sd = str(tmp_path / "s")
+    idx = tmake_index("hnsw", device="cpu", store=sd)
     idx.insert("a", np.ones(4, np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.compact()
+        tmake_index("hnsw", device="cpu", store=sd, n_shards=2)
+    state = idx.state_dict()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        idx.restore_state(state[0], dict(state[1], n_shards=2))

@@ -1,6 +1,7 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and the entry points refuse to fall back
-to the CPU when a card was asked for and none is present."""
+"""The port stands alone: ``src/repro_torch`` (the durable store
+``repro_torch.store`` included) and ``chip_smoke.py`` import neither JAX
+nor the JAX package, and the entry points refuse to fall back to the CPU
+when a card was asked for and none is present."""
 import ast
 import os
 import subprocess
@@ -45,6 +46,15 @@ def test_no_jax_or_reference_import(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
+def test_store_package_is_covered():
+    """The store is pure numpy in the JAX package too; the port keeps its
+    own copy, and the checks above read every module of it."""
+    mods = _port_modules()
+    for m in ("repro_torch.store", "repro_torch.store.wal",
+              "repro_torch.store.snapshot", "repro_torch.store.store"):
+        assert m in mods
+
+
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     code = ("import importlib, sys\n"
@@ -59,7 +69,7 @@ def test_importing_every_port_module_loads_no_jax():
     assert res.returncode == 0, res.stderr[-2000:]
 
 
-def test_entry_points_refuse_missing_card(monkeypatch):
+def test_entry_points_refuse_missing_card(monkeypatch, tmp_path):
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.index import make_index
     from repro_torch.core.interface import HNSW
@@ -68,11 +78,15 @@ def test_entry_points_refuse_missing_card(monkeypatch):
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.rag import RAGPipeline
 
+    store = str(tmp_path / "store")
+    make_index("flat", store=store, device="cpu").insert(
+        "a", np.ones(4, np.float32))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("llama3-8b")
     for call in (lambda: HNSW(),
                  lambda: make_index("hnsw"),
                  lambda: make_index("flat", dtype="int8"),
+                 lambda: make_index("flat", store=store),      # warm restore
                  lambda: RAGPipeline(),
                  lambda: tf.init_lm(cfg),
                  lambda: tf.init_cache(cfg, 1, 8),
