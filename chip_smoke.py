@@ -23,11 +23,13 @@ Phases (none catches an exception; any failure exits non-zero):
    256-slot lists (k 40, 200), the ip metric and scalar row loads (D 30)
    on the same rows. ``embedding_bag`` runs at MIND's published table
    (1M x 64, fp32 and bf16; configs/mind.py) with bags of L 50 at the
-   recsys serve batches 512 and 262,144, ``sum`` and ``mean``, against its
-   plain version (rtol 1e-5, atol 1e-5) and, on integer-valued rows with
-   0/1 weights, exactly; beside it ``torch.nn.functional.embedding_bag``
-   on the fp32 table. No model path calls this kernel; its entry point,
-   ``ops.embedding_bag``, is run once more per table dtype, counted.
+   recsys serve batches 512 and 262,144, ``sum`` and ``mean``, with a
+   weight mask and without weights, against its plain version (rtol 1e-5,
+   atol 1e-5) and, on integer-valued rows with 0/1 weights, exactly;
+   beside it ``torch.nn.functional.embedding_bag`` on the fp32 table. No
+   model path calls this kernel; its entry point, ``ops.embedding_bag``,
+   is run once more per table dtype, counted, and held against the plain
+   version.
 3. The HNSW served path, through ``repro_torch.launch.serve.run`` with
    ``--rag --index hnsw``: full-width llama3-8b (all 32 layers, fp32
    random weights from a seeded ``torch.Generator``) over the built-in
@@ -427,10 +429,11 @@ def phase_kernels(torch) -> dict:
 
 def check_embedding_bag(torch, dev, gen) -> dict:
     """``embedding_bag`` at MIND's 1M x 64 table, fp32 and bf16, bags of
-    L 50 at B 512 and 262,144, ``sum`` and ``mean``, against its plain
-    version (rtol 1e-5, atol 1e-5); integer-valued rows with 0/1 weights
-    exactly. Ids are uniform; the weights are a behaviour mask (each bag's
-    first n_b members, n_b uniform in [1, L], the tail 0)."""
+    L 50 at B 512 and 262,144, ``sum`` and ``mean``, with weights and
+    without (the entry run's branch: w 1, ``mean`` divides by L), against
+    its plain version (rtol 1e-5, atol 1e-5); integer-valued rows with 0/1
+    weights exactly. Ids are uniform; the weights are a behaviour mask
+    (each bag's first n_b members, n_b uniform in [1, L], the tail 0)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
@@ -450,79 +453,105 @@ def check_embedding_bag(torch, dev, gen) -> dict:
             sets.append((ids, (pos[None, :] < n_b).float().contiguous()))
         ids, w = sets[0]
         live = w > 0
-        n_rows = torch.unique(ids[live]).numel()
-        members = int(live.sum().item())
+        # work of this run's data: the distinct rows and members each
+        # weighting reads (the mask's zero tail is still read and summed
+        # by the kernel, but bounds count what the function needs)
+        work = {"mask": (torch.unique(ids[live]).numel(),
+                         int(live.sum().item()), 8),
+                "none": (torch.unique(ids).numel(), ids.numel(), 4)}
         for dtype, tname in ((torch.float32, "fp32"),
                              (torch.bfloat16, "bf16")):
             table = table32.to(dtype)
             tint = tint32.to(dtype)
-            got = ops.embedding_bag(tint, ids, w, combine="sum")
-            want = ref.embedding_bag_ref(tint, ids, w, combine="sum")
-            torch.cuda.synchronize()
-            assert torch.equal(got, want), \
-                f"embedding_bag {tname} B={b}: integer rows differ"
-            for combine in ("sum", "mean"):
-                got = ops.embedding_bag(table, ids, w, combine=combine)
-                want = ref.embedding_bag_ref(table, ids, w, combine=combine)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-                err = (got - want).abs().max().item()
-                b_ms, b_by = bound(
-                    n_rows * BAG_DIM * table.element_size()
-                    + ids.numel() * 8 + b * BAG_DIM * 4,
-                    2.0 * members * BAG_DIM)
-                cyc = itertools.cycle(sets)
-
-                def kernel():
-                    i, ww = next(cyc)
-                    return ops.embedding_bag(table, i, ww, combine=combine)
-
-                def plain():
-                    i, ww = next(cyc)
-                    return ref.embedding_bag_ref(table, i, ww,
+            for wk in ("mask", "none"):
+                wi = w if wk == "mask" else None
+                for combine in ("sum", "mean"):
+                    if combine == "sum":
+                        # 0/1 weights on integer rows: every partial sum
+                        # is an exact integer (a mean is not: PyTorch
+                        # divides by a scalar as a product with its
+                        # reciprocal, the kernel divides)
+                        got = ops.embedding_bag(tint, ids, wi,
+                                                combine=combine)
+                        want = ref.embedding_bag_ref(tint, ids, wi,
+                                                     combine=combine)
+                        torch.cuda.synchronize()
+                        assert torch.equal(got, want), \
+                            (f"embedding_bag {tname} B={b} {combine} "
+                             f"w={wk}: integer rows differ")
+                    got = ops.embedding_bag(table, ids, wi, combine=combine)
+                    want = ref.embedding_bag_ref(table, ids, wi,
                                                  combine=combine)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got, want, rtol=1e-5,
+                                               atol=1e-5)
+                    err = (got - want).abs().max().item()
+                    n_rows, members, id_bytes = work[wk]
+                    b_ms, b_by = bound(
+                        n_rows * BAG_DIM * table.element_size()
+                        + ids.numel() * id_bytes + b * BAG_DIM * 4,
+                        2.0 * members * BAG_DIM)
+                    cyc = itertools.cycle(sets)
 
-                library_ms = lib_err = None
-                if dtype == torch.float32 and combine == "sum":
-                    # one PyTorch call computes this function (not bf16:
-                    # it would sum in bf16; not mean: it takes no weights)
-                    def library():
+                    def kernel():
                         i, ww = next(cyc)
-                        return F.embedding_bag(i, table, mode="sum",
-                                               per_sample_weights=ww)
+                        return ops.embedding_bag(
+                            table, i, ww if wk == "mask" else None,
+                            combine=combine)
 
-                    lib_err = (F.embedding_bag(ids, table, mode="sum",
-                                               per_sample_weights=w)
-                               - want).abs().max().item()
-                    library_ms = time_ms(torch, library, 20)
-                recs[(tname, b, combine)] = dict(
-                    max_abs_err=err, int_rows_exact=True,
-                    ms=time_ms(torch, kernel, 20),
-                    plain_ms=time_ms(torch, plain, 5, warmup=1),
-                    bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                    library_max_abs_err=lib_err, distinct_rows=n_rows,
-                    weighted_members=members)
-                log(f"embedding_bag {tname} B={b} {combine} "
-                    + json.dumps(recs[(tname, b, combine)]))
+                    def plain():
+                        i, ww = next(cyc)
+                        return ref.embedding_bag_ref(
+                            table, i, ww if wk == "mask" else None,
+                            combine=combine)
+
+                    library_ms = lib_err = None
+                    # one PyTorch call computes this function on the fp32
+                    # table (not bf16: it would sum in bf16), with the
+                    # weights only for sum (mode="mean" takes none)
+                    if dtype == torch.float32 and (combine == "sum"
+                                                   or wk == "none"):
+                        def library():
+                            i, ww = next(cyc)
+                            return F.embedding_bag(
+                                i, table, mode=combine,
+                                per_sample_weights=(ww if wk == "mask"
+                                                    else None))
+
+                        lib_err = (F.embedding_bag(ids, table, mode=combine,
+                                                   per_sample_weights=wi)
+                                   - want).abs().max().item()
+                        library_ms = time_ms(torch, library, 20)
+                    key = (tname, b, combine, wk)
+                    recs[key] = dict(
+                        max_abs_err=err, int_rows_exact=combine == "sum",
+                        ms=time_ms(torch, kernel, 20),
+                        plain_ms=time_ms(torch, plain, 5, warmup=1),
+                        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                        library_max_abs_err=lib_err, distinct_rows=n_rows,
+                        weighted_members=members)
+                    log(f"embedding_bag {tname} B={b} {combine} w={wk} "
+                        + json.dumps(recs[key]))
             del table, tint
         del sets, ids, w, live
         torch.cuda.empty_cache()
-    # one record per table dtype, headed by its serve_bulk sum cell, with
-    # every cell beside
-    head = (BAG_BATCHES[-1], "sum")
+    # one record per table dtype, headed by its serve_bulk masked sum
+    # cell, with every cell beside
+    head = (BAG_BATCHES[-1], "sum", "mask")
     out = {}
     for t in ("fp32", "bf16"):
         out[f"embedding_bag.{t}"] = dict(
             recs[(t, *head)],
-            library=("torch.nn.functional.embedding_bag(mode='sum', "
+            library=("torch.nn.functional.embedding_bag(mode=combine, "
                      "per_sample_weights=w) on the fp32 table"
                      if t == "fp32" else "none: PyTorch's embedding_bag "
                      "sums a bf16 table in bf16, another function"),
             shapes=f"table {BAG_ROWS}x{BAG_DIM} {t}, ids [B, {BAG_LEN}] "
-                   "uniform, weights a behaviour mask; head: B "
-                   f"{head[0]} {head[1]}",
-            cells={f"B{b} {c}": recs[(t, b, c)] for b in BAG_BATCHES
-                   for c in ("sum", "mean")})
+                   "uniform, weights a behaviour mask or None; head: B "
+                   f"{head[0]} {head[1]} w={head[2]}",
+            cells={f"B{b} {c} w={wk}": recs[(t, b, c, wk)]
+                   for b in BAG_BATCHES for c in ("sum", "mean")
+                   for wk in ("mask", "none")})
     del table32, tint32
     torch.cuda.empty_cache()
     return out
@@ -530,10 +559,11 @@ def check_embedding_bag(torch, dev, gen) -> dict:
 
 def bag_entry_run(torch) -> dict:
     """The kernel's own entry point, counted: ``ops.embedding_bag`` once
-    per table dtype at MIND serve_p99 (B 512, L 50, sum), counters zeroed
-    just before and read just after."""
+    per table dtype at MIND serve_p99 (B 512, L 50, sum, no weights),
+    counters zeroed just before and read just after; each output held
+    against the plain version (rtol 1e-5, atol 1e-5)."""
     from repro_torch.core import dispatch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -545,9 +575,10 @@ def bag_entry_run(torch) -> dict:
     outs = [ops.embedding_bag(t, ids) for t in tables]
     torch.cuda.synchronize()
     counts = dispatch.snapshot()
-    for o in outs:
+    for t, o in zip(tables, outs):
         assert o.shape == (BAG_BATCHES[0], BAG_DIM)
-        assert bool(torch.isfinite(o).all())
+        torch.testing.assert_close(o, ref.embedding_bag_ref(t, ids),
+                                   rtol=1e-5, atol=1e-5)
     return counts
 
 

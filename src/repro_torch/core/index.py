@@ -91,12 +91,6 @@ class VectorIndex(abc.ABC):
         if self._store is not None:
             self._store.notify_mutation(self)
 
-    def _apply_derived(self, op: str, meta: dict, arrays: dict) -> None:
-        """Replay hook for ``derived.*`` WAL records — derived state a
-        backend trains outside the mutation path (the reference's IVF
-        centroids). The ported backends have none."""
-        raise ValueError(f"{type(self).__name__} cannot replay {op!r}")
-
     # ------------------------------------------------------------ mutation
     # Public mutators are template methods: validate -> WAL -> _*_impl ->
     # notify. Backends implement the _*_impl layer and MUST NOT log or

@@ -456,7 +456,3 @@ class HNSW(VectorIndex):
         self._ensure_tombstones()
         return [self._keys[i] for i in range(n) if not self._deleted[i]]
 
-    export_index = VectorIndex.export
-    exportIndex = VectorIndex.export
-    load_index = VectorIndex.load
-    loadIndex = VectorIndex.load

@@ -48,6 +48,7 @@ CONFIG_NAME = "config.json"
 WAL_NAME = "wal.log"
 SNAP_PREFIX = "snap_"
 FORMAT_VERSION = 1
+KEEP_SNAPSHOTS = 2          # retained by routine GC; compaction keeps one
 
 
 class IndexStore:
@@ -59,26 +60,18 @@ class IndexStore:
     snapshot_every: auto-snapshot after this many mutations (None = only
                     explicit ``snapshot()`` calls; the WAL still makes
                     every mutation durable in between).
-    keep:           snapshots retained by routine GC (compaction always
-                    purges down to one).
-    fsync:          fsync the WAL after every append (power-loss
-                    durability; off by default — process-crash durability
-                    only needs the flush).
     page_bytes:     snapshot page size (store/snapshot.py).
     """
 
     def __init__(self, root: str, *, snapshot_every: int | None = None,
-                 keep: int = 2, fsync: bool = False,
                  page_bytes: int = 4 << 20):
         self.root = str(root)
         os.makedirs(self.root, exist_ok=True)
         if snapshot_every is not None and snapshot_every < 1:
             raise ValueError("snapshot_every must be >= 1")
         self.snapshot_every = snapshot_every
-        self.keep = max(int(keep), 1)
         self.page_bytes = page_bytes
-        self.wal = WriteAheadLog(os.path.join(self.root, WAL_NAME),
-                                 fsync=fsync)
+        self.wal = WriteAheadLog(os.path.join(self.root, WAL_NAME))
         self._since_snapshot = 0
 
     # ----------------------------------------------------------- listing
@@ -149,10 +142,9 @@ class IndexStore:
         epoch = index.mutation_epoch
         path = os.path.join(self.root, f"{SNAP_PREFIX}{epoch:012d}")
         if os.path.exists(path):
-            # a snapshot at this epoch is already durable. Do NOT touch
-            # the WAL: it may hold derived.* records logged since that
-            # snapshot without bumping the epoch. GC (old snapshots +
-            # crash debris) is WAL-independent and still runs.
+            # a snapshot at this epoch is already durable; the WAL is
+            # left as it is (its records at this epoch replay as no-ops).
+            # GC (old snapshots + crash debris) still runs.
             self._gc()
             self._since_snapshot = 0
             return path
@@ -168,7 +160,7 @@ class IndexStore:
 
     def _gc(self) -> None:
         snaps = self.snapshots()
-        for d in snaps[:-self.keep]:
+        for d in snaps[:-KEEP_SNAPSHOTS]:
             shutil.rmtree(os.path.join(self.root, d), ignore_errors=True)
         for d in os.listdir(self.root):       # crash debris from mid-write
             if d.startswith(SNAP_PREFIX) and d.endswith(".tmp"):
@@ -247,16 +239,16 @@ class IndexStore:
                     f"{idx.mutation_epoch}")
             try:
                 self._apply(idx, header, arrays)
-            except WalCorruption:
-                raise
-            except Exception:
+            except (ValueError, KeyError):
                 # records land BEFORE the impl applies, so an op that
                 # raised live (e.g. a dim-mismatched insert the caller
                 # caught) left exactly this record behind with no state
-                # change — the deterministic impl raises identically
-                # here and the op stays skipped. The epoch-gap check on
-                # the FOLLOWING records still fails loudly if the op had
-                # actually applied live (true divergence).
+                # change — the deterministic impl raises the same
+                # validation error here and the op stays skipped. The
+                # epoch-gap check on the FOLLOWING records still fails
+                # loudly if the op had actually applied live. Any other
+                # error (a CUDA launch failure, out of memory) is not a
+                # replay of the live outcome and propagates.
                 continue
         self.attach(idx)
         return idx
@@ -275,8 +267,6 @@ class IndexStore:
             idx._update_impl(meta["key"], arrays["vec"])
         elif op == "delete":
             idx._delete_impl(meta["key"])
-        elif op.startswith("derived."):
-            idx._apply_derived(op, meta, arrays)
         else:
             raise WalCorruption(f"unknown WAL op {op!r}")
 

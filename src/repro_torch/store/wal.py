@@ -5,7 +5,8 @@ Every ``insert``/``update``/``delete``/``bulk_insert`` against a
 store-attached ``VectorIndex`` appends one record here *before* the
 mutation touches index state, so a crash between snapshots replays the
 tail exactly — MeMemo persists every mutation to IndexedDB before
-acknowledging it; this file is that durability contract.
+acknowledging it; this file is that durability contract. Each append is
+flushed to the OS (process-crash durability); it is not fsynced.
 
 File layout (binary, append-only):
 
@@ -47,9 +48,8 @@ class WalCorruption(RuntimeError):
 
 
 class WriteAheadLog:
-    def __init__(self, path: str, *, fsync: bool = False):
+    def __init__(self, path: str):
         self.path = path
-        self.fsync = fsync
         self._fh = None             # lazily-opened append handle
 
     # ------------------------------------------------------------- append
@@ -86,8 +86,6 @@ class WriteAheadLog:
         fh.write(_FRAME.pack(len(payload), zlib.crc32(payload)))
         fh.write(payload)
         fh.flush()
-        if self.fsync:
-            os.fsync(fh.fileno())
 
     def close(self) -> None:
         if self._fh is not None:
@@ -171,8 +169,6 @@ class WriteAheadLog:
         with open(self.path, "wb") as f:
             f.write(FILE_MAGIC)
             f.flush()
-            if self.fsync:
-                os.fsync(f.fileno())
 
     @property
     def size_bytes(self) -> int:

@@ -331,6 +331,25 @@ def test_failed_mutation_after_wal_append_does_not_poison_restore(tmp_path):
     assert restored.keys() == ["a", "b"]
 
 
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("op", ["insert", "bulk_insert"])
+def test_replay_error_that_is_not_validation_propagates(kind, op, tmp_path,
+                                                        monkeypatch):
+    """Only the validation errors a live op raised may be skipped on
+    replay; a device failure (here a RuntimeError from the impl) must fail
+    the restore, not return an index without the record's rows."""
+    idx, store = fresh(kind, tmp_path)
+    idx.bulk_insert([f"d{i}" for i in range(8)], DATA[:8])
+    idx.insert("solo", EXTRA[0])
+
+    def boom(self, *args):
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    monkeypatch.setattr(type(idx), f"_{op}_impl", boom)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        load(store.root)
+
+
 def test_public_compact_on_attached_index_stays_durable(tmp_path):
     idx, store = fresh("flat", tmp_path)
     seed_mutations(idx)
