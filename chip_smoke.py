@@ -17,11 +17,14 @@ Phases (none catches an exception; any failure exits non-zero):
    graph, queries and ids under each row codec (fp32; bf16; int8 +
    scales, encoded by the port's codec), and exactly on integer-valued l2
    rows (int8 with scales 1.0). ``distance_topk`` runs on the rows of a
-   1M x 384 ``FlatVectorIndex`` under each codec, at B 1 and 128, k 10, on
-   random cosine rows, on integer-valued l2 rows (exact), and on a row
-   count whose last row range holds fewer than k rows; then the 64- and
-   256-slot lists (k 40, 200), the ip metric and scalar row loads (D 30)
-   on the same rows. ``embedding_bag`` runs at MIND's published table
+   1M x 384 ``FlatVectorIndex`` under each codec, at B 1, 8 (the served
+   flat batch) and 128, k 10, one launch a search, on random cosine rows,
+   on integer-valued l2 rows (exact), and on a row count whose last row
+   range holds fewer than k rows; then k 1000 at B 8 (four passes), the
+   64- and 256-slot lists (k 40, 200), the ip metric and scalar row loads
+   (D 30) on the same rows; each cell's device time split into the kernel
+   and everything else (no other kernel runs at k <= 256).
+   ``embedding_bag`` runs at MIND's published table
    (1M x 64, fp32 and bf16; configs/mind.py) with bags of L 50 at the
    recsys serve batches 512 and 262,144, ``sum`` and ``mean``, with a
    weight mask and without weights, against its plain version (rtol 1e-5,
@@ -102,14 +105,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit): HBM rate and
-# the fp32 rate outside the tensor cores, which every kernel here uses
+# H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit): HBM rate,
+# the fp32 rate outside the tensor cores, and the dense TF32 tensor-core
+# rate (distance_topk at B > 8)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
 
 N_VECTORS, DIM = 1_000_000, 384          # configs/mememo.py
 N_QUERIES, K_GATHER, M2, EF = 1024, 32, 32, 64
-TOPK_K, TOPK_BATCHES = 10, (1, 128)      # configs/base.py retrieval_cand
+# distance_topk: k from configs/base.py retrieval_cand; B 8 is the served
+# flat batch, and k 1000 there takes four passes
+TOPK_K, TOPK_BATCHES = 10, (1, 8, 128)
+TOPK_BIG_K, TOPK_BIG_B = 1000, 8
 CODECS = ("fp32", "bf16", "int8")
 DEC_B, DEC_H, DEC_KVH, DEC_DH, DEC_S = 8, 32, 8, 128, 8192
 SYNTHETIC_DOCS = 2000
@@ -162,10 +170,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          rate: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     """Least time (ms) the card could take: bytes over the HBM rate or
-    operations over the fp32 rate, whichever is larger."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    operations over ``rate`` (default the fp32 rate), whichever is
+    larger."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / rate
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -583,10 +593,14 @@ def bag_entry_run(torch) -> dict:
 
 
 def device_split(torch, fn, kernel: str, reps: int = 5) -> dict:
-    """Device time per call of ``fn`` from a ``torch.profiler`` trace,
-    split into the hand kernel (device functions whose name holds
-    ``kernel``) and everything else (PyTorch's own kernels: the merge
-    sort, gathers)."""
+    """Device time of ``fn`` from a ``torch.profiler`` trace, split into
+    the hand kernel (device functions whose name holds ``kernel``) and
+    everything else (PyTorch's own kernels, such as a merge sort or
+    gathers): ms per launch of the hand kernel, its launches per call as
+    traced, and the other kernels' ms per call. The trace can drop a
+    launch (kernel_launches_traced below the launches a call makes), so
+    the time per launch is the number to read; calls are timed with CUDA
+    events elsewhere."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -596,24 +610,36 @@ def device_split(torch, fn, kernel: str, reps: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
     hand = other = 0.0
+    launches = 0
     for r in prof.key_averages():
         if r.device_type != torch.autograd.DeviceType.CUDA:
             continue
         if kernel in r.key:
             hand += r.self_device_time_total
+            launches += r.count
         else:
             other += r.self_device_time_total
-    return {"kernel_device_ms": hand / 1e3 / reps,
+    return {"kernel_ms_per_launch": hand / 1e3 / max(launches, 1),
+            "kernel_launches_traced": launches / reps,
             "other_device_ms": other / 1e3 / reps}
 
 
 def topk_bound(db, scales, b: int, k: int) -> tuple[float, str]:
     """Each input read once (rows, scales, queries), each output written
-    once (k f32 distances + k i32 ids per query); 2 B N D flops."""
+    once (k f32 distances + k i32 ids per query). Operations: 2 B N D
+    fp32 flops on the CUDA cores at B <= 8 (the streaming path); above,
+    the tensor-core path's split-TF32 products, 3 x 2 B N D for fp32 rows
+    and 2 x for bf16 and int8 rows (exact in TF32), at the TF32 rate."""
+    from repro_torch.kernels import ops
+
     n, d = db.shape
     nbytes = (db.numel() * db.element_size()
               + (0 if scales is None else n * 4) + b * d * 4 + b * k * 8)
-    return bound(nbytes, 2.0 * b * n * d)
+    if b <= ops.TOPK_SMALL_B:
+        return bound(nbytes, 2.0 * b * n * d)
+    products = 3 if db.dtype.is_floating_point and db.element_size() == 4 \
+        else 2
+    return bound(nbytes, products * 2.0 * b * n * d, TF32_FLOPS_PER_S)
 
 
 def assert_topk_agree(torch, got, want, what: str) -> float:
@@ -668,6 +694,56 @@ def topk_variants(torch, db, scales, dbi, scl_i, qcos, qint) -> dict:
     return out
 
 
+def check_topk_big_k(torch, db, scales, xf, dbi, scl_i, qcos, qint) -> dict:
+    """k 1000 at the served batch B 8 on the 1M rows: ceil(k / 256)
+    passes of the kernel, each after the last (d, id) of the one before,
+    held against the plain version (random rows as ``assert_topk_agree``;
+    integer-valued l2 rows exactly, as a whole and pass by pass), timed
+    beside ``torch.topk``."""
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import ops, ref
+
+    b, k = TOPK_BIG_B, TOPK_BIG_K
+    q = qcos[b]
+    dispatch.reset()
+    got = ops.flat_topk(db, q, k, scales=scales)
+    launches = dispatch.get("kernel.distance_topk")
+    assert launches == -(-k // ops.TOPK_PASS_K), launches
+    want = ref.distance_topk_ref(db, q, k, scales=scales)
+    frac = assert_topk_agree(torch, got, want, f"distance_topk k {k}")
+    kd, ki = ops.flat_topk(dbi, qint[b], k, metric="l2", scales=scl_i)
+    rd, ri = ref.distance_topk_ref(dbi, qint[b], k, metric="l2",
+                                   scales=scl_i)
+    torch.cuda.synchronize()
+    assert bool((ki == ri).all()) and bool((kd == rd).all()), \
+        f"distance_topk k {k}: integer l2 rows differ"
+    # each pass alone on the integer rows: the plain version after the
+    # kernel's last (d, id) of the pass before (on random rows a boundary
+    # distance differs from the plain version's in the last bits, which
+    # moves a near-tied row across the boundary)
+    for c0 in range(ops.TOPK_PASS_K, k, ops.TOPK_PASS_K):
+        c1 = min(k, c0 + ops.TOPK_PASS_K)
+        pd, pi = ref.distance_topk_ref(dbi, qint[b], c1 - c0, metric="l2",
+                                       scales=scl_i,
+                                       after=(kd[:, c0 - 1], ki[:, c0 - 1]))
+        assert bool((ki[:, c0:c1] == pi).all()) and \
+            bool((kd[:, c0:c1] == pd).all()), \
+            f"distance_topk pass {c0}: integer l2 rows differ"
+    b_ms, b_by = topk_bound(db, scales, b, k)
+    return dict(
+        k=k, B=b, launches_per_search=launches, ids_equal_rows=frac,
+        max_abs_err=(got[0] - want[0]).abs().max().item(),
+        int_l2_exact=True,
+        ms=time_ms(torch, lambda: ops.flat_topk(db, q, k, scales=scales), 10),
+        plain_ms=time_ms(torch, lambda: ref.distance_topk_ref(
+            db, q, k, scales=scales), 3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: torch.topk(
+            1.0 - q @ xf.T, k, dim=1, largest=False), 10),
+        **device_split(torch, lambda: ops.flat_topk(
+            db, q, k, scales=scales), "distance_topk"))
+
+
 def check_distance_topk(torch, dev, gen) -> dict:
     """``distance_topk`` on the rows of a 1M x 384 ``FlatVectorIndex``
     under each codec (the index normalizes and encodes them with the
@@ -675,8 +751,12 @@ def check_distance_topk(torch, dev, gen) -> dict:
     equal on >= 99 % of queries, distances within 1e-5 where they are),
     integer-valued l2 rows (ids and distances exactly equal, ties
     included; int8 rows with scales 1.0), and a row count whose last row
-    range holds fewer than k rows."""
+    range holds fewer than k rows, each search one launch; then k 1000 at
+    B 8 (four passes of 256), as ``assert_topk_agree`` on the random rows
+    (1,000 neighbours hold near-ties that another summation order swaps)
+    and exactly on the integer rows."""
     import numpy as np
+    from repro_torch.core import dispatch
     from repro_torch.core.codec import device_rows, get_codec
     from repro_torch.core.flat import FlatVectorIndex
     from repro_torch.kernels import ops, ref
@@ -722,7 +802,10 @@ def check_distance_topk(torch, dev, gen) -> dict:
         xf = db.float() if scales is None else db.float() * scales[:, None]
         for b in TOPK_BATCHES:
             q = qcos[b]
+            dispatch.reset()
             kd, ki = ops.flat_topk(db, q, k, scales=scales)
+            launches = dispatch.get("kernel.distance_topk")
+            assert launches == 1, f"distance_topk {codec} B={b}: {launches}"
             rd, ri = ref.distance_topk_ref(db, q, k, scales=scales)
             torch.cuda.synchronize()
             same = (ki == ri).all(dim=1)
@@ -756,6 +839,7 @@ def check_distance_topk(torch, dev, gen) -> dict:
 
             b_ms, b_by = topk_bound(db, scales, b, k)
             recs[(codec, b)] = dict(
+                launches_per_search=launches,
                 max_abs_err=err, ids_equal_rows=frac,
                 int_l2_exact=True, tail_rows=n_t, tail_last_range=last,
                 ms=time_ms(torch, lambda: ops.flat_topk(db, q, k,
@@ -765,9 +849,13 @@ def check_distance_topk(torch, dev, gen) -> dict:
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=time_ms(torch, library, 10),
                 **device_split(torch, lambda: ops.flat_topk(
-                    db, q, k, scales=scales), "distance_topk_kernel"))
+                    db, q, k, scales=scales), "distance_topk"))
             log(f"distance_topk {codec} B={b} "
                 + json.dumps(recs[(codec, b)]))
+        recs[(codec, "big")] = check_topk_big_k(torch, db, scales, xf, dbi,
+                                                scl_i, qcos, qint)
+        log(f"distance_topk {codec} B={TOPK_BIG_B} k={TOPK_BIG_K} "
+            + json.dumps(recs[(codec, "big")]))
         recs[codec] = dict(device_block_bytes=block_bytes,
                            ingest_and_pack_s=ingest_s,
                            variants=topk_variants(torch, db, scales, dbi,
@@ -784,7 +872,9 @@ def check_distance_topk(torch, dev, gen) -> dict:
                     "rows: no single PyTorch call computes this function",
             shapes=f"db {N_VECTORS}x{DIM} {c} (rows of a FlatVectorIndex),"
                    f" k {k}, cosine; head: B 1",
-            cells={f"B{b}": recs[(c, b)] for b in TOPK_BATCHES}, **recs[c])
+            cells={**{f"B{b}": recs[(c, b)] for b in TOPK_BATCHES},
+                   f"B{TOPK_BIG_B} k{TOPK_BIG_K}": recs[(c, "big")]},
+            **recs[c])
     return out
 
 

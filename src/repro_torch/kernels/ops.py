@@ -46,7 +46,7 @@ _SIGS = {
                      [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "distance_topk": ("distance_topk",
-                      [_P, _P, _P, _P, _P,
+                      [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "embedding_bag": ("embedding_bag_{}",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
@@ -291,23 +291,82 @@ def _flash_splits(pairs: int, s: int, device) -> tuple[int, int]:
 
 # row dtype -> distance_topk's dtype code (0 f32, 1 bf16, 2 int8)
 _ROW_DTYPES = {dt: i for i, dt in enumerate(CODEC_OF)}
-TOPK_MAX_K = 256          # list slots the kernel keeps per query
+TOPK_PASS_K = 256         # list slots the kernel keeps per query: one pass
+TOPK_SMALL_B = 8          # B <= this takes the streaming path
+_TOPK_MIN_GROUPS = 8      # row groups a streaming block takes at least
+_TOPK_BQ = 64             # queries of a tensor-core tile (B > 8)
+_SMS: dict[torch.device, int] = {}
+_SCRATCH: dict[tuple, list] = {}
 
 
 def _topk_plan(b: int, n: int, device) -> tuple[int, int, int]:
     """-> (small, splits, rows_per_split) of one ``distance_topk`` launch.
 
-    B <= 8 takes the kernel's 8-query x 256-row tile (``small``), larger B
-    its 64 x 128 tile. The N rows are cut into ``splits`` ranges of whole
-    tiles so that the grid holds about four blocks per SM; each range
-    yields k partials per query."""
-    small = int(b <= 8)
-    bq, bn = (8, 256) if small else (64, 128)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    B <= 8 takes the streaming path (``small``): one block per SM at
+    most, each owning ``rows_per_split`` rows, a whole number of its
+    warps' row groups (8 rows for B 1..4, 4 rows for B 5..8, so that a
+    group holds 32 or fewer (row, query) sums) and at least 8 groups.
+    Larger B takes the tensor-core tile of 64 queries x 128 rows, its N
+    rows cut into ranges of whole tiles so that the grid is one wave of
+    two blocks per SM (the tile's residency at k <= 32): longer ranges,
+    so fewer of a range's tiles beat its lists' k-th entries. Each
+    range's block leaves k partials per query, which the last block of
+    its query tile merges in the same launch."""
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    if b <= TOPK_SMALL_B:
+        rg = 8 if b <= 4 else 4
+        groups = -(-n // rg)
+        blocks = max(1, min(sms, -(-groups // _TOPK_MIN_GROUPS)))
+        rows = -(-groups // blocks) * rg
+        return 1, -(-n // rows), rows
+    bn = 128
     tiles = -(-n // bn)
-    splits = max(1, min(tiles, -(-4 * sms // -(-b // bq))))
+    splits = max(1, min(tiles, -(-2 * sms // -(-b // _TOPK_BQ))))
     rows = -(-tiles // splits) * bn
-    return small, -(-n // rows), rows
+    return 0, -(-n // rows), rows
+
+
+def _scratch(q: torch.Tensor, entries: int, tiles: int):
+    """-> (part_d, part_i, tickets) for a launch on ``q``'s device and
+    current stream, kept between calls (launches on one stream run in
+    order): partial lists of ``entries`` (d, id) slots, and zeroed int32
+    ticket counters, one per query tile. The last block of a tile to
+    finish merges the tile's partials and sets its counter back to 0, so
+    the counters are zeroed once and reused by every later launch."""
+    key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf[0].numel() < entries or buf[2].numel() < tiles:
+        n = max(entries, 0 if buf is None else buf[0].numel())
+        t = max(tiles, 16 if buf is None else buf[2].numel())
+        buf = _SCRATCH[key] = [
+            torch.empty(n, dtype=torch.float32, device=q.device),
+            torch.empty(n, dtype=torch.int32, device=q.device),
+            torch.zeros(t, dtype=torch.int32, device=q.device)]
+    return buf
+
+
+def topk_in_passes(run_pass, b: int, k: int, device
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k best (d, id) of B queries in ceil(k / 256) passes of at most
+    256 each: ``run_pass(out_d, out_i, after)`` fills the [B, kp] column
+    views with the kp best entries strictly after ``after`` = (d [B],
+    id [B]), the previous pass's last column (None for the first pass).
+    The order is strict on (d, id), so ties across a pass boundary stay
+    exact. Device-agnostic: ``flat_topk`` runs the kernel through it on
+    the card, the tests the plain version on the CPU."""
+    out_d = torch.empty((b, k), dtype=torch.float32, device=device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=device)
+    if k <= TOPK_PASS_K:
+        run_pass(out_d, out_i, None)
+        return out_d, out_i
+    for c0 in range(0, k, TOPK_PASS_K):
+        c1 = min(k, c0 + TOPK_PASS_K)
+        after = None if c0 == 0 else (out_d[:, c0 - 1], out_i[:, c0 - 1])
+        run_pass(out_d[:, c0:c1], out_i[:, c0:c1], after)
+    return out_d, out_i
 
 
 def flat_topk(db: torch.Tensor, q: torch.Tensor, k: int, *,
@@ -317,11 +376,10 @@ def flat_topk(db: torch.Tensor, q: torch.Tensor, k: int, *,
     decoding each row by a multiply), q [B,D] f32 -> (dists [B,k] f32,
     ids [B,k] i32), ascending by (d, id); 1 <= k <= N.
 
-    On the card the kernel writes each row range's k best per query
-    ([B, splits*k] partials) and one stable sort merges them: a range's
-    partials are (d, id)-sorted and ranges ascend in row id, so equal
-    distances already stand in id order (the JAX package merges with
-    ``lax.top_k`` outside Pallas the same way)."""
+    On the card a search of k <= 256 is one launch: the blocks scan row
+    ranges and the last one to finish merges their lists into the
+    result. Larger k runs ``topk_in_passes``: ceil(k / 256) launches,
+    each writing its columns of the result in place."""
     l2 = _metric_code(metric)
     tensors = (db, q) if scales is None else (db, q, scales)
     if not _on_cuda(*tensors):
@@ -334,20 +392,27 @@ def flat_topk(db: torch.Tensor, q: torch.Tensor, k: int, *,
         raise ValueError(f"q {tuple(q.shape)} does not match db "
                          f"{tuple(db.shape)}")
     k = int(k)
-    if not 1 <= k <= min(n, TOPK_MAX_K):
-        raise ValueError(f"flat_topk: k={k} needs 1 <= k <= min(N={n}, "
-                         f"{TOPK_MAX_K})")
+    if not 1 <= k <= n:
+        raise ValueError(f"flat_topk: k={k} needs 1 <= k <= N={n}")
+    if b == 0:
+        return (torch.empty((0, k), dtype=torch.float32, device=q.device),
+                torch.empty((0, k), dtype=torch.int32, device=q.device))
     small, splits, rows = _topk_plan(b, n, q.device)
-    part_d = torch.empty((b, splits * k), dtype=torch.float32,
-                         device=q.device)
-    part_i = torch.empty((b, splits * k), dtype=torch.int32, device=q.device)
-    if b:
+    part_d, part_i, tickets = _scratch(
+        q, b * splits * min(k, TOPK_PASS_K), 1 if small else -(-b // _TOPK_BQ))
+
+    def run_pass(out_d, out_i, after):
+        ad, ai = (None, None) if after is None else after
         with torch.cuda.device(q.device):
             _launch("distance_topk", codec, _ptr(db), _opt_ptr(scales),
-                    _ptr(q), _ptr(part_d), _ptr(part_i), b, n, d, k, splits,
-                    rows, l2, _ROW_DTYPES[db.dtype], small, _aligned16(db),
+                    _ptr(q), _ptr(out_d), _ptr(out_i), out_d.stride(0),
+                    _opt_ptr(ad), _opt_ptr(ai), 0 if ad is None
+                    else ad.stride(0), _ptr(part_d), _ptr(part_i),
+                    _ptr(tickets), b, n, d, out_d.shape[1], splits, rows,
+                    l2, _ROW_DTYPES[db.dtype], small, _aligned16(db),
                     _stream(q))
-    return _ref.smallest_k(part_d, part_i, k)
+
+    return topk_in_passes(run_pass, b, k, q.device)
 
 
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,

@@ -50,12 +50,17 @@ def smallest_k(d: torch.Tensor, ids: torch.Tensor, k: int
 
 def distance_topk_ref(db: torch.Tensor, q: torch.Tensor, k: int, *,
                       metric: str = "cosine",
-                      scales: torch.Tensor | None = None
+                      scales: torch.Tensor | None = None,
+                      after: tuple[torch.Tensor, torch.Tensor] | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """db [N,D] (f32, bf16 or int8 rows; ``scales`` [N] decodes each row
     by a multiply), q [B,D] f32 -> (dists [B,k] ascending, ids [B,k]
     i32), ordered by (d, id). cosine/ip score ``1 - <q, x>``; l2 the
-    expanded ``|q|^2 - 2 <q, x> + |x|^2``, as the TPU kernel computes it."""
+    expanded ``|q|^2 - 2 <q, x> + |x|^2``, as the TPU kernel computes it.
+
+    ``after`` = (d [B] f32, id [B] i32) keeps only the rows that come
+    strictly after that pair in (d, id) order, per query: one pass of
+    ``kernels.ops.topk_in_passes``, which needs k <= the rows kept."""
     x = db.float()
     if scales is not None:
         x = x * scales.float()[:, None]
@@ -66,6 +71,10 @@ def distance_topk_ref(db: torch.Tensor, q: torch.Tensor, k: int, *,
     else:
         d = ((qf * qf).sum(-1)[:, None] - 2.0 * s) + (x * x).sum(-1)[None, :]
     ids = torch.arange(x.shape[0], dtype=torch.int32, device=d.device)
+    if after is not None:
+        ad, ai = after[0][:, None], after[1][:, None]
+        keep = (d > ad) | ((d == ad) & (ids[None, :] > ai))
+        d = torch.where(keep, d, torch.inf)
     return smallest_k(d, ids.expand(d.shape[0], -1), k)
 
 

@@ -239,16 +239,20 @@ class IndexStore:
                     f"{idx.mutation_epoch}")
             try:
                 self._apply(idx, header, arrays)
-            except (ValueError, KeyError):
+            except (WalCorruption, RuntimeError):
+                # a damaged log, and a device failure (a kernel launch
+                # error from kernels.ops, torch.OutOfMemoryError): neither
+                # replays the live outcome, so the restore fails
+                raise
+            except Exception:
                 # records land BEFORE the impl applies, so an op that
-                # raised live (e.g. a dim-mismatched insert the caller
-                # caught) left exactly this record behind with no state
-                # change — the deterministic impl raises the same
-                # validation error here and the op stays skipped. The
-                # epoch-gap check on the FOLLOWING records still fails
-                # loudly if the op had actually applied live. Any other
-                # error (a CUDA launch failure, out of memory) is not a
-                # replay of the live outcome and propagates.
+                # raised live (a dim-mismatched insert, an unhashable
+                # key's TypeError) left exactly this record behind with
+                # no state change — the deterministic impl raises the
+                # same error here and the op stays skipped, as the
+                # reference's replay skips it. The epoch-gap check on the
+                # FOLLOWING records still fails loudly if the op had
+                # actually applied live.
                 continue
         self.attach(idx)
         return idx

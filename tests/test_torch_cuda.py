@@ -115,11 +115,13 @@ def _encoded(codec_name, x, device):
 @pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
 @pytest.mark.parametrize("metric", ["cosine", "ip", "l2"])
 @pytest.mark.parametrize("b,n,d,k", [(1, 5000, 384, 10), (7, 997, 30, 5),
+                                     (8, 4000, 384, 40), (9, 2000, 96, 10),
                                      (130, 3000, 64, 64)])
 def test_flat_topk_kernel_matches_plain(cuda_device, codec, metric, b, n, d,
                                         k):
-    """Random rows: both tiles (B <= 8 and larger), D % 16 != 0 (scalar
-    row loads), k up to 64. Distances to 1e-5 where the ids agree."""
+    """Random rows: both paths (B <= 8 streaming, larger B on the tensor
+    cores) at B 1, 7, 8, 9 and 130, D % 16 != 0 (scalar row loads), k up
+    to 64. Distances to 1e-5 where the ids agree."""
     rng = np.random.default_rng(30)
     x = _unit(rng.normal(size=(n, d)))
     db, scales = _encoded(codec, x, cuda_device)
@@ -172,6 +174,72 @@ def test_flat_topk_kernel_short_last_range(cuda_device):
     assert dispatch.get("kernel.distance_topk") == 1
     assert bool((ki >= 0).all()) and bool((ki < 771).all())
     assert bool((kd < 1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("b", [1, 8, 9])
+@pytest.mark.parametrize("k", [256, 257, 1000, 1203])
+def test_flat_topk_passes_exact_on_integer_ties(cuda_device, codec, b, k):
+    """Any k <= N: one launch for k <= 256, ceil(k / 256) passes above,
+    each after the last (d, id) of the one before. Integer-valued l2 rows
+    in [-2, 2] tie across the pass boundaries, and ids and distances
+    equal the plain version's exactly; N 1203 leaves a short last range
+    on the streaming path."""
+    from repro_torch.core import dispatch
+    n = 1203
+    rng = np.random.default_rng(33)
+    x = rng.integers(-2, 3, size=(n, 32)).astype(np.float32)
+    qn = rng.integers(-2, 3, size=(b, 32)).astype(np.float32)
+    if codec == "int8":
+        db = _t(x.astype(np.int8)).to(cuda_device)
+        scales = torch.ones(n, device=cuda_device)
+    else:
+        db, scales = _encoded(codec, x, cuda_device)
+    q = _t(qn).to(cuda_device)
+    dispatch.reset()
+    kd, ki = tops.flat_topk(db, q, k, metric="l2", scales=scales)
+    assert dispatch.get("kernel.distance_topk") == -(-k // 256)
+    rd, ri = tref.distance_topk_ref(db, q, k, metric="l2", scales=scales)
+    torch.testing.assert_close(ki, ri, rtol=0, atol=0)
+    torch.testing.assert_close(kd, rd, rtol=0, atol=0)
+    small, splits, rows = tops._topk_plan(b, n, cuda_device)
+    if small:
+        assert 0 < n - (splits - 1) * rows < rows
+
+
+@pytest.mark.cuda
+def test_index_queries_above_the_list_size_match_cpu(cuda_device):
+    """The three ways a k above 256 list slots reaches the index API:
+    int8 flat query_batch(k=100) (over-fetch 400), fp32 and bf16 flat
+    k 300, HNSW.exact_query(k=300); on the card equal to the CPU, keys in
+    order. Integer-valued l2 rows and queries (each row holding a 127, so
+    the int8 scale is 1.0 and bf16 holds them exactly) make every distance
+    exact on both devices: random rows would swap near-tied neighbours
+    under the two summation orders."""
+    from repro_torch.core.index import make_index
+    rng = np.random.default_rng(34)
+    data = rng.integers(-127, 128, size=(2000, 64)).astype(np.float32)
+    data[:, 0] = 127
+    qs = rng.integers(-127, 128, size=(5, 64)).astype(np.float32)
+    keys = [f"r{i}" for i in range(2000)]
+
+    def run(device):
+        out = []
+        for dtype, k in (("int8", 100), ("fp32", 300), ("bf16", 300)):
+            idx = make_index("flat", dim=64, metric="l2", dtype=dtype,
+                             device=device)
+            idx.bulk_insert(keys, data)
+            out.append(idx.query_batch(qs, k=k))
+        h = make_index("hnsw", dim=64, metric="l2", M=8,
+                       ef_construction=40, device=device)
+        h.bulk_insert(keys[:500], data[:500])
+        out.append(h.exact_query(qs, k=300))
+        return out
+
+    for (ck, cd), (gk, gd) in zip(run("cpu"), run(cuda_device)):
+        assert gk == ck
+        np.testing.assert_array_equal(np.asarray(gd), np.asarray(cd))
 
 
 # ---------------------------------------------------------------------------

@@ -139,6 +139,65 @@ def test_flat_topk_cpu_tensors_take_the_plain_version_uncounted():
         tops.flat_topk(db, q.to("meta"), 4)
 
 
+@pytest.mark.parametrize("rows", ["random", "integer"])
+@pytest.mark.parametrize("k", [257, 600, 700])
+def test_topk_in_passes_equals_one_call(k, rows):
+    """The k > 256 chaining of ops.flat_topk, driven through the plain
+    version: ceil(k / 256) passes, each after the last (d, id) of the one
+    before, equal one plain call of k, ids and distances exactly; on
+    integer rows in [-2, 2] many distances tie across pass boundaries."""
+    rng = np.random.default_rng(45)
+    n, metric = 700, "l2"
+    if rows == "random":
+        x = _unit(rng.normal(size=(n, 16)))
+        q = _unit(rng.normal(size=(5, 16)))
+        metric = "cosine"
+    else:
+        x = rng.integers(-2, 3, size=(n, 16)).astype(np.float32)
+        q = rng.integers(-2, 3, size=(5, 16)).astype(np.float32)
+    db, qt = torch.from_numpy(x), torch.from_numpy(q)
+    calls = []
+
+    def run_pass(out_d, out_i, after):
+        calls.append(after is None)
+        d, i = tref.distance_topk_ref(db, qt, out_d.shape[1], metric=metric,
+                                      after=after)
+        out_d.copy_(d)
+        out_i.copy_(i)
+
+    got = tops.topk_in_passes(run_pass, 5, k, "cpu")
+    want = tref.distance_topk_ref(db, qt, k, metric=metric)
+    assert calls == [True] + [False] * (-(-k // tops.TOPK_PASS_K) - 1)
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    if rows == "integer":
+        d = want[0].numpy()
+        assert (d[:, 255] == d[:, 256]).any()     # a tie across a boundary
+
+
+def test_flat_int8_and_exact_query_above_256_match_reference():
+    """k the card's lists could not hold before passes: an int8 flat
+    index over-fetching k 100 x 4 and HNSW.exact_query at k 300, against
+    the JAX package."""
+    data = make_corpus(500, 16, seed=9)
+    qs = make_corpus(4, 16, seed=10)
+    out = []
+    for make in (jmake_index, lambda *a, **k: tmake_index(*a, device="cpu",
+                                                          **k)):
+        flat = make("flat", dim=16, metric="cosine", dtype="int8")
+        flat.bulk_insert([f"r{i}" for i in range(500)], data)
+        fk, fd = flat.query_batch(qs, k=100)
+        hnsw = make("hnsw", metric="cosine", M=8, ef_construction=40)
+        hnsw.bulk_insert([f"h{i}" for i in range(400)], data[:400])
+        hk, hd = hnsw.exact_query(qs, k=300)
+        out.append((fk, np.asarray(fd), hk, np.asarray(hd)))
+    (jfk, jfd, jhk, jhd), (tfk, tfd, thk, thd) = out
+    assert tfk == jfk and thk == jhk
+    assert len(thk[0]) == 300 and len(tfk[0]) == 100
+    np.testing.assert_allclose(tfd, jfd, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(thd, jhd, rtol=0, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # codec: numpy in both packages, bit-identical
 # ---------------------------------------------------------------------------

@@ -590,3 +590,25 @@ def test_launch_serve_store_dir_restores_warm(tmp_path, caplog):
     assert got == [[d.key for d in r.docs] for r in cold["reqs"]]
     assert all(len(k) == 3 for k in got)
     assert idx.config_dict() == cold["rag"].index.config_dict()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_replay_skips_a_live_type_error_as_the_reference(kind, tmp_path):
+    """An insert with an unhashable key raises TypeError live after its
+    WAL record landed; replay skips that record as the reference's does,
+    so both packages restore the 21 rows, and each restores the other's
+    store."""
+    (jidx, js), (tidx, ts) = _both(kind, "fp32", tmp_path)
+    for idx in (jidx, tidx):
+        idx.bulk_insert([f"d{i}" for i in range(20)], DATA[:20])
+        with pytest.raises(TypeError):
+            idx.insert(["x"], EXTRA[0])
+        idx.insert("after", EXTRA[1])
+    j_back = JIndexStore(js.root).load_index()
+    t_back = IndexStore(ts.root).load_index(device="cpu")
+    t_from_j = IndexStore(js.root).load_index(device="cpu")
+    j_from_t = JIndexStore(ts.root).load_index()
+    for got in (t_back, t_from_j, j_from_t):
+        assert got.size == 21
+        _assert_same_answers(j_back, got, DATA[:5], exact=False)
+    assert_bit_for_bit(tidx, t_back)
