@@ -28,9 +28,11 @@
 // shared-memory stages (64-128 KB in flight per SM), with no block-wide
 // barrier in the scan. A lane decodes four consecutive dims of each row
 // in registers (int8 by a byte permute and one fp32 add, exact; bf16 by a
-// shift) and multiplies them with the queries' same four dims (shared
-// memory, float4) on the CUDA cores. A butterfly reduce-scatter over the
-// warp then leaves one (row, query) sum per lane, which is tested against
+// shift) and multiplies them with the queries' same four dims on the CUDA
+// cores: from shared memory (float4) where the queries fit there beside
+// the ring and lists, else (wide D) read through L1, slower at B 8 but at
+// any D. A butterfly reduce-scatter over the warp then leaves one
+// (row, query) sum per lane, which is tested against
 // its query's k-th entry held in a register; the rare entries that beat it
 // are inserted into the warp's list in shared memory (a warp-wide rank
 // count and shift). Row scales (int8) are loaded a group ahead. At the
@@ -426,13 +428,36 @@ struct Stream {
   static constexpr int CPR = kSlice / E16;            // copies a row slice
   static constexpr int CPL = RG * CPR / 32;           // copies a lane
   static_assert(P <= 32 && RG * CPR % 32 == 0, "a group must fit the warp");
-  // shared memory: ring, then lists, then queries (Dp floats each) + |q|^2
-  static size_t smem(int dp) {
-    return static_cast<size_t>(W) * S * STAGE +
-           static_cast<size_t>(W) * BQ * KP * 8 +
-           (static_cast<size_t>(BQ) * dp + BQ) * 4 + 16;
+  // shared memory: ring, then lists, then |q|^2 (kSmem), then, where
+  // they fit (QS), the queries zero-padded to whole slices
+  static constexpr size_t kSmem =
+      (static_cast<size_t>(W) * S * STAGE + static_cast<size_t>(W) * BQ * KP * 8 +
+       BQ * 4 + 16 + 15) / 16 * 16;
+  static size_t smem_qs(int dp) {
+    return kSmem + static_cast<size_t>(BQ) * dp * 4;
   }
 };
+
+// Dims [d, d + 4) of queries b < BQ as fp32, read through L1 (the
+// queries do not fit shared memory): float4 loads when qvec (D % 4 == 0,
+// q 16-byte aligned), else scalar loads; zero past D and for b >= nq.
+template <int BQ>
+__device__ __forceinline__ void query_quad(const Args& a, int d, int nq,
+                                           bool qvec, float (&qv)[BQ][4]) {
+#pragma unroll
+  for (int b = 0; b < BQ; ++b) {
+    const float* p = a.q + static_cast<size_t>(b) * a.D + d;
+    if (qvec && b < nq && d < a.D) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(p));
+      qv[b][0] = w.x; qv[b][1] = w.y; qv[b][2] = w.z; qv[b][3] = w.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        qv[b][e] = (b < nq && d + e < a.D) ? __ldg(p + e) : 0.f;
+      }
+    }
+  }
+}
 
 // Copy one work item of a warp (group rows [row0, row0 + RG), dims
 // [d0, d0 + kSlice)) into a ring stage, rows past row_end and dims past D
@@ -466,7 +491,7 @@ __device__ __forceinline__ void stage_item(const Args& a, unsigned char* st,
   }
 }
 
-template <typename T, int BQ, int KS, bool L2>
+template <typename T, int BQ, int KS, bool L2, bool QS>
 __global__ void __launch_bounds__(Stream<T, BQ, KS>::W * 32, 1)
 distance_topk_stream(const Args a) {
   using C = Stream<T, BQ, KS>;
@@ -480,27 +505,33 @@ distance_topk_stream(const Args a) {
   float* lists_d = reinterpret_cast<float*>(
       smem + static_cast<size_t>(W) * S * C::STAGE);
   int* lists_i = reinterpret_cast<int*>(lists_d + W * BQ * KP);
-  float* qs = reinterpret_cast<float*>(lists_i + W * BQ * KP);
-  float* qn = qs + BQ * dp;
+  float* qn = reinterpret_cast<float*>(lists_i + W * BQ * KP);
   int* flag = reinterpret_cast<int*>(qn + BQ);
+  float* qs = reinterpret_cast<float*>(smem + C::kSmem);  // [BQ][dp] if QS
 
   const int row_begin = blockIdx.x * a.rows_per_split;
   const int row_end = min(a.N, row_begin + a.rows_per_split);
   const int nq = min(BQ, a.B);
+  const bool qvec = (a.D & 3) == 0 &&
+                    (reinterpret_cast<uintptr_t>(a.q) & 15) == 0;
 
   for (int e = threadIdx.x; e < W * BQ * KP; e += W * 32) {
     lists_d[e] = kInf;
     lists_i[e] = -1;
   }
-  for (int e = threadIdx.x; e < BQ * dp; e += W * 32) {
-    const int b = e / dp, d = e % dp;
-    qs[e] = (b < a.B && d < a.D) ? a.q[static_cast<size_t>(b) * a.D + d] : 0.f;
+  if constexpr (QS) {
+    for (int e = threadIdx.x; e < BQ * dp; e += W * 32) {
+      const int b = e / dp, d = e % dp;
+      qs[e] = (b < nq && d < a.D) ? a.q[static_cast<size_t>(b) * a.D + d] : 0.f;
+    }
   }
-  __syncthreads();
   if (L2) {
     for (int b = warp; b < BQ; b += W) {
       float acc = 0.f;
-      for (int d = lane; d < dp; d += 32) acc = fmaf(qs[b * dp + d], qs[b * dp + d], acc);
+      if (b < nq) {
+        const float* qr = a.q + static_cast<size_t>(b) * a.D;
+        for (int d = lane; d < a.D; d += 32) acc = fmaf(qr[d], qr[d], acc);
+      }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFull, acc, off);
       if (lane == 0) qn[b] = acc;
@@ -559,10 +590,14 @@ distance_topk_stream(const Args a) {
     __syncwarp();
     const T* st = reinterpret_cast<const T*>(ring + (t % S) * C::STAGE);
     float qv[BQ][4];
+    if constexpr (QS) {
 #pragma unroll
-    for (int b = 0; b < BQ; ++b) {
-      const float4 w = *reinterpret_cast<const float4*>(qs + b * dp + sl * kSlice + 4 * lane);
-      qv[b][0] = w.x; qv[b][1] = w.y; qv[b][2] = w.z; qv[b][3] = w.w;
+      for (int b = 0; b < BQ; ++b) {
+        const float4 w = *reinterpret_cast<const float4*>(qs + b * dp + sl * kSlice + 4 * lane);
+        qv[b][0] = w.x; qv[b][1] = w.y; qv[b][2] = w.z; qv[b][3] = w.w;
+      }
+    } else {
+      query_quad<BQ>(a, sl * kSlice + 4 * lane, nq, qvec, qv);
     }
 #pragma unroll
     for (int r = 0; r < RG; ++r) {
@@ -648,16 +683,45 @@ int allow_smem(K kern, size_t bytes, size_t (&allowed)[kMaxDevices]) {
   return static_cast<int>(e);
 }
 
+// The most dynamic shared memory a block of the current device may have.
+int smem_optin(size_t& bytes) {
+  static int cached[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int v = dev < kMaxDevices ? cached[dev] : 0;
+  if (v == 0) {
+    e = cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < kMaxDevices) cached[dev] = v;
+  }
+  bytes = static_cast<size_t>(v);
+  return 0;
+}
+
+template <typename T, int BQ, int KS, bool L2, bool QS>
+int run_stream(const Args& a, size_t bytes, cudaStream_t stream) {
+  auto kern = distance_topk_stream<T, BQ, KS, L2, QS>;
+  static size_t allowed[kMaxDevices] = {};
+  if (const int e = allow_smem(kern, bytes, allowed)) return e;
+  kern<<<dim3(a.splits, 1), Stream<T, BQ, KS>::W * 32, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The queries go to shared memory where they fit beside the ring and
+// lists (at 227 KB a block: D <= 1024 at B 5..8 and k > 32, 2048 at
+// k <= 32, 4224 at B 2..4, 23,168 at B 1), else they are read through L1:
+// every D is served.
 template <typename T, int BQ, int KS, bool L2>
 int launch_stream(const Args& a, cudaStream_t stream) {
   using C = Stream<T, BQ, KS>;
   const int dp = (a.D + kSlice - 1) / kSlice * kSlice;
-  const size_t bytes = C::smem(dp);
-  auto kern = distance_topk_stream<T, BQ, KS, L2>;
-  static size_t allowed[kMaxDevices] = {};
-  if (const int e = allow_smem(kern, bytes, allowed)) return e;
-  kern<<<dim3(a.splits, 1), C::W * 32, bytes, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  size_t optin = 0;
+  if (const int e = smem_optin(optin)) return e;
+  if (C::smem_qs(dp) <= optin) {
+    return run_stream<T, BQ, KS, L2, true>(a, C::smem_qs(dp), stream);
+  }
+  return run_stream<T, BQ, KS, L2, false>(a, C::kSmem, stream);
 }
 
 // ---------------------------------------------------------------------------

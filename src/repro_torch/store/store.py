@@ -239,10 +239,11 @@ class IndexStore:
                     f"{idx.mutation_epoch}")
             try:
                 self._apply(idx, header, arrays)
-            except (WalCorruption, RuntimeError):
-                # a damaged log, and a device failure (a kernel launch
-                # error from kernels.ops, torch.OutOfMemoryError): neither
-                # replays the live outcome, so the restore fails
+            except RuntimeError:
+                # a device failure (a kernel launch error from
+                # kernels.ops, torch.OutOfMemoryError) does not replay the
+                # live outcome, so the restore fails; WalCorruption and
+                # NotImplementedError are RuntimeErrors and fail it too
                 raise
             except Exception:
                 # records land BEFORE the impl applies, so an op that

@@ -136,6 +136,33 @@ def test_flat_topk_kernel_matches_plain(cuda_device, codec, metric, b, n, d,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("b,d", [(8, 1536), (8, 4096), (5, 1537)])
+@pytest.mark.parametrize("k", [10, 40, 300])
+def test_flat_topk_kernel_exact_at_wide_rows(cuda_device, codec, b, d, k):
+    """The streaming path serves any D: its queries sit in shared memory
+    where they fit (D 1536 and 1537 at k 10) and are read through L1
+    where they do not (k 40; k 300, the widest list, in two passes; D 4096
+    at every k). D 1537 takes no 16-byte query loads, B 5 is 5 of a tile
+    of 8. On integer-valued l2 rows in [-2, 2] (exact arithmetic, many
+    ties) ids and distances equal the plain version's."""
+    n = 2000
+    rng = np.random.default_rng(35)
+    x = rng.integers(-2, 3, size=(n, d)).astype(np.float32)
+    qn = rng.integers(-2, 3, size=(b, d)).astype(np.float32)
+    if codec == "int8":
+        db = _t(x.astype(np.int8)).to(cuda_device)
+        scales = torch.ones(n, device=cuda_device)
+    else:
+        db, scales = _encoded(codec, x, cuda_device)
+    q = _t(qn).to(cuda_device)
+    kd, ki = tops.flat_topk(db, q, k, metric="l2", scales=scales)
+    rd, ri = tref.distance_topk_ref(db, q, k, metric="l2", scales=scales)
+    torch.testing.assert_close(ki, ri, rtol=0, atol=0)
+    torch.testing.assert_close(kd, rd, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
 @pytest.mark.parametrize("b,n,k", [(3, 771, 10), (100, 1027, 10),
                                    (5, 4000, 64), (9, 300, 200)])
 def test_flat_topk_kernel_exact_on_integer_ties(cuda_device, codec, b, n, k):
