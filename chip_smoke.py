@@ -24,6 +24,11 @@ Phases (none catches an exception; any failure exits non-zero):
    64- and 256-slot lists (k 40, 200), the ip metric and scalar row loads
    (D 30) on the same rows; each cell's device time split into the kernel
    and everything else (no other kernel runs at k <= 256).
+   ``flash_decode`` runs three cells of the llama3-8b decode geometry (H
+   32, KVH 8, Dh 128): B 8 at S 8192 with ragged lengths, B 8 with every
+   row at 8192, and the served cache (4 slots x 256, live 2-256) with one
+   cache per layer, cycled; each held against its plain version (2e-5)
+   and SDPA, with one launch a call and no other kernel in its trace.
    ``embedding_bag`` runs at MIND's published table
    (1M x 64, fp32 and bf16; configs/mind.py) with bags of L 50 at the
    recsys serve batches 512 and 262,144, ``sum`` and ``mean``, with a
@@ -42,9 +47,10 @@ Phases (none catches an exception; any failure exits non-zero):
    keys must equal a CPU search of the same host graph (plain versions),
    and ``HNSW.exact_query`` on the card must equal it on the CPU.
    At the served cache geometry (slots x max_len, each slot at its own
-   depth) the flash kernel must match its plain version, and one
-   full-width ``decode_step`` must agree between the flash kernel and the
-   dense path. The model is released before phase 4.
+   depth) the flash kernel must match its plain version (and is timed
+   cycling through the model's 32 layer caches), and one full-width
+   ``decode_step`` must agree between the flash kernel and the dense
+   path. The model is released before phase 4.
 4. The flat served path, ``--rag --index flat --index-dtype int8``, with
    the same model shape, corpus and requests: ``distance_topk`` must
    launch once per retrieval search and ``flash_decode`` once per layer
@@ -119,7 +125,14 @@ N_QUERIES, K_GATHER, M2, EF = 1024, 32, 32, 64
 TOPK_K, TOPK_BATCHES = 10, (1, 8, 128)
 TOPK_BIG_K, TOPK_BIG_B = 1000, 8
 CODECS = ("fp32", "bf16", "int8")
-DEC_B, DEC_H, DEC_KVH, DEC_DH, DEC_S = 8, 32, 8, 128, 8192
+DEC_H, DEC_KVH, DEC_DH = 32, 8, 128       # llama3-8b decode geometry
+# flash_decode cells: name -> (B, S, cur_len, caches cycled); "served" is
+# the served cache (4 slots x max_len 256), one cache per layer
+FLASH_CELLS = {
+    "ragged": (8, 8192, [1, 33, 1000, 4097, 5000, 6143, 8191, 8192], 1),
+    "full": (8, 8192, [8192] * 8, 1),
+    "served": (4, 256, [2, 86, 171, 256], 32),
+}
 SYNTHETIC_DOCS = 2000
 # bulk build: (a) integer-valued l2 rows, card == CPU bit for bit; (b)
 # configs/mememo.py build_1m in int8; its query sample held against the
@@ -396,45 +409,87 @@ def phase_kernels(torch) -> dict:
     del nbrs, vec, q, ids, id_sets, vint, qint
     torch.cuda.empty_cache()
 
-    # -- flash_decode ---------------------------------------------------
-    import torch.nn.functional as F
-    qd = torch.randn(DEC_B, DEC_H, DEC_DH, device=dev, generator=gen)
-    kd = torch.randn(DEC_B, DEC_S, DEC_KVH, DEC_DH, device=dev, generator=gen)
-    vd = torch.randn(DEC_B, DEC_S, DEC_KVH, DEC_DH, device=dev, generator=gen)
-    cur = torch.tensor([1, 33, 1000, 4097, 5000, 6143, 8191, DEC_S],
-                       dtype=torch.int32, device=dev)
-    got = ops.flash_decode(qd, kd, vd, cur)
-    want = ref.flash_decode_ref(qd, kd, vd, cur)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    assert err <= 2e-5, f"flash_decode max abs err {err}"
-    mask = (torch.arange(DEC_S, device=dev)[None, :] < cur[:, None])
-    mask = mask[:, None, None, :]                        # [B,1,1,S]
-
-    def sdpa():
-        return F.scaled_dot_product_attention(
-            qd[:, :, None, :], kd.transpose(1, 2), vd.transpose(1, 2),
-            attn_mask=mask, enable_gqa=True)
-
-    lib_err = (sdpa()[:, :, 0] - want).abs().max().item()
-    live = int(cur.sum().item())
-    b_ms, b_by = bound(live * DEC_KVH * DEC_DH * 4 * 2 + qd.numel() * 8
-                       + DEC_B * 4, 4.0 * live * DEC_H * DEC_DH)
-    out["flash_decode"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: ops.flash_decode(qd, kd, vd, cur), 50),
-        plain_ms=time_ms(torch, lambda: ref.flash_decode_ref(qd, kd, vd, cur),
-                         20),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, sdpa, 50), library_max_abs_err=lib_err,
-        shapes=f"B {DEC_B}, H {DEC_H}, KVH {DEC_KVH}, Dh {DEC_DH}, "
-               f"S {DEC_S} f32, cur_len {cur.tolist()}")
-    log("flash_decode " + json.dumps(out["flash_decode"]))
-    del qd, kd, vd
-    torch.cuda.empty_cache()
+    out["flash_decode"] = check_flash_decode(torch, dev, gen)
     out.update(check_distance_topk(torch, dev, gen))
     out.update(check_embedding_bag(torch, dev, gen))
     return out
+
+
+def flash_bound(cur_len: list[int], b: int, h: int, kvh: int,
+                dh: int) -> tuple[float, str]:
+    """Live K and V rows, q and the output once each, cur_len; 4 H Dh
+    flops a live position at the fp32 rate."""
+    live = sum(cur_len)
+    return bound(live * kvh * dh * 4 * 2 + b * h * dh * 8 + b * 4,
+                 4.0 * live * h * dh)
+
+
+def check_flash_decode(torch, dev, gen) -> dict:
+    """``flash_decode`` in three cells of the llama3-8b decode geometry
+    (H 32, KVH 8, Dh 128): B 8 at S 8192 with ragged lengths, B 8 with
+    every row at 8192, and the served cache (slots x max_len, each slot
+    at its own depth) with one cache per layer, the timed calls cycling
+    through the 32 as a decode tick does (one layer's cache fits L2,
+    the tick's do not). Each cell: the kernel against its plain version
+    (2e-5), CUDA-event times of the kernel, the plain version and SDPA,
+    the bound, and a profiler split holding one launch a call and no
+    other kernel. The record is the ragged cell's, with every cell
+    beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    cells = {}
+    for name, (b, s, lens, layers) in FLASH_CELLS.items():
+        cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+        qd = torch.randn(b, DEC_H, DEC_DH, device=dev, generator=gen)
+        kv = [(torch.randn(b, s, DEC_KVH, DEC_DH, device=dev, generator=gen),
+               torch.randn(b, s, DEC_KVH, DEC_DH, device=dev, generator=gen))
+              for _ in range(layers)]
+        mask = (torch.arange(s, device=dev)[None, :]
+                < cur[:, None])[:, None, None, :]          # [B,1,1,S]
+        err = lib_err = 0.0
+        for kd, vd in kv:
+            got = ops.flash_decode(qd, kd, vd, cur)
+            want = ref.flash_decode_ref(qd, kd, vd, cur)
+            lib = F.scaled_dot_product_attention(
+                qd[:, :, None, :], kd.transpose(1, 2), vd.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)[:, :, 0]
+            torch.cuda.synchronize()
+            err = max(err, (got - want).abs().max().item())
+            lib_err = max(lib_err, (lib - want).abs().max().item())
+        assert err <= 2e-5, f"flash_decode {name}: max abs err {err}"
+        turn = itertools.count()
+
+        def cycled(fn):
+            def run():
+                kd, vd = kv[next(turn) % layers]
+                return fn(kd, vd)
+            return run
+
+        kernel = cycled(lambda kd, vd: ops.flash_decode(qd, kd, vd, cur))
+        split = device_split(torch, kernel, "flash_decode",
+                             reps=max(8, layers))
+        assert split["kernel_launches_traced"] <= 1 and \
+            split["other_device_ms"] == 0, f"flash_decode {name}: {split}"
+        b_ms, b_by = flash_bound(lens, b, DEC_H, DEC_KVH, DEC_DH)
+        cells[name] = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, kernel, max(50, layers)),
+            plain_ms=time_ms(torch, cycled(
+                lambda kd, vd: ref.flash_decode_ref(qd, kd, vd, cur)), 20),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(torch, cycled(
+                lambda kd, vd: F.scaled_dot_product_attention(
+                    qd[:, :, None, :], kd.transpose(1, 2),
+                    vd.transpose(1, 2), attn_mask=mask, enable_gqa=True)),
+                50),
+            library_max_abs_err=lib_err, **split,
+            shapes=f"B {b}, H {DEC_H}, KVH {DEC_KVH}, Dh {DEC_DH}, S {s} "
+                   f"f32, cur_len {lens}, {layers} cache(s) cycled")
+        log(f"flash_decode {name} " + json.dumps(cells[name]))
+        del kv, qd
+        torch.cuda.empty_cache()
+    return dict(cells["ragged"], cells=cells)
 
 
 def check_embedding_bag(torch, dev, gen) -> dict:
@@ -965,9 +1020,10 @@ def phase_serve(torch) -> dict:
         f"recall@3 against it {recall:.4f}")
 
     # flash_decode at the geometry the served run gave it (slots x max_len
-    # cache, each slot at its own depth, so the same split + merge layout):
-    # the kernel against its plain version on one layer's prefilled cache,
-    # then one full-width decode_step, flash kernel vs the dense path
+    # cache, each slot at its own depth): the kernel against its plain
+    # version on one layer's prefilled cache, its time cycling through the
+    # model's layer caches as a tick does, then one full-width
+    # decode_step, flash kernel vs the dense path
     model = eng.model
     gen = torch.Generator(device="cuda").manual_seed(1)
     toks = torch.randint(0, cfg.vocab, (args.slots, args.max_len - 1),
@@ -976,8 +1032,6 @@ def phase_serve(torch) -> dict:
                          for i in range(args.slots)], dtype=torch.int32,
                         device="cuda")
     _, cache = tf.prefill(model, toks, max_len=args.max_len, prompt_lens=lens)
-    splits, chunk = ops._flash_splits(args.slots * cfg.n_kv_heads,
-                                      args.max_len, torch.device("cuda"))
     qf = torch.randn(args.slots, cfg.n_heads, cfg.dh, device="cuda",
                      generator=gen)
     got = ops.flash_decode(qf, cache.k[0], cache.v[0], lens + 1)
@@ -985,6 +1039,22 @@ def phase_serve(torch) -> dict:
     torch.cuda.synchronize()
     ferr = (got - want).abs().max().item()
     assert ferr <= 2e-5, f"flash_decode at the served shape: err {ferr}"
+    live = lens + 1
+    layer = itertools.count()
+
+    def flash_tick(fn):
+        def run():
+            li = next(layer) % cfg.n_layers
+            return fn(qf, cache.k[li], cache.v[li], live)
+        return run
+
+    flash_ms = time_ms(torch, flash_tick(ops.flash_decode), 4 * cfg.n_layers)
+    flash_split = device_split(torch, flash_tick(ops.flash_decode),
+                               "flash_decode", reps=cfg.n_layers)
+    assert flash_split["kernel_launches_traced"] <= 1 and \
+        flash_split["other_device_ms"] == 0, flash_split
+    flash_plain_ms = time_ms(torch, flash_tick(ref.flash_decode_ref),
+                             cfg.n_layers)
     nxt = toks[torch.arange(args.slots, device="cuda"), lens.long() - 1]
     logits = {}
     for impl in ("flash", "dense"):
@@ -997,8 +1067,11 @@ def phase_serve(torch) -> dict:
     torch.testing.assert_close(lf, ld, rtol=1e-3, atol=1e-3)
     assert bool((lf.argmax(-1) == ld.argmax(-1)).all())
     serve_out["flash_at_served_shape"] = dict(
-        cache=f"{args.slots} x {args.max_len}", live=(lens + 1).tolist(),
-        splits=splits, chunk=chunk, kernel_vs_plain_max_abs_err=ferr,
+        cache=f"{args.slots} x {args.max_len}", live=live.tolist(),
+        kernel_vs_plain_max_abs_err=ferr, ms=flash_ms, **flash_split,
+        plain_ms=flash_plain_ms,
+        bound_ms=flash_bound(live.tolist(), args.slots, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.dh)[0],
         decode_step_flash_vs_dense_max_abs_diff=(lf - ld).abs().max().item())
     log("flash_decode at the served shape, kernel vs plain and decode_step "
         "flash vs dense (argmax equal) "
@@ -1578,6 +1651,9 @@ def profile_decode(torch, model, cfg, args) -> dict:
         decode_top_ops_ms={k: v / steps for k, v in top},
         decode_flash_ms=sum(r.self_device_time_total for r in rows
                             if "flash_decode" in r.key) / 1e3 / steps,
+        decode_flash_launches=sum(
+            r.count for r in rows if "flash_decode" in r.key and
+            r.device_type == torch.autograd.DeviceType.CUDA) / steps,
         shapes=f"slots {args.slots}, prompt 128, max_len {args.max_len}")
     out["decode_idle_share"] = 1.0 - out["decode_device_busy_ms"] / max(
         out["decode_wall_ms"], 1e-9)

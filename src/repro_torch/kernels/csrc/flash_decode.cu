@@ -1,38 +1,74 @@
 // One-token GQA decode attention with an online softmax, fp32, for NVIDIA
-// Hopper (sm_90a).
+// Hopper (sm_90a), in one launch: the split over the cache and the merge
+// of its partials.
 //
 // Replaces the TPU kernel repro/kernels/flash_decode.py
 // (flash_decode_pallas / _kernel): out[b, h] = softmax(q[b, h] . K[b]^T
 // * Dh^-0.5, masked at positions >= cur_len[b]) . V[b], with query head h
 // reading KV head h / G (G = H / KVH query heads per KV head, the
 // q.reshape(b, kvh, g, dh) grouping of the plain version,
-// repro_torch/kernels/ref.py:flash_decode_ref).
+// repro_torch/kernels/ref.py:flash_decode_ref). cur_len is clamped to
+// [0, S]; a row at 0 gets zeros, as the TPU kernel writes (the plain
+// version averages V there; the decode path never passes 0).
 //
 // What bounds it on this card: bytes. Every live cache position is read
-// once (K and V rows of Dh floats) for about 4*G*Dh flops, a few flops per
-// byte. The TPU kernel walked S tiles as a sequential grid dimension with
-// (m, l, acc) carried in scratch. Blocks here run in parallel and in no
-// order, so the sequence is split instead (flash-decoding): block
-// (b, kv head, split) walks the tiles of its own slice of the sequence,
-// the G query heads of the group sharing every K/V row it loads, and
-// writes its partial (m, l, acc); a second kernel merges the splits of
-// each (b, head). The wrapper picks the split count so that B * KVH *
-// splits fills the card (B * KVH alone is 32-64 blocks on the decode
-// path, a quarter of the 132 SMs). Per tile of kTile positions a block
-//   1. stages the K and V rows in shared memory with coalesced loads (the
-//      K tile is padded to Dh + 1 floats a row, so the score loop's
-//      column reads hit distinct banks);
-//   2. computes the G x kTile scores;
-//   3. updates the running max m and sum l per head (one warp per head)
-//      and turns the scores into p = exp(s - m);
-//   4. rescales acc by exp(m_old - m) and adds p . V, one thread per
-//      (head, column).
-// Only tiles below cur_len[b] are visited, so the masked tail of the
-// cache is never read: its softmax weight is exactly zero in the plain
-// version too; a split wholly past cur_len[b] reports (m, l) = (-1e30, 0)
-// and weighs nothing in the merge. (At cur_len = 0 this kernel writes
-// zeros where the plain version averages V uniformly; the decode path never
-// passes 0.)
+// once (a K and a V row of Dh floats per KV head) for 4 G Dh flops, about
+// one flop per byte at G 4: the tensor cores would add nothing, so the
+// products run on the CUDA cores and the design keeps bytes in flight.
+//
+// Streams and units. A stream is one (KV head, head group of gb query
+// heads) of a row; a unit is a tile of T live positions of one row for
+// SB consecutive streams, whose KV heads are adjacent in the cache, so a
+// unit's K (and V) rows are T runs of KW * Dh contiguous floats (4 KB for
+// llama3-8b: all 8 KV heads). Units of one KV head, whose 512-byte rows
+// lie 4 KB apart, held the same ring to about half the rate on the H100.
+//
+// Work split by live length (stream-K). Units are ordered (b, stream
+// block, tile), and only tiles below cur_len[b] exist, so masked capacity
+// is neither launched nor read. The grid is one block per SM (the
+// wrapper's choice); every block reads cur_len[0:B] itself, builds the
+// tile prefix over the rows in shared memory, and takes an equal
+// contiguous share of the units (at least kMinTiles), so a long row is cut
+// across many SMs and short rows share one. No host sync plans it.
+//
+// K/V through an asynchronous ring. One producer warp walks the block's
+// units and copies each unit's K and V runs (one cp.async.bulk per
+// position and tensor, lanes 0-15 the K runs and 16-31 the V runs) into
+// a ring stage, completion counted by the stage's "full" mbarrier
+// (expect_tx). T is the largest power of two <= 16 for which three
+// stages fit in 200 KB, and the ring takes as many stages as fit there,
+// up to 16: at llama3-8b's 4 KB runs, T 8 and three 64 KB stages, 192 KB.
+// By Little's law the card needs ~25 KB in flight per SM to sustain 3.35
+// TB/s at ~1 us of latency; the consumers use a stage in a small part of
+// its arrival time, so two stages or more stay in flight. A cache whose
+// rows are not a whole number of 16 bytes (Dh % 4 != 0) or that is
+// misaligned takes the generic instance: the producer copies element by
+// element and its 32 lanes arrive on the barrier.
+//
+// State in registers. Each consumer warp owns one stream of the unit
+// (SB of them) and a share of its positions (WP = 8 / SB warps a
+// stream, chunks taken round robin); every consumer warp waits on every
+// stage's full barrier and arrives on its "empty" barrier: no block-wide
+// barrier in the position loop. A lane holds q (pre-scaled) and the
+// running sum acc of the stream's heads for its dims (float4 columns
+// lane, lane + 32, ...), so a K or V row is one coalesced float4 read
+// from shared memory. Per chunk of 32 / gb positions the gb x positions
+// partial dot products are reduced by a butterfly reduce-scatter (31
+// shuffles for 32 sums), the lane holding (position, head) applies the
+// mask and the online softmax (running max m, its share of the sum l),
+// and the probabilities are shuffled back for p . V. The warp's (m, l,
+// acc) stay in registers for as long as its units stay in one segment.
+//
+// Merge in the same launch. When a warp leaves a row it writes its
+// partial (m, l, acc) to scratch (slot (block + segment) * warps + warp,
+// a segment being a row's units of one stream block: the blocks touching
+// a segment and the segments a block touches form a staircase, so block
+// + segment is unique per pair) and takes a ticket on its stream's
+// counter; the last of the stream's partials merges them through L2 (out
+// = sum_k e^(m_k - M) acc_k / sum_k e^(m_k - M) l_k, M = max m_k) and sets
+// the counter back to 0 for the next launch. A stream taken by one warp
+// alone is written out directly. Every block derives the count of a
+// stream's partials from cur_len alone, so no block waits for another.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes.
 #include <cuda_runtime.h>
@@ -40,154 +76,584 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 32;
+constexpr int kMaxTile = 16;         // positions of a unit at most
+constexpr int kMinTiles = 2;         // units a block takes at least
+constexpr int kMaxStages = 16;
+constexpr int kRingBytes = 200 * 1024;
+constexpr int kHead = 16;            // floats before a partial's acc
+constexpr int kMaxGB = 8;            // heads of a stream (m[8], l[8])
+constexpr float kNeg = -1e30f;       // the plain version's mask value
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const float* __restrict__ q,        // [B, H, Dh]
-                    const float* __restrict__ k,        // [B, S, KVH, Dh]
-                    const float* __restrict__ v,        // [B, S, KVH, Dh]
-                    const int32_t* __restrict__ cur_len,  // [B]
-                    float* __restrict__ part_acc,  // [B, H, splits, Dh]
-                    float* __restrict__ part_ml,   // [B, H, splits, 2]
-                    int H, int S, int KVH, int Dh, int chunk, float scale) {
-  const int b = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int split = blockIdx.z;
-  const int splits = gridDim.z;
-  const int G = H / KVH;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+struct Args {
+  const float* q;                    // [B, H, Dh]
+  const float* k;                    // [B, S, KVH, Dh]
+  const float* v;
+  const int32_t* cur_len;            // [B]
+  float* out;                        // [B, H, Dh]
+  float* part;                       // [(grid + segments) * warps][kHead + gb Dh]
+  int32_t* tickets;                  // [B * KVH * NG streams], zero between launches
+  int B, H, S, KVH, Dh, G, NG;
+  int T;                             // positions of a unit
+  int SB;                            // streams of a unit
+  int KW;                            // KV heads a unit reads
+  int WP;                            // warps of a stream
+  int stages;
+  float scale;
+};
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                       // [G][Dh], pre-scaled
-  float* acc_s = q_s + G * Dh;             // [G][Dh]
-  float* k_s = acc_s + G * Dh;             // [kTile][Dh + 1]
-  float* v_s = k_s + kTile * (Dh + 1);     // [kTile][Dh]
-  float* p_s = v_s + kTile * Dh;           // [G][kTile]
-  float* m_s = p_s + G * kTile;            // [G]
-  float* l_s = m_s + G;                    // [G]
-  float* alpha_s = l_s + G;                // [G]
-
-  int len = cur_len[b];
-  len = len < 0 ? 0 : (len > S ? S : len);
-  const int t_begin = split * chunk;           // this split's positions
-  const int t_end = min(len, t_begin + chunk);
-
-  for (int i = tid; i < G * Dh; i += blockDim.x) {
-    const int g = i / Dh, d = i - (i / Dh) * Dh;
-    q_s[i] = q[((size_t)b * H + (size_t)kh * G + g) * Dh + d] * scale;
-    acc_s[i] = 0.f;
+// ---------------------------------------------------------------------------
+// mbarrier and bulk-copy primitives
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// Wait for the phase of the given parity to complete. A wait that never
+// completes (a fault in the pipeline's bookkeeping) traps after ~2^26
+// tries, seconds, so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (tries == (1u << 26)) __trap();
   }
-  for (int g = tid; g < G; g += blockDim.x) {
-    m_s[g] = -1e30f;
-    l_s[g] = 0.f;
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory, counted on bar's transaction count
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes),
+                  "r"(smem_u32(bar)) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// the unit space: tiles of T live positions, ordered (b, stream block,
+// tile); a segment is one row's units of one stream block
+// ---------------------------------------------------------------------------
+struct Plan {
+  const int* pre;                    // [B + 1] tile prefix over rows (smem)
+  int SBN;                           // stream blocks a row
+  long long U;                       // units
+  int n;                             // blocks that take units
+
+  __device__ int tiles(int b) const { return pre[b + 1] - pre[b]; }
+  __device__ long long share(int i) const {
+    return static_cast<long long>(i) * U / n;
   }
-  __syncthreads();
+  __device__ long long segment_begin(int seg) const {
+    const int b = seg / SBN, sb = seg - b * SBN;
+    return static_cast<long long>(SBN) * pre[b] +
+           static_cast<long long>(sb) * tiles(b);
+  }
+  // the blocks whose shares meet units [g0, g1)
+  __device__ int first_block(long long g0) const {
+    return static_cast<int>(((g0 + 1) * n - 1) / U);
+  }
+  __device__ int last_block(long long g1) const {
+    return static_cast<int>((g1 * n - 1) / U);
+  }
+};
 
-  const size_t pos_stride = (size_t)KVH * Dh;  // floats between positions
-  const float* kb = k + (size_t)b * S * pos_stride + (size_t)kh * Dh;
-  const float* vb = v + (size_t)b * S * pos_stride + (size_t)kh * Dh;
+// A walk over the units: row b, stream block sb, tile of the segment.
+struct Cursor {
+  int b, sb, tile, tiles;
 
-  for (int t0 = t_begin; t0 < t_end; t0 += kTile) {
-    const int n = min(kTile, t_end - t0);
-    // 1. stage the tile's K and V rows
-    for (int i = tid; i < n * Dh; i += blockDim.x) {
-      const int t = i / Dh, d = i - (i / Dh) * Dh;
-      const size_t off = (size_t)(t0 + t) * pos_stride + d;
-      k_s[t * (Dh + 1) + d] = __ldg(kb + off);
-      v_s[t * Dh + d] = __ldg(vb + off);
-    }
-    __syncthreads();
-    // 2. scores of the G heads against the n live positions
-    for (int i = tid; i < G * kTile; i += blockDim.x) {
-      const int g = i / kTile, t = i - (i / kTile) * kTile;
-      float s = -1e30f;
-      if (t < n) {
-        const float* qg = q_s + g * Dh;
-        const float* kt = k_s + t * (Dh + 1);
-        float a = 0.f;
-        for (int d = 0; d < Dh; ++d) a = fmaf(qg[d], kt[d], a);
-        s = a;
-      }
-      p_s[i] = s;
-    }
-    __syncthreads();
-    // 3. online-softmax statistics, one warp per head
-    for (int g = warp; g < G; g += nwarps) {
-      float mx = -1e30f;
-      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, p_s[g * kTile + t]);
+  __device__ void seek(const Plan& pl, long long u) {
+    b = 0;
+    while (static_cast<long long>(pl.SBN) * pl.pre[b + 1] <= u) ++b;
+    tiles = pl.tiles(b);
+    const long long off = u - static_cast<long long>(pl.SBN) * pl.pre[b];
+    sb = static_cast<int>(off / tiles);
+    tile = static_cast<int>(off - static_cast<long long>(sb) * tiles);
+  }
+  // to the next unit (which must exist)
+  __device__ void next(const Plan& pl) {
+    if (++tile < tiles) return;
+    tile = 0;
+    if (++sb < pl.SBN && tiles > 0) return;
+    sb = 0;
+    for (++b; (tiles = pl.tiles(b)) == 0; ++b) {}
+  }
+  __device__ int segment(const Plan& pl) const { return b * pl.SBN + sb; }
+};
+
+// ---------------------------------------------------------------------------
+// a lane's dims: NC columns of W floats, column c at (c * 32 + lane) * W
+// ---------------------------------------------------------------------------
+template <int NC, int W>
+__device__ __forceinline__ void load_dims(const float* row, int lane, int Dh,
+                                          bool live, float (&x)[NC * W]) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      }
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < kTile; t += 32) {
-        const float p = t < n ? expf(p_s[g * kTile + t] - m_new) : 0.f;
-        p_s[g * kTile + t] = p;
-        sum += p;
-      }
+  for (int c = 0; c < NC; ++c) {
+    const int d = (c * 32 + lane) * W;
+    if constexpr (W == 4) {
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live && d < Dh) f = *reinterpret_cast<const float4*>(row + d);
+      x[c * 4] = f.x; x[c * 4 + 1] = f.y; x[c * 4 + 2] = f.z; x[c * 4 + 3] = f.w;
+    } else {
+      x[c] = (live && d < Dh) ? row[d] : 0.f;
+    }
+  }
+}
+// the same from global memory written by other blocks (through L2)
+template <int NC, int W>
+__device__ __forceinline__ void load_dims_cg(const float* row, int lane,
+                                             int Dh, float (&x)[NC * W]) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      }
-      if (lane == 0) {
-        // first tile: m_old = -1e30 and exp underflows to exactly 0
-        const float alpha = expf(m_old - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
+  for (int c = 0; c < NC; ++c) {
+    const int d = (c * 32 + lane) * W;
+    if constexpr (W == 4) {
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (d < Dh) f = __ldcg(reinterpret_cast<const float4*>(row + d));
+      x[c * 4] = f.x; x[c * 4 + 1] = f.y; x[c * 4 + 2] = f.z; x[c * 4 + 3] = f.w;
+    } else {
+      x[c] = d < Dh ? __ldcg(row + d) : 0.f;
     }
-    __syncthreads();
-    // 4. acc = acc * alpha + p . V
-    for (int i = tid; i < G * Dh; i += blockDim.x) {
-      const int g = i / Dh, d = i - (i / Dh) * Dh;
-      const float* pg = p_s + g * kTile;
-      float a = acc_s[i] * alpha_s[g];
-      for (int t = 0; t < n; ++t) a = fmaf(pg[t], v_s[t * Dh + d], a);
-      acc_s[i] = a;
+  }
+}
+template <int NC, int W>
+__device__ __forceinline__ void store_dims(float* row, int lane, int Dh,
+                                           const float (&x)[NC * W],
+                                           float mul) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int d = (c * 32 + lane) * W;
+    if (d >= Dh) continue;
+    if constexpr (W == 4) {
+      *reinterpret_cast<float4*>(row + d) =
+          make_float4(x[c * 4] * mul, x[c * 4 + 1] * mul, x[c * 4 + 2] * mul,
+                      x[c * 4 + 3] * mul);
+    } else {
+      row[d] = x[c] * mul;
     }
-    __syncthreads();
-  }
-
-  // this split's partial: unnormalised acc and its (m, l)
-  for (int i = tid; i < G * Dh; i += blockDim.x) {
-    const int g = i / Dh, d = i - (i / Dh) * Dh;
-    const size_t row = ((size_t)b * H + (size_t)kh * G + g) * splits + split;
-    part_acc[row * Dh + d] = acc_s[i];
-  }
-  for (int g = tid; g < G; g += blockDim.x) {
-    const size_t row = ((size_t)b * H + (size_t)kh * G + g) * splits + split;
-    part_ml[row * 2] = m_s[g];
-    part_ml[row * 2 + 1] = l_s[g];
   }
 }
 
-// Merge the splits of one (b, head): out = sum_s w_s acc_s / sum_s w_s l_s
-// with w_s = exp(m_s - max_s m_s). One block per (b, head), one thread per
-// column.
-__global__ void flash_decode_merge_kernel(const float* __restrict__ part_acc,
-                                          const float* __restrict__ part_ml,
-                                          float* __restrict__ out,
-                                          int splits, int Dh) {
-  const size_t bh = blockIdx.x;
-  const float* ml = part_ml + bh * splits * 2;
-  float m = -1e30f;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, ml[s * 2]);
-  for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
-    float num = 0.f, den = 0.f;
-    for (int s = 0; s < splits; ++s) {
-      const float w = expf(ml[s * 2] - m);
-      num = fmaf(w, part_acc[(bh * splits + s) * Dh + d], num);
-      den = fmaf(w, ml[s * 2 + 1], den);
+// The sum over the warp of P partial sums a lane holds (P a power of two
+// <= 32): a butterfly reduce-scatter, then an all-reduce across the 32 / P
+// lane blocks. Lane l ends with the total of v[l % P].
+template <int O, int P>
+struct ReduceScatter {
+  __device__ __forceinline__ static void step(float (&v)[P], int lane) {
+    const bool up = lane & O;
+#pragma unroll
+    for (int i = 0; i < O; ++i) {
+      const float send = up ? v[i] : v[i + O];
+      const float keep = up ? v[i + O] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, O);
     }
-    out[bh * Dh + d] = num / fmaxf(den, 1e-30f);
+    ReduceScatter<O / 2, P>::step(v, lane);
   }
+};
+template <int P>
+struct ReduceScatter<0, P> {
+  __device__ __forceinline__ static void step(float (&)[P], int) {}
+};
+template <int P>
+__device__ __forceinline__ float reduce_scatter(float (&v)[P], int lane) {
+  ReduceScatter<P / 2, P>::step(v, lane);
+  float s = v[0];
+#pragma unroll
+  for (int o = P; o < 32; o <<= 1) s += __shfl_xor_sync(kFull, s, o);
+  return s;
+}
+
+// ---------------------------------------------------------------------------
+// the producer warp
+// ---------------------------------------------------------------------------
+template <int W>
+__device__ void produce(const Args& a, const Plan& pl, const int* lens,
+                        long long u0, long long units, float* ring,
+                        uint64_t* full, uint64_t* empty, int lane) {
+  const size_t pos = static_cast<size_t>(a.KVH) * a.Dh;   // floats a position
+  const int run = a.KW * a.Dh;                            // floats a unit row
+  const int stage = 2 * a.T * run;
+  Cursor c;
+  c.seek(pl, u0);
+  for (long long j = 0; j < units; ++j) {
+    const int s = static_cast<int>(j % a.stages);
+    if (j >= a.stages) {
+      mbar_wait(empty + s, static_cast<uint32_t>((j / a.stages - 1) & 1));
+    }
+    const int t0 = c.tile * a.T;
+    const int n = min(a.T, lens[c.b] - t0);
+    const size_t off = (static_cast<size_t>(c.b) * a.S + t0) * pos +
+                       static_cast<size_t>(c.sb * a.SB / a.NG) * a.Dh;
+    float* ks = ring + static_cast<size_t>(s) * stage;
+    float* vs = ks + a.T * run;
+    if constexpr (W == 4) {
+      if (lane == 0) {
+        mbar_arrive_tx(full + s, static_cast<uint32_t>(2 * n * run * 4));
+      }
+      __syncwarp();
+      const int t = lane & (kMaxTile - 1);
+      if (t < n) {
+        const bool is_v = lane >= kMaxTile;
+        bulk_copy((is_v ? vs : ks) + t * run,
+                  (is_v ? a.v : a.k) + off + t * pos,
+                  static_cast<uint32_t>(run * 4), full + s);
+      }
+    } else {
+      for (int e = lane; e < n * run; e += 32) {
+        const int t = e / run, d = e - t * run;
+        ks[e] = __ldg(a.k + off + t * pos + d);
+        vs[e] = __ldg(a.v + off + t * pos + d);
+      }
+      mbar_arrive(full + s);
+    }
+    if (j + 1 < units) c.next(pl);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the consumer warps
+// ---------------------------------------------------------------------------
+template <int GB, int NC, int W>
+struct Warp {
+  static constexpr int E = NC * W;                   // floats of a head a lane
+  static constexpr int P = kMaxTile * GB < 32 ? kMaxTile * GB : 32;
+  static constexpr int TC = P / GB;                  // positions a chunk
+  // partials merged at once: their loads in flight together
+  static constexpr int MB = GB * E >= 64 ? 1 : 64 / (GB * E);
+  float q[GB][E];
+  float acc[GB][E];
+  float m, l;                        // head lane % GB: running max, sum share
+
+  // heads h0 .. h0 + heads - 1 of row b (the rest of the GB are padding)
+  __device__ void start(const Args& a, int b, int h0, int heads, int lane) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      load_dims<NC, W>(a.q + (static_cast<size_t>(b) * a.H + h0 + g) * a.Dh,
+                       lane, a.Dh, g < heads, q[g]);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        q[g][e] *= a.scale;
+        acc[g][e] = 0.f;
+      }
+    }
+    m = kNeg;
+    l = 0.f;
+  }
+
+  // positions [c0, c0 + TC) of a stage holding n live rows, K row t at
+  // ks + t * rs
+  __device__ void chunk(const float* ks, const float* vs, int rs, int c0,
+                        int n, int heads, int Dh, int lane) {
+    float part[P];
+#pragma unroll
+    for (int t = 0; t < TC; ++t) {
+      float x[E];
+      load_dims<NC, W>(ks + (c0 + t) * rs, lane, Dh, c0 + t < n, x);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) d = fmaf(q[g][e], x[e], d);
+        part[t * GB + g] = d;
+      }
+    }
+    float s = reduce_scatter<P>(part, lane);
+    const int vi = lane % P, vt = vi / GB, vg = vi % GB;
+    const bool ok = c0 + vt < n && vg < heads;
+    s = ok ? s : kNeg;
+    float cm = s;
+#pragma unroll
+    for (int o = GB; o < P; o <<= 1) cm = fmaxf(cm, __shfl_xor_sync(kFull, cm, o));
+    const float m_new = fmaxf(m, cm);
+    const float alpha = expf(m - m_new);   // 0 on a head's first live chunk
+    const float pr = ok ? expf(s - m_new) : 0.f;
+    l = l * alpha + pr;
+    m = m_new;
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      const float al = __shfl_sync(kFull, alpha, g);
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= al;
+    }
+#pragma unroll
+    for (int t = 0; t < TC; ++t) {
+      if (c0 + t >= n) break;
+      float x[E];
+      load_dims<NC, W>(vs + (c0 + t) * rs, lane, Dh, true, x);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        const float pg = __shfl_sync(kFull, pr, t * GB + g);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(pg, x[e], acc[g][e]);
+      }
+    }
+  }
+
+  // leave segment seg, where this warp took stream (sl of the block, its
+  // ps-th warp): write the stream's output, or a partial and take a
+  // ticket; the stream's last partial merges them all
+  __device__ void flush(const Args& a, const Plan& pl, int seg, int sl,
+                        int ps, int lane) {
+    const int nw = a.SB * a.WP;
+#pragma unroll
+    for (int o = GB; o < P; o <<= 1) l += __shfl_xor_sync(kFull, l, o);
+    const int b = seg / pl.SBN, str = (seg - b * pl.SBN) * a.SB + sl;
+    const int kh = str / a.NG, hg = str - kh * a.NG;
+    const int heads = min(GB, a.G - hg * GB);
+    const size_t out0 = (static_cast<size_t>(b) * a.H + kh * a.G + hg * GB) *
+                        a.Dh;
+    const long long g0 = pl.segment_begin(seg);
+    const int first = pl.first_block(g0);
+    const int count = (pl.last_block(g0 + pl.tiles(b)) - first + 1) * a.WP;
+    if (count == 1) {
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        const float lg = __shfl_sync(kFull, l, g);
+        if (g < heads) store_dims<NC, W>(a.out + out0 + g * a.Dh, lane, a.Dh,
+                                         acc[g], 1.f / lg);
+      }
+      return;
+    }
+    const int slot_floats = kHead + GB * a.Dh;
+    float* mine = a.part + static_cast<size_t>(
+        (blockIdx.x + seg) * nw + sl + a.SB * ps) * slot_floats;
+    if (lane < GB) {
+      mine[lane] = m;
+      mine[kMaxGB + lane] = l;
+    }
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      store_dims<NC, W>(mine + kHead + g * a.Dh, lane, a.Dh, acc[g], 1.f);
+    }
+    __threadfence();
+    __syncwarp();
+    const int p = b * a.KVH * a.NG + str;
+    int last = 0;
+    if (lane == 0) last = atomicAdd(a.tickets + p, 1) == count - 1;
+    if (!__shfl_sync(kFull, last, 0)) return;
+    __threadfence();
+
+    // partial k of the stream: block first + k / WP, its warp
+    // sl + SB * (k % WP). The stream's M per head, then
+    // sum_k e^(m_k - M) (acc_k, l_k): lane k of a round of 32 finds
+    // partial k's slot and weights, which are shuffled to all
+    auto slot_of = [&](int k) {
+      return (first + k / a.WP + seg) * nw + sl + a.SB * (k % a.WP);
+    };
+    float mx[GB];
+#pragma unroll
+    for (int g = 0; g < GB; ++g) mx[g] = kNeg;
+    for (int k0 = 0; k0 < count; k0 += 32) {
+      if (k0 + lane < count) {
+        const float* h =
+            a.part + static_cast<size_t>(slot_of(k0 + lane)) * slot_floats;
+#pragma unroll
+        for (int g = 0; g < GB; ++g) mx[g] = fmaxf(mx[g], __ldcg(h + g));
+      }
+    }
+    float den[GB];
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        mx[g] = fmaxf(mx[g], __shfl_xor_sync(kFull, mx[g], o));
+      }
+      den[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+    }
+    for (int k0 = 0; k0 < count; k0 += 32) {
+      int sk = 0;
+      float w[GB];
+#pragma unroll
+      for (int g = 0; g < GB; ++g) w[g] = 0.f;
+      if (k0 + lane < count) {
+        sk = slot_of(k0 + lane);
+        const float* h = a.part + static_cast<size_t>(sk) * slot_floats;
+#pragma unroll
+        for (int g = 0; g < GB; ++g) {
+          w[g] = expf(__ldcg(h + g) - mx[g]);
+          den[g] = fmaf(w[g], __ldcg(h + kMaxGB + g), den[g]);
+        }
+      }
+      const int m32 = min(32, count - k0);
+      for (int u0 = 0; u0 < m32; u0 += MB) {
+        float x[MB][GB][E];
+#pragma unroll
+        for (int u = 0; u < MB; ++u) {
+          const int su = __shfl_sync(kFull, sk, u0 + u);
+          const float* src =
+              a.part + static_cast<size_t>(su) * slot_floats + kHead;
+#pragma unroll
+          for (int g = 0; g < GB; ++g) {
+            if (u0 + u < m32) {
+              load_dims_cg<NC, W>(src + g * a.Dh, lane, a.Dh, x[u][g]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < E; ++e) x[u][g][e] = 0.f;
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < MB; ++u) {
+#pragma unroll
+          for (int g = 0; g < GB; ++g) {
+            const float wg = __shfl_sync(kFull, w[g], u0 + u);
+#pragma unroll
+            for (int e = 0; e < E; ++e) acc[g][e] = fmaf(wg, x[u][g][e], acc[g][e]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) den[g] += __shfl_xor_sync(kFull, den[g], o);
+      if (g < heads) store_dims<NC, W>(a.out + out0 + g * a.Dh, lane, a.Dh,
+                                       acc[g], 1.f / den[g]);
+    }
+    if (lane == 0) a.tickets[p] = 0;
+  }
+};
+
+// Consumer warp w takes stream sl = w % SB of every unit of the block's
+// share, and of each unit's positions the chunks ps, ps + WP, ...
+// (ps = w / SB).
+template <int GB, int NC, int W>
+__device__ void consume(const Args& a, const Plan& pl, const int* lens,
+                        long long u0, long long units, const float* ring,
+                        uint64_t* full, uint64_t* empty, int warp,
+                        int lane) {
+  constexpr int TC = Warp<GB, NC, W>::TC;
+  const int sl = warp % a.SB, ps = warp / a.SB;
+  const int run = a.KW * a.Dh;
+  const int stage = 2 * a.T * run;
+  Warp<GB, NC, W> st;
+  Cursor c;
+  c.seek(pl, u0);
+  int cur = -1, heads = 0, col = 0;
+  for (long long j = 0; j < units; ++j) {
+    const int seg = c.segment(pl);
+    if (seg != cur) {
+      if (cur >= 0) st.flush(a, pl, cur, sl, ps, lane);
+      cur = seg;
+      const int str = c.sb * a.SB + sl;
+      const int kh = str / a.NG, hg = str - kh * a.NG;
+      heads = min(GB, a.G - hg * GB);
+      col = (kh - c.sb * a.SB / a.NG) * a.Dh;    // the KV head in the run
+      st.start(a, c.b, kh * a.G + hg * GB, heads, lane);
+    }
+    const int s = static_cast<int>(j % a.stages);
+    const int n = min(a.T, lens[c.b] - c.tile * a.T);
+    mbar_wait(full + s, static_cast<uint32_t>((j / a.stages) & 1));
+    const float* ks = ring + static_cast<size_t>(s) * stage + col;
+    const float* vs = ks + a.T * run;
+#pragma unroll 1
+    for (int c0 = ps * TC; c0 < n; c0 += a.WP * TC) {
+      st.chunk(ks, vs, run, c0, n, heads, a.Dh, lane);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+    if (j + 1 < units) c.next(pl);
+  }
+  st.flush(a, pl, cur, sl, ps, lane);
+}
+
+template <int GB, int NC, int W>
+__global__ void __launch_bounds__(288, 1) flash_decode_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      ring + static_cast<size_t>(a.stages) * 2 * a.T * a.KW * a.Dh);
+  uint64_t* empty = full + a.stages;
+  int* lens = reinterpret_cast<int*>(empty + a.stages);   // [B]
+  int* pre = lens + a.B;                                  // [B + 1]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = a.SB * a.WP;                             // consumer warps
+
+  // live lengths and the tile prefix over the rows
+  if (warp == 0) {
+    int carry = 0;
+    for (int b0 = 0; b0 < a.B; b0 += 32) {
+      const int b = b0 + lane;
+      int t = 0;
+      if (b < a.B) {
+        const int len = min(max(a.cur_len[b], 0), a.S);
+        lens[b] = len;
+        t = (len + a.T - 1) / a.T;
+      }
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, t, o);
+        if (lane >= o) t += y;
+      }
+      if (b < a.B) pre[b + 1] = carry + t;
+      carry += __shfl_sync(kFull, t, 31);
+    }
+    if (lane == 0) pre[0] = 0;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + s, W == 4 ? 1 : 32);
+      mbar_init(empty + s, nw);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // rows with nothing live get zeros
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    if (lens[b] != 0) continue;
+    for (int i = threadIdx.x; i < a.H * a.Dh; i += blockDim.x) {
+      a.out[static_cast<size_t>(b) * a.H * a.Dh + i] = 0.f;
+    }
+  }
+  Plan pl;
+  pl.pre = pre;
+  pl.SBN = a.KVH * a.NG / a.SB;
+  pl.U = static_cast<long long>(pl.SBN) * pre[a.B];
+  pl.n = static_cast<int>(
+      min(static_cast<long long>(gridDim.x), (pl.U + kMinTiles - 1) / kMinTiles));
+  if (static_cast<int>(blockIdx.x) >= pl.n) return;
+  const long long u0 = pl.share(blockIdx.x);
+  const long long units = pl.share(blockIdx.x + 1) - u0;
+  if (warp == nw) {
+    produce<W>(a, pl, lens, u0, units, ring, full, empty, lane);
+  } else {
+    consume<GB, NC, W>(a, pl, lens, u0, units, ring, full, empty, warp,
+                       lane);
+  }
+}
+
+template <int GB, int NC, int W>
+cudaError_t launch(const Args& a, int grid, int threads, size_t smem,
+                   cudaStream_t st) {
+  auto kern = flash_decode_kernel<GB, NC, W>;
+  static bool raised[64] = {};       // the shared-memory limit, per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64 || !raised[dev]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             227 * 1024);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) raised[dev] = true;
+  }
+  kern<<<grid, threads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -197,38 +663,87 @@ extern "C" const char* kernel_error_string(int err) {
 }
 
 // q [B, H, Dh], k/v [B, S, KVH, Dh], cur_len [B] i32 -> out [B, H, Dh], all
-// fp32 and contiguous; H % KVH == 0. scale = Dh^-0.5 as the caller rounds
-// it. part_acc [B, H, splits, Dh] and part_ml [B, H, splits, 2] are the
-// caller's scratch; each split covers `chunk` positions (a multiple of the
-// tile). Returns the first launch error (0 on success).
+// fp32 and contiguous; H % KVH == 0; scale = Dh^-0.5 as the caller rounds
+// it. gb: heads of a stream (1, 2, 4 or 8; gb * Dh <= 1024 rounded up to
+// the lane columns; 1 when vec is 0), ng = ceil(G / gb) streams a KV head.
+// vec: runs read by 16-byte bulk copies (Dh % 4 == 0, k and v 16-byte
+// aligned), else element by element (Dh <= 1024). part: the caller's
+// scratch of (grid + B * KVH * ng) * warps slots of 16 + gb * Dh floats;
+// tickets: B * KVH * ng int32, zero (each launch leaves them zero).
+// grid: blocks (one per SM), warps: consumer warps a block at most (1..8).
+// Returns the first launch error (0 on success).
 extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
-                                const void* cur_len, void* out,
-                                void* part_acc, void* part_ml, int B, int H,
-                                int S, int KVH, int Dh, int splits, int chunk,
-                                float scale, void* stream) {
+                                const void* cur_len, void* out, void* part,
+                                void* tickets, int B, int H, int S, int KVH,
+                                int Dh, int gb, int ng, int vec, int grid,
+                                int warps, float scale, void* stream) {
   if (B <= 0 || H <= 0) return 0;
-  const int G = H / KVH;
-  const size_t floats = (size_t)2 * G * Dh + (size_t)kTile * (Dh + 1) +
-                        (size_t)kTile * Dh + (size_t)G * kTile + 3 * G;
-  const size_t smem = floats * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  if (KVH <= 0 || H % KVH || Dh <= 0 || Dh > 1024 || warps < 1 ||
+      warps > 8 || grid < 1 || (vec && Dh % 4) || ng * gb < H / KVH ||
+      (!vec && gb != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  // streams a unit: the most (<= warps) that are whole KV heads (a
+  // multiple of ng dividing KVH * ng) or part of one (a divisor of ng)
+  int sb = 1;
+  for (int d = 1; d <= warps; ++d) {
+    if (ng % d == 0 || (d % ng == 0 && KVH % (d / ng) == 0)) sb = d;
+  }
+  const int kw = sb >= ng ? sb / ng : 1;
+  const size_t run = static_cast<size_t>(kw) * Dh * sizeof(float);
+  const size_t fixed = static_cast<size_t>(2 * B + 1) * sizeof(int) +
+                       static_cast<size_t>(2) * kMaxStages * sizeof(uint64_t);
+  int T = kMaxTile;
+  while (T > 1 && fixed + 3 * 2 * T * run > kRingBytes) T /= 2;
+  const size_t stage = 2 * T * run;
+  if (fixed + stage > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  size_t fit = (kRingBytes > fixed ? (kRingBytes - fixed) : 0) / stage;
+  if (fit < 1) fit = 1;
+  const int stages = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  const size_t smem = stages * stage + 2 * stages * sizeof(uint64_t) +
+                      static_cast<size_t>(2 * B + 1) * sizeof(int);
+  Args a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.cur_len = static_cast<const int32_t*>(cur_len);
+  a.out = static_cast<float*>(out);
+  a.part = static_cast<float*>(part);
+  a.tickets = static_cast<int32_t*>(tickets);
+  a.B = B; a.H = H; a.S = S; a.KVH = KVH; a.Dh = Dh; a.G = H / KVH;
+  a.NG = ng; a.T = T; a.SB = sb; a.KW = kw; a.WP = warps / sb;
+  a.stages = stages; a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B, KVH, splits);
-  flash_decode_kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int32_t*>(cur_len),
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), H, S, KVH,
-      Dh, chunk, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int threads = Dh < 1024 ? Dh : 1024;
-  flash_decode_merge_kernel<<<B * H, threads, 0, st>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<float*>(out), splits, Dh);
-  return (int)cudaGetLastError();
+  const int threads = (sb * a.WP + 1) * 32;
+  const int cols = vec ? (Dh + 127) / 128 : (Dh + 31) / 32;  // lane columns
+  cudaError_t e = cudaErrorInvalidValue;
+  if (vec) {
+    const int nc = cols <= 1 ? 1 : cols <= 2 ? 2 : cols <= 4 ? 4 : 8;
+    switch (gb * 16 + nc) {
+      case 1 * 16 + 1: e = launch<1, 1, 4>(a, grid, threads, smem, st); break;
+      case 2 * 16 + 1: e = launch<2, 1, 4>(a, grid, threads, smem, st); break;
+      case 4 * 16 + 1: e = launch<4, 1, 4>(a, grid, threads, smem, st); break;
+      case 8 * 16 + 1: e = launch<8, 1, 4>(a, grid, threads, smem, st); break;
+      case 1 * 16 + 2: e = launch<1, 2, 4>(a, grid, threads, smem, st); break;
+      case 2 * 16 + 2: e = launch<2, 2, 4>(a, grid, threads, smem, st); break;
+      case 4 * 16 + 2: e = launch<4, 2, 4>(a, grid, threads, smem, st); break;
+      case 1 * 16 + 4: e = launch<1, 4, 4>(a, grid, threads, smem, st); break;
+      case 2 * 16 + 4: e = launch<2, 4, 4>(a, grid, threads, smem, st); break;
+      case 1 * 16 + 8: e = launch<1, 8, 4>(a, grid, threads, smem, st); break;
+      default: break;
+    }
+  } else {
+    const int nc = cols <= 1 ? 1 : cols <= 2 ? 2 : cols <= 4 ? 4
+                 : cols <= 8 ? 8 : cols <= 16 ? 16 : 32;
+    switch (nc) {
+      case 1: e = launch<1, 1, 1>(a, grid, threads, smem, st); break;
+      case 2: e = launch<1, 2, 1>(a, grid, threads, smem, st); break;
+      case 4: e = launch<1, 4, 1>(a, grid, threads, smem, st); break;
+      case 8: e = launch<1, 8, 1>(a, grid, threads, smem, st); break;
+      case 16: e = launch<1, 16, 1>(a, grid, threads, smem, st); break;
+      case 32: e = launch<1, 32, 1>(a, grid, threads, smem, st); break;
+      default: break;
+    }
+  }
+  return static_cast<int>(e);
 }

@@ -44,7 +44,7 @@ _SIGS = {
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash_decode": ("flash_decode_f32",
                      [_P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     "distance_topk": ("distance_topk",
                       [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
@@ -247,12 +247,24 @@ def select_neighbors(vectors: torch.Tensor, q: torch.Tensor,
                                      metric=metric, scales=scales)
 
 
+_FLASH_WARPS = 8          # consumer warps of a flash_decode block, at most
+_FLASH_MAX_DH = 1024
+_FLASH_HEAD = 16          # floats before a partial's acc: m[8], l[8]
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  cur_len) -> torch.Tensor:
     """Decode attention: q [B,H,Dh], k/v [B,S,KVH,Dh] -> [B,H,Dh] f32.
     ``cur_len`` is a scalar or a per-sequence [B] vector of live prefix
     lengths (continuous batching: one launch serves slots at different
-    depths)."""
+    depths), clamped to [0, S].
+
+    On the card one launch a call: the blocks split the live positions
+    among themselves on the device (no host sync), and the last partial
+    of each (b, KV head, head group) merges them. Dh > 1024 raises. A contiguous int32 [B]
+    ``cur_len`` on the device (the decode path's) is used as it is; the
+    scratch is cached per device and stream, so ``out`` is the only
+    allocation a call."""
     if not _on_cuda(q, k, v):
         return _ref.flash_decode_ref(q, k, v, cur_len)
     _check(q, "q", torch.float32, 3)
@@ -263,30 +275,51 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, s, kvh, dh) or v.shape != k.shape or h % kvh:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match "
                          f"k/v {tuple(k.shape)}")
-    cur = torch.as_tensor(cur_len, dtype=torch.int32, device=q.device)
-    cur = cur.reshape(-1).expand(b).contiguous()
-    splits, chunk = _flash_splits(b * kvh, s, q.device)
+    if dh > _FLASH_MAX_DH:
+        raise ValueError(f"flash_decode: Dh {dh} > {_FLASH_MAX_DH}")
+    if not (isinstance(cur_len, torch.Tensor) and cur_len.dtype == torch.int32
+            and cur_len.shape == (b,) and cur_len.device == q.device
+            and cur_len.is_contiguous()):
+        cur_len = torch.as_tensor(cur_len, dtype=torch.int32,
+                                  device=q.device).reshape(-1).expand(
+                                      b).contiguous()
+    vec = int(dh % 4 == 0 and k.data_ptr() % 16 == 0
+              and v.data_ptr() % 16 == 0)
+    gb, ng, grid = _flash_plan(h // kvh, dh, vec, q.device)
+    part, _, tickets = _scratch(q, "flash_decode",
+                                (grid + b * kvh * ng) * _FLASH_WARPS
+                                * (_FLASH_HEAD + gb * dh), 0, b * kvh * ng)
     out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((b, h, splits, dh), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((b, h, splits, 2), dtype=torch.float32,
-                          device=q.device)
     if b:
         with torch.cuda.device(q.device):
             _launch("flash_decode", "fp32", _ptr(q), _ptr(k), _ptr(v),
-                    _ptr(cur), _ptr(out), _ptr(part_acc), _ptr(part_ml), b,
-                    h, s, kvh, dh, splits, chunk, dh ** -0.5, _stream(q))
+                    _ptr(cur_len), _ptr(out), _ptr(part), _ptr(tickets), b,
+                    h, s, kvh, dh, gb, ng, vec, grid, _FLASH_WARPS,
+                    dh ** -0.5, _stream(q))
     return out
 
 
-def _flash_splits(pairs: int, s: int, device) -> tuple[int, int]:
-    """-> (splits, chunk): cut the S positions of each (b, kv head) into
-    ``splits`` slices of ``chunk`` positions so that about eight blocks per
-    SM are in flight, slices being whole 32-position tiles of the kernel."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    target = -(-8 * sms // max(pairs, 1))
-    chunk = -(-max(-(-s // target), 1) // 32) * 32
-    return -(-s // chunk), chunk
+def _flash_plan(g: int, dh: int, vec: int, device) -> tuple[int, int, int]:
+    """-> (gb, ng, grid) of a ``flash_decode`` launch: the query heads of
+    a KV head go in ``ng`` groups of ``gb`` (a power of two <= 8, with
+    gb x the lane columns' width <= 1024 floats, so that a lane's q and
+    acc stay in registers; 1 on the element-by-element path), and the
+    grid is one block per SM, each taking an equal share of the live
+    tiles."""
+    if vec:
+        width = 128 * (1 << max(0, -(-dh // 128) - 1).bit_length())
+        gb = min(1 << max(0, g - 1).bit_length(), 8, 1024 // width)
+    else:
+        gb = 1
+    return gb, -(-g // gb), _sm_count(device)
+
+
+def _sm_count(device) -> int:
+    sms = _SMS.get(device)
+    if sms is None:
+        sms = _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return sms
 
 
 # row dtype -> distance_topk's dtype code (0 f32, 1 bf16, 2 int8)
@@ -312,10 +345,7 @@ def _topk_plan(b: int, n: int, device) -> tuple[int, int, int]:
     so fewer of a range's tiles beat its lists' k-th entries. Each
     range's block leaves k partials per query, which the last block of
     its query tile merges in the same launch."""
-    sms = _SMS.get(device)
-    if sms is None:
-        sms = _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
+    sms = _sm_count(device)
     if b <= TOPK_SMALL_B:
         rg = 8 if b <= 4 else 4
         groups = -(-n // rg)
@@ -329,22 +359,25 @@ def _topk_plan(b: int, n: int, device) -> tuple[int, int, int]:
     return 0, -(-n // rows), rows
 
 
-def _scratch(q: torch.Tensor, entries: int, tiles: int):
-    """-> (part_d, part_i, tickets) for a launch on ``q``'s device and
-    current stream, kept between calls (launches on one stream run in
-    order): partial lists of ``entries`` (d, id) slots, and zeroed int32
-    ticket counters, one per query tile. The last block of a tile to
-    finish merges the tile's partials and sets its counter back to 0, so
-    the counters are zeroed once and reused by every later launch."""
-    key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
+def _scratch(q: torch.Tensor, kernel: str, floats: int, ints: int,
+             tickets: int) -> list:
+    """-> [float buffer, int32 buffer, tickets] of at least the sizes
+    asked, for ``kernel``'s launches on ``q``'s device and current stream,
+    kept between calls (launches on one stream run in order). The
+    zeroed int32 ticket counters are the kernels' fused merges: the last
+    block (or warp) to finish a tile or group merges its partials and
+    sets its counter back to 0, so the counters are zeroed once and
+    reused by every later launch."""
+    key = (kernel, q.device, torch.cuda.current_stream(q.device).cuda_stream)
     buf = _SCRATCH.get(key)
-    if buf is None or buf[0].numel() < entries or buf[2].numel() < tiles:
-        n = max(entries, 0 if buf is None else buf[0].numel())
-        t = max(tiles, 16 if buf is None else buf[2].numel())
+    if buf is None or buf[0].numel() < floats or buf[1].numel() < ints \
+            or buf[2].numel() < tickets:
+        old = [0, 0, 16] if buf is None else [t.numel() for t in buf]
+        n = [max(floats, old[0]), max(ints, old[1]), max(tickets, old[2])]
         buf = _SCRATCH[key] = [
-            torch.empty(n, dtype=torch.float32, device=q.device),
-            torch.empty(n, dtype=torch.int32, device=q.device),
-            torch.zeros(t, dtype=torch.int32, device=q.device)]
+            torch.empty(n[0], dtype=torch.float32, device=q.device),
+            torch.empty(n[1], dtype=torch.int32, device=q.device),
+            torch.zeros(n[2], dtype=torch.int32, device=q.device)]
     return buf
 
 
@@ -398,8 +431,10 @@ def flat_topk(db: torch.Tensor, q: torch.Tensor, k: int, *,
         return (torch.empty((0, k), dtype=torch.float32, device=q.device),
                 torch.empty((0, k), dtype=torch.int32, device=q.device))
     small, splits, rows = _topk_plan(b, n, q.device)
+    entries = b * splits * min(k, TOPK_PASS_K)
     part_d, part_i, tickets = _scratch(
-        q, b * splits * min(k, TOPK_PASS_K), 1 if small else -(-b // _TOPK_BQ))
+        q, "distance_topk", entries, entries,
+        1 if small else -(-b // _TOPK_BQ))
 
     def run_pass(out_d, out_i, after):
         ad, ai = (None, None) if after is None else after
