@@ -16,7 +16,13 @@ Phases (none catches an exception; any failure exits non-zero):
    that call. ``gather_distance`` and ``beam_search`` run on the same rows,
    graph, queries and ids under each row codec (fp32; bf16; int8 +
    scales, encoded by the port's codec), and exactly on integer-valued l2
-   rows (int8 with scales 1.0). ``distance_topk`` runs on the rows of a
+   rows (int8 with scales 1.0). ``beam_search`` runs three cells: B 1024
+   at T 4 and 1 (ef 64); the served tick, B 8, the calls cycling over 128
+   disjoint query sets; and, for int8, the bulk build's launch (B 1024,
+   the graph's first 10 columns, ef 20); each with its hop count, block
+   plan (threads, rows in flight, shared bytes), blocks resident an SM
+   and pair-bytes floor beside the bound. Phase 1 logs the kernel's
+   registers and spills (``nvcc -Xptxas -v``). ``distance_topk`` runs on the rows of a
    1M x 384 ``FlatVectorIndex`` under each codec, at B 1, 8 (the served
    flat batch) and 128, k 10, one launch a search, on random cosine rows,
    on integer-valued l2 rows (exact), and on a row count whose last row
@@ -120,6 +126,9 @@ TF32_FLOPS_PER_S = 495e12
 
 N_VECTORS, DIM = 1_000_000, 384          # configs/mememo.py
 N_QUERIES, K_GATHER, M2, EF = 1024, 32, 32, 64
+# beam_search's served tick (8 coalesced requests, M 16: 2M 32, ef 64)
+# and the bulk build's launch (configs/mememo.py build_1m: M 5, efC 20)
+SERVED_B, BUILD_M2, BUILD_EF = 8, 10, 20
 # distance_topk: k from configs/base.py retrieval_cand; B 8 is the served
 # flat batch, and k 1000 there takes four passes
 TOPK_K, TOPK_BATCHES = 10, (1, 8, 128)
@@ -243,6 +252,8 @@ def phase_environment(torch):
     took = build.build()
     log(f"kernel build: {time.perf_counter() - t0:.2f}s wall, per source "
         + json.dumps({k: round(v, 2) for k, v in took.items()}))
+    for line in ptxas_report("beam_search"):
+        log(f"beam_search ptxas {line}")
     return smi
 
 
@@ -301,65 +312,150 @@ def check_gather(torch, codec, rows, scales, q, id_sets) -> dict:
     return rec
 
 
+def beam_agree(torch, ki, kd, ri, rd, what: str) -> dict:
+    """The kernel's (ids, dists) against the plain version's: ids equal on
+    >= 99 % of queries, recall@10 against them >= 0.999, distances within
+    1e-5 where the ids agree."""
+    same = (ki == ri).all(dim=1)
+    frac = same.float().mean().item()
+    err = (kd[same] - rd[same]).abs().max().item()
+    k = min(10, ki.shape[1])
+    recall = (ki[:, :k, None] == ri[:, None, :k]).any(-1).float().mean().item()
+    assert frac >= 0.99, f"{what}: ids equal on {frac} of rows"
+    assert err <= 1e-5, f"{what}: dist err {err}"
+    assert recall >= 0.999, f"{what}: recall@10 {recall}"
+    return dict(max_abs_err=err, ids_equal_rows=frac, recall_at_10=recall)
+
+
+def beam_work(rows, scales, m2: int, b: int, ef: int,
+              seen: list[dict]) -> dict:
+    """The work of one call from the plain version's traversal of its
+    queries (``seen``: one record a call, averaged): the distinct-bytes
+    bound (distinct rows + scales and lists, q, ep and ep_dist, the
+    output, each once; one multiply-add a pair element, plus the decode
+    multiply under int8) and the pair-bytes floor (every (query, row)
+    distance's row read once: no reuse across queries)."""
+    n = len(seen)
+    n_rows = sum(int(v["rows"].sum().item()) for v in seen) / n
+    n_lists = sum(int(v["lists"].sum().item()) for v in seen) / n
+    pairs = sum(v["pairs"] for v in seen) / n
+    per_elem = 2.0 if scales is None else 3.0
+    d = rows.shape[1]
+    b_ms, b_by = bound(n_rows * row_bytes(rows, scales) + n_lists * m2 * 4
+                       + b * d * 4 + b * 8 + b * ef * 8,
+                       per_elem * pairs * d)
+    return dict(bound_ms=b_ms, bound_by=b_by,
+                pair_floor_ms=pairs * row_bytes(rows, scales)
+                / HBM_BYTES_PER_S * 1e3,
+                distinct_rows=n_rows, distinct_lists=n_lists,
+                query_row_pairs=pairs)
+
+
+def beam_plan(codec, b: int, d: int, m2: int, ef: int, t: int) -> dict:
+    """The block plan of a launch (threads, ring rows = rows in flight a
+    block, shared bytes) and the blocks resident an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    from repro_torch.kernels import ops
+
+    info = ops.beam_search_info(b, d, codec, m2, ef, t)
+    assert info["kernel_shared_bytes"] == info["shared_bytes"], info
+    info.pop("kernel_shared_bytes")
+    return info
+
+
 def check_beam(torch, codec, rows, scales, nbrs, q, ep, irows, iscales,
                qint) -> dict:
     """``beam_search`` on ``rows`` (1M x 384 of ``codec``) against its plain
-    version at T 4 and 1: ids equal on >= 99 % of queries, recall@10
-    against it >= 0.999, distances within 1e-5 where the ids agree; on
-    integer-valued l2 rows ids and distances exactly equal."""
+    version (``beam_agree``; on integer-valued l2 rows ids and distances
+    exactly equal) in three cells: B 1024 at T 4 and 1, ef 64; the served
+    tick, B 8, ef 64, T 4, the calls cycling over the 128 disjoint sets of
+    8 of the 1,024 queries so that each finds its rows cold; and, for
+    int8, the bulk build's launch, B 1024, ``nbrs[:, :10]`` (M 5), ef 20,
+    T 4. Each cell: ms, plain_ms, the bound and the pair-bytes floor
+    (``beam_work``), the hop count and the block plan (``beam_plan``)."""
     from repro_torch.kernels import ops, ref
 
     ep_d = ref.gather_distance_ref(rows, q, ep[:, None],
                                    scales=scales)[:, 0].contiguous()
     ep_di = ref.gather_distance_ref(irows, qint, ep[:, None], metric="l2",
                                     scales=iscales)[:, 0].contiguous()
+    cname = ops.CODEC_OF[rows.dtype]
+    cells = [("t4", nbrs, EF, 4, N_QUERIES), ("t1", nbrs, EF, 1, N_QUERIES),
+             ("served", nbrs, EF, 4, SERVED_B)]
+    if codec == "int8":
+        cells.append(("build", nbrs[:, :BUILD_M2].contiguous(), BUILD_EF, 4,
+                      N_QUERIES))
     beam = {}
-    for t in (4, 1):
-        kw = dict(ef=EF, expand_t=t, scales=scales)
-        ki, kd = ops.beam_search(rows, nbrs, q, ep, ep_d, **kw)
-        # the plain version's traversal says what work the search needs:
-        # the distinct rows and neighbor lists all queries touch
-        ri, rd, seen = ref.beam_search_ref(rows, nbrs, q, ep, ep_d,
-                                           return_visited=True, **kw)
+    for cell, graph, ef, t, b in cells:
+        m2 = graph.shape[1]
+        kw = dict(ef=ef, expand_t=t, scales=scales)
+        ikw = dict(ef=ef, expand_t=t, scales=iscales, metric="l2")
+        sets = [slice(i, i + b) for i in range(0, N_QUERIES, b)]
+        ki, kd = (torch.cat(x) for x in zip(*[
+            ops.beam_search(rows, graph, q[s], ep[s], ep_d[s], **kw)
+            for s in sets]))
+        ri, rd = ref.beam_search_ref(rows, graph, q, ep, ep_d, **kw)
+        ki2, kd2 = (torch.cat(x) for x in zip(*[
+            ops.beam_search(irows, graph, qint[s], ep[s], ep_di[s], **ikw)
+            for s in sets]))
+        ri2, rd2 = ref.beam_search_ref(irows, graph, qint, ep, ep_di, **ikw)
         torch.cuda.synchronize()
-        same = (ki == ri).all(dim=1)
-        frac = same.float().mean().item()
-        err = (kd[same] - rd[same]).abs().max().item()
-        hit = (ki[:, :10, None] == ri[:, None, :10]).any(-1).float()
-        recall = hit.mean().item()
-        what = f"beam_search {codec} T={t}"
-        assert frac >= 0.99, f"{what}: ids equal on {frac} of rows"
-        assert err <= 1e-5, f"{what}: dist err {err}"
-        assert recall >= 0.999, f"{what}: recall@10 {recall}"
-        ikw = dict(ef=EF, expand_t=t, scales=iscales, metric="l2")
-        ki2, kd2 = ops.beam_search(irows, nbrs, qint, ep, ep_di, **ikw)
-        ri2, rd2 = ref.beam_search_ref(irows, nbrs, qint, ep, ep_di, **ikw)
-        torch.cuda.synchronize()
+        what = f"beam_search {codec} {cell}"
+        rec = beam_agree(torch, ki, kd, ri, rd, what)
         assert bool((ki2 == ri2).all()), f"{what} l2: ids differ"
         assert bool((kd2 == rd2).all()), f"{what} l2: dists differ"
-        n_rows = int(seen["rows"].sum().item())
-        n_lists = int(seen["lists"].sum().item())
-        per_elem = 2.0 if scales is None else 3.0
-        b_ms, b_by = bound(n_rows * row_bytes(rows, scales)
-                           + n_lists * M2 * 4 + q.numel() * 4
-                           + N_QUERIES * 8 + N_QUERIES * EF * 8,
-                           per_elem * seen["pairs"] * q.shape[1])
-        beam[t] = dict(
-            max_abs_err=err, ids_equal_rows=frac, recall_at_10=recall,
-            int_l2_exact=True, distinct_rows=n_rows, distinct_lists=n_lists,
-            query_row_pairs=seen["pairs"],
-            ms=time_ms(torch, lambda: ops.beam_search(
-                rows, nbrs, q, ep, ep_d, **kw), 10),
-            plain_ms=time_ms(torch, lambda: ref.beam_search_ref(
-                rows, nbrs, q, ep, ep_d, **kw), 2, warmup=1),
-            bound_ms=b_ms, bound_by=b_by)
-        log(f"{what} " + json.dumps(beam[t]))
+        # the plain version's traversal of each call's queries says what
+        # work a call needs
+        seen = [ref.beam_search_ref(rows, graph, q[s], ep[s], ep_d[s],
+                                    return_visited=True, **kw)[2]
+                for s in sets]
+        cyc = itertools.cycle(sets)
+
+        def kernel():
+            s = next(cyc)
+            return ops.beam_search(rows, graph, q[s], ep[s], ep_d[s], **kw)
+
+        def plain():
+            s = next(cyc)
+            return ref.beam_search_ref(rows, graph, q[s], ep[s], ep_d[s],
+                                       **kw)
+
+        rec.update(
+            int_l2_exact=True, B=b, m2=m2, ef=ef, T=t,
+            hops=ref.beam_schedule(ef, t, None)[2],
+            ms=time_ms(torch, kernel, max(10, len(sets))),
+            plain_ms=time_ms(torch, plain, 16 if b < N_QUERIES else 2,
+                             warmup=1),
+            **beam_work(rows, scales, m2, b, ef, seen),
+            plan=beam_plan(cname, b, rows.shape[1], m2, ef, min(t, ef)))
+        beam[cell] = rec
+        log(f"{what} " + json.dumps(rec))
     return dict(
-        beam[4], library_ms=None, library="none", t1=beam[1],
+        beam["t4"], library_ms=None, library="none",
+        **{c: beam[c] for c in beam if c != "t4"},
         shapes=f"vectors {rows.shape[0]}x{rows.shape[1]} {codec}"
                + ("" if scales is None else " + scales")
                + f", neighbors0 {nbrs.shape[0]}x{M2} (10% -1), "
-               f"B {q.shape[0]}, ef {EF}, T 4 (t1: T 1)")
+               f"B {q.shape[0]}, ef {EF}, T 4 (t1: T 1; served: B "
+               f"{SERVED_B}, 128 query sets cycled; build: neighbors0"
+               f"[:, :{BUILD_M2}], ef {BUILD_EF})")
+
+
+def ptxas_report(name: str) -> list[str]:
+    """Registers, stack and spills of each kernel of ``name``'s build, as
+    ``nvcc -Xptxas -v`` reported them (build/torch_kernels/<name>.log)."""
+    from repro_torch.kernels import build
+
+    log_file = build.BUILD_DIR / f"{name}.log"
+    if not log_file.is_file():         # built by an earlier run
+        return [f"no build log at {log_file}"]
+    out, entry = [], None
+    for line in log_file.read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and ("registers" in line or "spill" in line):
+            out.append(f"{entry[-40:]}: {line.strip()}")
+    return out
 
 
 def phase_kernels(torch) -> dict:

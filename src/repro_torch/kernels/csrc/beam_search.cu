@@ -1,268 +1,856 @@
 // Whole layer-0 HNSW ef-beam search in one launch, fp32, bf16 or
 // int8(+scales) rows, for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel repro/kernels/beam_search.py
+// Replaces the TPU kernel src/repro/kernels/beam_search.py
 // (beam_search_pallas / _kernel). The plain version, with the same
 // frontier selection, dedup and merge, is
-// repro_torch/kernels/ref.py:beam_search_ref.
+// repro_torch/kernels/ref.py:beam_search_ref; the CPU mirror of this
+// file's dedup and rank merge is tests/test_torch_beam.py.
 //
-// One thread block runs one query's whole search. The beam — efp =
-// next_pow2(ef) (distance, id, expanded) triples, ascending by (d, id) —
-// lives in shared memory from the first hop to the last. Each hop:
-//   1. selects the first t_live = min(T, budget - hop*T) unexpanded
-//      entries (warp 0: a ballot + popcount prefix over the beam) and
-//      marks them expanded; no unexpanded entry left ends the search;
-//   2. loads their 2M-wide neighbor lists (T*2M candidates);
-//   3. keeps a candidate only if its list slot is not -1 padding, its id
-//      is not already in the beam, and no earlier valid slot holds the
-//      same id (ref.beam_dedup_valid);
-//   4. computes each kept candidate's distance, one warp per row, with
-//      the same decode and summation order as gather_distance.cu
-//      (row_distance.cuh): bf16 widened, int8 multiplied by its row's
-//      scale, read with the row, element by element before the FMA;
-//   5. bitonic-sorts the candidates DESCENDING by (d, id) and
-//      bitonic-merges them with the ascending beam (beam | INF plateau |
-//      candidates is bitonic); entries past ef reset to (INF, -1).
-// The hop count follows beam_search.py:_call exactly: budget = ef (+ T
-// when T > 1) unless max_iters is given, hops = ceil(budget / T). At T = 1
-// the visit order is the one-at-a-time search of core/hnsw.py.
+// One thread block runs one query's whole search; its state lives in
+// shared memory from the first hop to the last. The beam is efp =
+// next_pow2(ef) (distance, id, expanded) slots, ascending by the key
+// (d, id); slots past ef are empty (INF, -1). The hop count and early
+// exit follow beam_search.py:_call (ref.beam_schedule): T frontier nodes a
+// hop, the last hop truncated to the budget; no unexpanded entry ends the
+// search. At T 1 the visit order is the one-at-a-time search of
+// core/hnsw.py.
 //
-// What bounds it on this card: bytes, and their latency. Every hop reads
-// up to T*2M random rows (4, 2 or 1 byte a dimension, plus a 4-byte scale
-// for int8) for 2*D flops each. The TPU kernel
-// double-buffered its row DMAs inside one core; here the card keeps many
-// queries' blocks resident per SM, so one block's row loads overlap the
-// others' sort and merge phases, and every row is read with coalesced
-// 128-byte warp loads. The search state never leaves shared memory.
+// What bounds it on this card. A hop reads the T neighbour lists, then
+// the rows of every candidate that survives dedup (up to T * 2M random
+// rows of D x 4, 2 or 1 bytes), two dependent memory round trips; the
+// rows are scored once each, 2 D flops a row. At B 1024 the bytes bound
+// it (no reuse across queries: ~1,900 rows a query at ef 64, T 4), and
+// the int8 decode's instructions nearly do; at the served B 8 the
+// latency of each hop does (one SM a query). Scoring one row a warp at
+// a time would put ~16 serial round trips in a hop at T 4; I2F decodes
+// int8 at a quarter of the FMA rate; a serial dedup walks efp + c shared
+// loads a thread; a bitonic merge takes a barrier a stage (~40 a hop).
+// This design:
+//   1. frontier: every warp selects the first t_live unexpanded entries
+//      itself (ballot + popcount over the beam, read only), so no barrier
+//      follows it; warp 0 records the selection as a bit mask for the
+//      merge, which sets those entries' expanded bits;
+//   2. dedup in parallel, with no barrier: a shared-memory id table a hop
+//      (open addressing) already holds the beam's ids; each valid
+//      candidate slot claims its id with one atomicCAS and is kept iff
+//      the id was not there, so every id outside the beam is kept once:
+//      ref.beam_dedup_valid's ids (it keeps the first valid copy; a copy's
+//      row and distance are its id's, so which copy is kept is moot);
+//   3. every kept row in flight at once: kept slots take ring slots (one
+//      shared atomic a warp) and issue one cp.async.bulk each for their
+//      row into a shared-memory ring, counted on one mbarrier (lane 0 of
+//      each warp raises the expected bytes first and arrives after the
+//      warp's stores); 16-byte cp.async by each warp for its rows was
+//      slower at B 8 on the H100. int8 scales are
+//      read as soon as the ids are known. The ring holds a whole hop at
+//      the served batch (the wrapper's plan, ops._beam_plan); at large B
+//      it is smaller, so that 8 queries stay resident an SM, and a hop
+//      with more kept rows than ring rows takes them in chunks. Rows that
+//      are not a whole number of 16 bytes, or a misaligned table, are
+//      copied element by element;
+//   4. distances from shared memory, a warp four rows at a time, with the
+//      lane mapping and summation order of row_distance.cuh
+//      (gather_distance.cu sums every (query, row) pair in the same
+//      order): the four rows' lane sums are reduced by a reduce-scatter
+//      that adds the same pairs as the xor tree; q sits in registers for
+//      D <= 512; int8 decodes by byte permute (exact, full rate, no I2F)
+//      and then multiplies by its scale with __fmul_rn, as the plain
+//      version does;
+//   5. rank merge: a candidate whose key is past the beam's ef-th entry
+//      cannot enter and is dropped; each remaining beam entry and
+//      candidate counts the candidates below it (groups of lanes split
+//      the count) and a candidate binary-searches the sorted beam, so
+//      its rank in the merged list is known and it is written there if
+//      below ef, and its id put in the next hop's table. Only the ef best
+//      survive a hop, so any exact (d, id) top-ef selection gives the
+//      reference's beam (ref.beam_merge).
+// Two block barriers and one mbarrier wait a hop when the ring holds the
+// hop. Keys are unique: (d, id) with -0 taken as +0, and ids distinct
+// after dedup.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "row_distance.cuh"
+// Phase clocks (only in a build with -DBEAM_PHASE_CLOCKS, which
+// scripts/profile_beam_search.py makes): thread 0 of each block adds the
+// clock64 cycles of each phase of each hop it runs into g_phase_clocks
+// (frontier, lists, dedup and copy issue, the rows' wait, distances,
+// merge; then hops and blocks). PHASE_USE first waits for a value, so a
+// load's latency falls in the phase that issued it.
+#ifdef BEAM_PHASE_CLOCKS
+__device__ unsigned long long g_phase_clocks[8];
+#define PHASE(i)                                        \
+  if (tid == 0) {                                       \
+    const long long t_ = clock64();                     \
+    ph[i] += t_ - ph_last;                              \
+    ph_last = t_;                                       \
+  }
+#define PHASE_USE(i, v)                                 \
+  if (tid == 0) asm volatile("" ::"r"(v));              \
+  PHASE(i)
+#else
+#define PHASE(i)
+#define PHASE_USE(i, v)
+#endif
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr float kInf = 3.0e38f;
+constexpr int kMaxThreads = 512;
+constexpr int kMinBlocks = 2;        // 512 x 2 threads: 64 registers each
+constexpr int kSlots = 2;            // candidate slots a thread, at most
+constexpr int kQRegFloats = 16;      // q floats a lane holds (D <= 512)
+constexpr float kInf = 3.0e38f;      // == core.hnsw.INF, the empty slot
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ bool le_key(float da, int ia, float db, int ib) {
-  return da < db || (da == db && ia <= ib);
-}
-
-__device__ __forceinline__ void swap3(float* d, int* i, int* x, int a, int b) {
-  const float td = d[a];
-  d[a] = d[b];
-  d[b] = td;
-  const int ti = i[a];
-  i[a] = i[b];
-  i[b] = ti;
-  const int tx = x[a];
-  x[a] = x[b];
-  x[b] = tx;
-}
-
-__device__ __forceinline__ int next_pow2(int n) {
+__host__ __device__ inline int next_pow2(int n) {
   int p = 1;
   while (p < n) p <<= 1;
   return p;
 }
+__host__ __device__ inline size_t round16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
 
-template <typename RowT>
-__global__ void __launch_bounds__(kThreads)
-beam_search_kernel(const RowT* __restrict__ vectors,      // [N, D]
-                   const float* __restrict__ scales,      // [N] or null
-                   const int32_t* __restrict__ nbrs,      // [N, m2]
-                   const float* __restrict__ q,           // [B, D]
-                   const int32_t* __restrict__ ep,        // [B]
-                   const float* __restrict__ ep_dist,     // [B]
-                   int32_t* __restrict__ out_ids,         // [B, ef]
-                   float* __restrict__ out_d,             // [B, ef]
-                   int N, int D, int m2, int ef, int efp, int T, int budget,
-                   int hops, int l2, int vec) {
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int w = T * m2;            // candidates per hop
-  const int wp = next_pow2(w);     // candidate sort width
-  const int W = next_pow2(efp + wp);  // merge width
-  const int cbase = W - wp;        // candidates sit at the merge tail
+// Shared-memory layout of a block (byte offsets); ops._beam_layout_bytes
+// computes the same total.
+struct Layout {
+  size_t ring, tab, skey, mbar, q, beam0, beam1, sel, cid, cscale, sdist,
+      sid, nodes, total;
+  int stride;        // ring bytes a row: D * sizeof(row) rounded up to 16
+  int hash_bits;     // id table slots: 2^hash_bits >= 2 (ef + T * 2M)
+};
 
-  extern __shared__ float4 smem4[];                   // 16-byte aligned
-  float* q_s = reinterpret_cast<float*>(smem4);        // [D]
-  float* bd = q_s + D;                                 // [efp]
-  int* bi = reinterpret_cast<int*>(bd + efp);          // [efp]
-  int* bx = bi + efp;                                  // [efp]
-  float* md = reinterpret_cast<float*>(bx + efp);      // [W]
-  int* mi = reinterpret_cast<int*>(md + W);            // [W]
-  int* mx = mi + W;                                    // [W]
-  int* cand = mx + W;                                  // [w]
-  int* valid0 = cand + w;                              // [w]
-  int* valid = valid0 + w;                             // [w]
-  int* nodes = valid + w;                              // [T]
-  int* flags = nodes + T;                              // [1]
+__host__ inline Layout make_layout(int D, int es, int m2, int ef, int T,
+                                   int threads, int ring_rows) {
+  Layout L;
+  const int w = T * m2;
+  const int efp = next_pow2(ef);
+  const int S = next_pow2(2 * (ef + w));
+  L.hash_bits = 0;
+  while ((1 << L.hash_bits) < S) ++L.hash_bits;
+  L.stride = static_cast<int>(round16(static_cast<size_t>(D) * es));
+  size_t off = 0;
+  L.ring = off;   off += static_cast<size_t>(ring_rows) * L.stride;
+  L.tab = off;    off += static_cast<size_t>(2 * S) * 4;   // two id tables
+  L.skey = off;   off += round16(static_cast<size_t>(w) * 8);
+  L.mbar = off;   off += 32;          // mbarrier; nk, ns of two hops
+  L.q = off;      off += round16(static_cast<size_t>(D) * 4);
+  L.beam0 = off;  off += round16(static_cast<size_t>(efp) * 12);
+  L.beam1 = off;  off += round16(static_cast<size_t>(efp) * 12);
+  L.sel = off;    off += round16(static_cast<size_t>((efp + 31) / 32) * 4);
+  L.cid = off;    off += round16(static_cast<size_t>(w) * 4);
+  L.cscale = off; off += round16(static_cast<size_t>(w) * 4);
+  L.sdist = off;  off += round16(static_cast<size_t>(w) * 4);
+  L.sid = off;    off += round16(static_cast<size_t>(w) * 4);
+  L.nodes = off;  off += round16(static_cast<size_t>(threads / 32) * T * 4);
+  L.total = off;
+  return L;
+}
 
-  for (int d = tid; d < D; d += blockDim.x) q_s[d] = q[(size_t)b * D + d];
-  for (int p = tid; p < efp; p += blockDim.x) {
-    bd[p] = p == 0 ? ep_dist[b] : kInf;
-    bi[p] = p == 0 ? ep[b] : -1;
-    bx[p] = p != 0;
+struct Args {
+  const void* vectors;       // [N, D] row type
+  const float* scales;       // [N] or null
+  const int32_t* nbrs;       // [N, m2]
+  const float* q;            // [B, D]
+  const int32_t* ep;         // [B]
+  const float* ep_dist;      // [B]
+  int32_t* out_ids;          // [B, ef]
+  float* out_d;              // [B, ef]
+  int N, D, m2, ef, efp, T, budget, hops, l2, vec, ring_rows;
+  Layout L;
+};
+
+// ---------------------------------------------------------------------------
+// mbarrier and bulk-copy primitives
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+// Raise the current phase's expected bytes (no arrival), before the
+// copies it counts are issued, so that its byte count never goes below
+// zero. One lane of a warp does it for the warp's copies.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+// Arrive (release): lane 0 of each warp, once a phase, after the warp's
+// stores that the waiters read.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+// Wait for the phase of the given parity to complete (acquire). A wait
+// that never completes traps after ~2^26 tries, so the launch fails
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (tries == (1u << 26)) __trap();
   }
-  __syncthreads();
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory, counted on bar's transaction count
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes),
+                  "r"(smem_u32(bar)) : "memory");
+}
 
-  for (int hop = 0; hop < hops; ++hop) {
-    // 1. frontier: the first t_live unexpanded entries, in beam order
-    if (warp == 0) {
-      const int t_live = min(T, budget - hop * T);
-      int running = 0;
-      for (int base = 0; base < efp; base += 32) {
-        const int p = base + lane;
-        const bool un = p < efp && bx[p] == 0 && bi[p] >= 0;
-        const unsigned mask = __ballot_sync(0xffffffffu, un);
-        const int rank = running + __popc(mask & ((1u << lane) - 1u));
-        if (un && rank < t_live) {
-          nodes[rank] = bi[p];
-          bx[p] = 1;
-        }
-        running += __popc(mask);
-      }
-      const int nsel = min(running, t_live);
-      for (int j = lane; j < T; j += 32) {
-        if (j >= nsel) nodes[j] = -1;
-      }
-      if (lane == 0) flags[0] = running > 0;
-    }
-    __syncthreads();
-    if (!flags[0]) break;  // no frontier left: the search has converged
+// ---------------------------------------------------------------------------
+// keys, the hop's id hash
+// ---------------------------------------------------------------------------
+// (d, id) as one unsigned 64-bit key whose order is the plain version's
+// two-key (d, id) order: d's bits made monotone (-0 taken as +0, as the
+// float compare takes them), then the id with its sign bit flipped, so
+// the empty slots' id -1 sorts below every real id.
+__device__ __forceinline__ uint64_t make_key(float d, int id) {
+  uint32_t u = __float_as_uint(__fadd_rn(d, 0.f));
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<uint64_t>(u) << 32) |
+         (static_cast<uint32_t>(id) ^ 0x80000000u);
+}
 
-    // 2. neighbor lists of the selected nodes
-    for (int c = tid; c < w; c += blockDim.x) {
-      const int j = c / m2, e = c - (c / m2) * m2;
-      const int node = nodes[j];
-      int nb = -1;
-      if (node >= 0) {
-        const int row = node >= N ? N - 1 : node;
-        nb = nbrs[(size_t)row * m2 + e];
-      }
-      valid0[c] = nb >= 0;
-      cand[c] = nb < 0 ? 0 : (nb >= N ? N - 1 : nb);
-    }
-    __syncthreads();
+__device__ __forceinline__ uint32_t hash_slot(int id, int shift) {
+  return (static_cast<uint32_t>(id) * 0x9E3779B1u) >> shift;
+}
 
-    // 3. dedup against the beam and against earlier valid slots
-    for (int c = tid; c < w; c += blockDim.x) {
-      bool ok = valid0[c] != 0;
-      const int id = cand[c];
-      for (int p = 0; ok && p < efp; ++p) ok = bi[p] != id;
-      for (int c2 = 0; ok && c2 < c; ++c2) ok = !(valid0[c2] && cand[c2] == id);
-      valid[c] = ok;
-    }
-    // the merge buffer: beam | INF plateau | candidate slots
-    for (int p = tid; p < cbase; p += blockDim.x) {
-      if (p < efp) {
-        md[p] = bd[p];
-        mi[p] = bi[p];
-        mx[p] = bx[p];
-      } else {
-        md[p] = kInf;
-        mi[p] = -1;
-        mx[p] = 1;
-      }
-    }
-    __syncthreads();
-
-    // 4. candidate distances, one warp per row
-    for (int r = warp; r < wp; r += nwarps) {
-      float dist = kInf;
-      int id = -1;
-      if (r < w && valid[r]) {
-        id = cand[r];
-        dist = warp_row_distance<RowT>(
-            vectors + (size_t)id * D,
-            scales == nullptr ? nullptr : scales + id, q_s, D, lane, l2, vec);
-      }
-      if (lane == 0) {
-        md[cbase + r] = dist;
-        mi[cbase + r] = id;
-        mx[cbase + r] = 0;
-      }
-    }
-    __syncthreads();
-
-    // 5a. bitonic sort of the candidate slots, descending by (d, id)
-    float* cd = md + cbase;
-    int* ci = mi + cbase;
-    int* cx = mx + cbase;
-    for (int size = 2; size <= wp; size <<= 1) {
-      for (int stride = size >> 1; stride > 0; stride >>= 1) {
-        for (int i = tid; i < (wp >> 1); i += blockDim.x) {
-          const int lo = (i / stride) * 2 * stride + (i % stride);
-          const int hi = lo + stride;
-          // block direction of the reference network, descending overall
-          const bool asc = (lo & size) != 0;
-          const bool ordered = le_key(cd[lo], ci[lo], cd[hi], ci[hi]);
-          if (asc ? !ordered : !le_key(cd[hi], ci[hi], cd[lo], ci[lo])) {
-            swap3(cd, ci, cx, lo, hi);
-          }
-        }
-        __syncthreads();
-      }
-    }
-    // 5b. bitonic merge of beam | plateau | candidates, ascending
-    for (int stride = W >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < (W >> 1); i += blockDim.x) {
-        const int lo = (i / stride) * 2 * stride + (i % stride);
-        const int hi = lo + stride;
-        if (!le_key(md[lo], mi[lo], md[hi], mi[hi])) swap3(md, mi, mx, lo, hi);
-      }
-      __syncthreads();
-    }
-    // keep the first ef entries; the rest of the efp slots are empty
-    for (int p = tid; p < efp; p += blockDim.x) {
-      const bool live = p < ef;
-      bd[p] = live ? md[p] : kInf;
-      bi[p] = live ? mi[p] : -1;
-      bx[p] = live ? mx[p] : 1;
-    }
-    __syncthreads();
-  }
-
-  for (int p = tid; p < ef; p += blockDim.x) {
-    out_ids[(size_t)b * ef + p] = bi[p];
-    out_d[(size_t)b * ef + p] = bd[p];
+// Put `id` in the table (open addressing, linear probing, -1 empty):
+// true iff this call put it there, false if it was there already.
+__device__ __forceinline__ bool hash_claim(int* tab, uint32_t mask, int shift,
+                                           int id) {
+  for (uint32_t s = hash_slot(id, shift);; s = (s + 1) & mask) {
+    const int v = atomicCAS(tab + s, -1, id);
+    if (v == -1) return true;
+    if (v == id) return false;
   }
 }
 
-template <typename RowT>
-int launch(const void* vectors, const void* scales, const void* nbrs,
-           const void* q, const void* ep, const void* ep_dist, void* out_ids,
-           void* out_d, int B, int N, int D, int m2, int ef, int efp, int t,
-           int budget, int hops, int l2, int vec, void* stream) {
-  if (B <= 0) return 0;
-  int wp = 1;
-  while (wp < t * m2) wp <<= 1;
-  int W = 1;
-  while (W < efp + wp) W <<= 1;
-  const int w = t * m2;
-  const size_t smem = sizeof(float) * (size_t)D + (size_t)efp * 12 +
-                      (size_t)W * 12 + (size_t)w * 12 + (size_t)t * 4 + 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        beam_search_kernel<RowT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// ---------------------------------------------------------------------------
+// rows in shared memory: decode, distance
+// ---------------------------------------------------------------------------
+// Four int8 in a word, as fp32: x + 128 as the low byte of 2^23's
+// mantissa, (2^23 + x + 128) - (2^23 + 128) is x exactly: one byte permute
+// and one add, no I2F (which issues at a quarter of the FMA rate). The
+// same decode as distance_topk.cu.
+__device__ __forceinline__ void int8x4(uint32_t w, float* x) {
+  w ^= 0x80808080u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    x[e] = __uint_as_float(__byte_perm(w, 0x4b00u, 0x5440u | e)) - 8388736.f;
   }
-  beam_search_kernel<RowT><<<B, kThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const RowT*>(vectors), static_cast<const float*>(scales),
-      static_cast<const int32_t*>(nbrs), static_cast<const float*>(q),
-      static_cast<const int32_t*>(ep), static_cast<const float*>(ep_dist),
-      static_cast<int32_t*>(out_ids), static_cast<float*>(out_d), N, D, m2,
-      ef, efp, t, budget, hops, l2, vec);
-  return (int)cudaGetLastError();
+}
+
+// SRow<T>: kVec elements a 16-byte vector; vec() decodes one vector,
+// elem() element d of a row, both to fp32 and both exact.
+template <typename T>
+struct SRow;
+
+template <>
+struct SRow<float> {
+  static constexpr int kVec = 4;
+  __device__ static void vec(const uint4 a, float* v) {
+    v[0] = __uint_as_float(a.x);
+    v[1] = __uint_as_float(a.y);
+    v[2] = __uint_as_float(a.z);
+    v[3] = __uint_as_float(a.w);
+  }
+  __device__ static float elem(const unsigned char* row, int d) {
+    return reinterpret_cast<const float*>(row)[d];
+  }
+};
+
+template <>
+struct SRow<__nv_bfloat16> {  // the 16 bits become the high half of an fp32
+  static constexpr int kVec = 8;
+  __device__ static void vec(const uint4 a, float* v) {
+    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      v[2 * t] = __uint_as_float(w[t] << 16);
+      v[2 * t + 1] = __uint_as_float(w[t] & 0xffff0000u);
+    }
+  }
+  __device__ static float elem(const unsigned char* row, int d) {
+    const uint32_t u = reinterpret_cast<const unsigned short*>(row)[d];
+    return __uint_as_float(u << 16);
+  }
+};
+
+template <>
+struct SRow<int8_t> {
+  static constexpr int kVec = 16;
+  __device__ static void vec(const uint4 a, float* v) {
+    int8x4(a.x, v);
+    int8x4(a.y, v + 4);
+    int8x4(a.z, v + 8);
+    int8x4(a.w, v + 12);
+  }
+  __device__ static float elem(const unsigned char* row, int d) {
+    const uint32_t u = static_cast<uint32_t>(row[d] ^ 0x80u) | 0x4b000000u;
+    return __uint_as_float(u) - 8388736.f;
+  }
+};
+
+// one element's term, as warp_row_distance (row_distance.cuh) adds it
+__device__ __forceinline__ float term(float acc, float v, float q, float s,
+                                      bool scaled, int l2) {
+  // __fmul_rn: never contracted into the subtraction below
+  const float xv = scaled ? __fmul_rn(v, s) : v;
+  if (l2) {
+    const float diff = xv - q;
+    return fmaf(diff, diff, acc);
+  }
+  return fmaf(q, xv, acc);
+}
+
+// Lane `lane`'s share of <q, x> (l2 = 0) or |q - x|^2 (l2 = 1) for the
+// row at `row` (shared, 16-byte vectors): its vectors lane, lane + 32,
+// ... in row order, the order of warp_row_distance's vector path. QREG:
+// the lane's q floats are in qr (nvec <= 32 * kQRegFloats / kVec), else
+// read from q_s.
+template <typename T, bool QREG>
+__device__ __forceinline__ float lane_sum_vec(const unsigned char* row,
+                                                  const float* qr,
+                                                  const float* q_s, float s,
+                                                  bool scaled, int nvec,
+                                                  int lane, int l2) {
+  using R = SRow<T>;
+  const uint4* x4 = reinterpret_cast<const uint4*>(row);
+  float acc = 0.f;
+  if (QREG) {
+    constexpr int NV = kQRegFloats / R::kVec;
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int idx = lane + 32 * i;
+      if (idx < nvec) {
+        float v[R::kVec];
+        R::vec(x4[idx], v);
+#pragma unroll
+        for (int t = 0; t < R::kVec; ++t) {
+          acc = term(acc, v[t], qr[i * R::kVec + t], s, scaled, l2);
+        }
+      }
+    }
+  } else {
+    const float4* q4 = reinterpret_cast<const float4*>(q_s);
+    for (int idx = lane; idx < nvec; idx += 32) {
+      float v[R::kVec];
+      R::vec(x4[idx], v);
+#pragma unroll
+      for (int t = 0; t < R::kVec / 4; ++t) {
+        const float4 b = q4[idx * (R::kVec / 4) + t];
+        acc = term(acc, v[4 * t], b.x, s, scaled, l2);
+        acc = term(acc, v[4 * t + 1], b.y, s, scaled, l2);
+        acc = term(acc, v[4 * t + 2], b.z, s, scaled, l2);
+        acc = term(acc, v[4 * t + 3], b.w, s, scaled, l2);
+      }
+    }
+  }
+  return acc;
+}
+
+// The same from an element-copied row: lane sums d = lane, lane + 32, ...,
+// the order of warp_row_distance's element path.
+template <typename T>
+__device__ __forceinline__ float lane_sum_elem(const unsigned char* row,
+                                               const float* q_s, float s,
+                                               bool scaled, int D, int lane,
+                                               int l2) {
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32) {
+    acc = term(acc, SRow<T>::elem(row, d), q_s[d], s, scaled, l2);
+  }
+  return acc;
+}
+
+// The warp totals of four rows' lane sums: a reduce-scatter over the
+// xor tree of warp_row_distance (lanes l and l ^ 16 first, then ^ 8, ^ 4,
+// ^ 2, ^ 1). Each addition pairs the same two partial sums as that tree,
+// so the totals are its totals bit for bit; row j's lands in lanes
+// 8 j .. 8 j + 7.
+__device__ __forceinline__ float warp_total4(const float* acc, int lane) {
+  const bool hi16 = (lane & 16) != 0;
+  const bool hi8 = (lane & 8) != 0;
+  float k0 = hi16 ? acc[2] : acc[0];
+  float k1 = hi16 ? acc[3] : acc[1];
+  const float s0 = hi16 ? acc[0] : acc[2];
+  const float s1 = hi16 ? acc[1] : acc[3];
+  k0 += __shfl_xor_sync(kFull, s0, 16);
+  k1 += __shfl_xor_sync(kFull, s1, 16);
+  float t = hi8 ? k1 : k0;
+  t += __shfl_xor_sync(kFull, hi8 ? k0 : k1, 8);
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) t += __shfl_xor_sync(kFull, t, off);
+  return t;
+}
+
+// Number of the sorted keys of beam[0, n) below `key`.
+__device__ __forceinline__ int beam_below(const float* bd, const int* bi,
+                                          int n, uint64_t key) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (make_key(bd[mid], bi[mid]) < key) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// VEC: 16-byte rows (a.vec), copied by cp.async.bulk; else element copies.
+// QREG (VEC only): q in registers.
+template <typename T, bool QREG, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+beam_search_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout& L = a.L;
+  unsigned char* ring = smem + L.ring;
+  uint64_t* skey = reinterpret_cast<uint64_t*>(smem + L.skey);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.mbar);
+  int* counts = reinterpret_cast<int*>(smem + L.mbar + 8);  // nk, ns of 2 hops
+  float* q_s = reinterpret_cast<float*>(smem + L.q);
+  uint32_t* selm = reinterpret_cast<uint32_t*>(smem + L.sel);
+  int* cid = reinterpret_cast<int*>(smem + L.cid);
+  float* cscale = reinterpret_cast<float*>(smem + L.cscale);
+  float* sdist = reinterpret_cast<float*>(smem + L.sdist);
+  int* sid = reinterpret_cast<int*>(smem + L.sid);
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = nthr >> 5;
+  const int D = a.D, ef = a.ef, efp = a.efp, m2 = a.m2;
+  const int w = a.T * m2;
+  const uint32_t hmask = (1u << L.hash_bits) - 1u;
+  const int hshift = 32 - L.hash_bits;
+  const int S = 1 << L.hash_bits;
+  const uint32_t rowb = static_cast<uint32_t>(D * sizeof(T));
+  const int nvec = static_cast<int>(rowb / 16);
+  const bool scaled = a.scales != nullptr;
+  const T* vectors = static_cast<const T*>(a.vectors);
+  int* nodes = reinterpret_cast<int*>(smem + L.nodes) + warp * a.T;
+  const uint64_t pad_key = make_key(kInf, -1);
+  const unsigned lt_mask = (1u << lane) - 1u;
+
+  // two of each, this hop's (k = cur) and the next one's: the beam's
+  // buffers (efp distances, ids, expanded flags) and the id tables (the
+  // beam's ids, then the hop's kept candidates')
+  auto beam_d = [&](int k) {
+    return reinterpret_cast<float*>(smem + (k ? L.beam1 : L.beam0));
+  };
+  auto beam_i = [&](int k) {
+    return reinterpret_cast<int*>(smem + (k ? L.beam1 : L.beam0) + efp * 4);
+  };
+  auto beam_x = [&](int k) {
+    return reinterpret_cast<int*>(smem + (k ? L.beam1 : L.beam0) + efp * 8);
+  };
+  auto table = [&](int k) {
+    return reinterpret_cast<int*>(smem + L.tab) + k * S;
+  };
+
+  for (int d = tid; d < D; d += nthr) q_s[d] = a.q[static_cast<size_t>(b) * D + d];
+  // The entry point is the only live entry. It goes at slot ef - 1 when
+  // its key sorts after the empty slots' (a distance >= INF), so that
+  // beam[0, ef) is sorted for the merge's binary search; the frontier
+  // finds it there all the same. With no hop to run it stays at slot 0,
+  // as the plain version returns it. The first hop's table holds its id,
+  // in its home slot of the empty table.
+  {
+    const float e_d = a.ep_dist[b];
+    const int e_i = a.ep[b];
+    const int epos =
+        (a.hops > 0 && e_i >= 0 && make_key(e_d, e_i) > pad_key) ? ef - 1 : 0;
+    float* d0 = beam_d(0);
+    int* i0 = beam_i(0);
+    int* x0 = beam_x(0);
+    for (int p = tid; p < efp; p += nthr) {
+      d0[p] = p == epos ? e_d : kInf;
+      i0[p] = p == epos ? e_i : -1;
+      x0[p] = p != epos;
+    }
+    const int home = e_i >= 0 ? static_cast<int>(hash_slot(e_i, hshift)) : -1;
+    int* t0 = table(0);
+    for (int i = tid; i < S; i += nthr) t0[i] = i == home ? e_i : -1;
+  }
+  if (tid == 0) {
+    counts[0] = 0;
+    counts[1] = 0;
+    mbar_init(bar, nw);              // lane 0 of each warp arrives
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float qr[QREG ? kQRegFloats : 1];
+  if (QREG) {
+    constexpr int KV = SRow<T>::kVec;
+#pragma unroll
+    for (int i = 0; i < kQRegFloats / KV; ++i) {
+      const int idx = lane + 32 * i;
+#pragma unroll
+      for (int t = 0; t < KV; ++t) {
+        qr[i * KV + t] = idx < nvec ? q_s[idx * KV + t] : 0.f;
+      }
+    }
+  }
+
+  uint32_t parity = 0;
+  int cur = 0;
+#ifdef BEAM_PHASE_CLOCKS
+  long long ph[6] = {0, 0, 0, 0, 0, 0};
+  long long ph_last = clock64();
+  int hops_run = 0;
+#endif
+  for (int hop = 0; hop < a.hops; ++hop) {
+    const float* cd = beam_d(cur);
+    const int* ci = beam_i(cur);
+    const int* cx = beam_x(cur);
+    float* nd = beam_d(cur ^ 1);
+    int* ni = beam_i(cur ^ 1);
+    int* nx = beam_x(cur ^ 1);
+    int* tab = table(cur);
+    int* tnext = table(cur ^ 1);
+    int* nk_s = counts + 2 * cur;
+    int* ns_s = nk_s + 1;
+
+    // -- 1. frontier: every warp reads the beam and selects the first
+    //    t_live unexpanded entries for itself; warp 0 records them
+    const int t_live = min(a.T, a.budget - hop * a.T);
+    int running = 0;
+    for (int base = 0; base < efp; base += 32) {
+      const int p = base + lane;
+      const bool un = p < efp && cx[p] == 0 && ci[p] >= 0;
+      const unsigned m = __ballot_sync(kFull, un);
+      const int rank = running + __popc(m & lt_mask);
+      const bool sel = un && rank < t_live;
+      if (sel) nodes[rank] = ci[p];
+      const unsigned sm = __ballot_sync(kFull, sel);
+      if (warp == 0 && lane == 0) selm[base >> 5] = sm;
+      running += __popc(m);
+    }
+    if (running == 0) break;   // no frontier left: the search has converged
+    for (int j = min(running, t_live) + lane; j < a.T; j += 32) nodes[j] = -1;
+    __syncwarp();
+#ifdef BEAM_PHASE_CLOCKS
+    ++hops_run;
+#endif
+    PHASE(0)
+
+    // the next hop's beam, table and counters start empty
+    for (int p = tid; p < efp; p += nthr) {
+      nd[p] = kInf;
+      ni[p] = -1;
+      nx[p] = 1;
+    }
+    for (int i = tid; i < S; i += nthr) tnext[i] = -1;
+    if (tid == 0) {
+      counts[2 * (cur ^ 1)] = 0;
+      counts[2 * (cur ^ 1) + 1] = 0;
+    }
+
+    // -- 2. neighbour lists of the frontier (slot c = j * m2 + e), an
+    //    int8 slot's scale as soon as its id is known
+    int cand[kSlots];
+    bool ok[kSlots];
+    float sc[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = tid + s * nthr;
+      int nb = -1;
+      if (c < w) {
+        const int j = c / m2;
+        const int node = nodes[j];
+        if (node >= 0) {
+          const int row = node >= a.N ? a.N - 1 : node;
+          nb = __ldg(a.nbrs + static_cast<size_t>(row) * m2 + (c - j * m2));
+        }
+      }
+      ok[s] = nb >= 0;
+      cand[s] = nb < 0 ? 0 : (nb >= a.N ? a.N - 1 : nb);
+      sc[s] = scaled && ok[s] ? __ldg(a.scales + cand[s]) : 1.f;
+    }
+    PHASE_USE(1, cand[0])
+
+    // -- 3. dedup: a valid slot is kept iff it claims its id in the table
+    //    that holds the beam's ids, so each id outside the beam is kept
+    //    once (ref.beam_dedup_valid keeps the first valid copy: the same
+    //    ids, and a copy's row and distance are the copy's id's). Kept
+    //    slots take ring slots (one shared atomic a warp) and request
+    //    their rows at once.
+    int kk[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const bool keep = ok[s] && hash_claim(tab, hmask, hshift, cand[s]);
+      const unsigned m = __ballot_sync(kFull, keep);
+      int base = 0;
+      if (lane == 0 && m) base = atomicAdd(nk_s, __popc(m));
+      base = __shfl_sync(kFull, base, 0);
+      kk[s] = keep ? base + __popc(m & lt_mask) : -1;
+      if (VEC) {
+        // the warp's copies: lane 0 raises the phase's bytes first
+        const bool copy = keep && kk[s] < a.ring_rows;
+        const unsigned mc = __ballot_sync(kFull, copy);
+        if (lane == 0 && mc) mbar_expect_tx(bar, __popc(mc) * rowb);
+        __syncwarp();
+        if (copy) {
+          bulk_copy(ring + static_cast<size_t>(kk[s]) * L.stride,
+                    vectors + static_cast<size_t>(cand[s]) * D, rowb, bar);
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      if (kk[s] >= 0) {
+        cid[kk[s]] = cand[s];
+        if (scaled) cscale[kk[s]] = sc[s];
+      }
+    }
+    PHASE(2)
+    if (VEC) {
+      __syncwarp();                  // the warp's stores, before its arrival
+      if (lane == 0) mbar_arrive(bar);
+      mbar_wait(bar, parity);
+      parity ^= 1u;
+    } else {
+      __syncthreads();
+    }
+    const int nk = *nk_s;
+    PHASE(3)
+
+    // -- 4. distances, a warp four rows at a time; keep what can enter
+    const uint64_t worst = make_key(cd[ef - 1], ci[ef - 1]);
+    for (int base = 0; base < nk; base += a.ring_rows) {
+      const int cnt = min(a.ring_rows, nk - base);
+      if (base > 0) {
+        __syncthreads();                 // every warp is done with the ring
+        if (VEC) {
+          for (int r0 = 0; r0 < cnt; r0 += nthr) {
+            const int r = r0 + tid;
+            const unsigned mc = __ballot_sync(kFull, r < cnt);
+            if (lane == 0 && mc) mbar_expect_tx(bar, __popc(mc) * rowb);
+            __syncwarp();
+            if (r < cnt) {
+              bulk_copy(ring + static_cast<size_t>(r) * L.stride,
+                        vectors + static_cast<size_t>(cid[base + r]) * D,
+                        rowb, bar);
+            }
+          }
+          if (lane == 0) mbar_arrive(bar);
+          mbar_wait(bar, parity);
+          parity ^= 1u;
+        }
+      }
+      if (!VEC) {
+        T* rt = reinterpret_cast<T*>(ring);
+        const int se = L.stride / static_cast<int>(sizeof(T));
+        for (int e = tid; e < cnt * D; e += nthr) {
+          const int r = e / D;
+          const int d = e - r * D;
+          rt[r * se + d] = vectors[static_cast<size_t>(cid[base + r]) * D + d];
+        }
+        __syncthreads();
+      }
+      for (int r0 = 4 * warp; r0 < cnt; r0 += 4 * nw) {
+        float acc[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = r0 + j;
+          acc[j] = 0.f;
+          if (r < cnt) {
+            const float s = scaled ? cscale[base + r] : 1.f;
+            const unsigned char* row = ring + static_cast<size_t>(r) * L.stride;
+            acc[j] = VEC ? lane_sum_vec<T, QREG>(row, qr, q_s, s, scaled,
+                                                 nvec, lane, a.l2)
+                         : lane_sum_elem<T>(row, q_s, s, scaled, D, lane,
+                                            a.l2);
+          }
+        }
+        const float tot = warp_total4(acc, lane);
+        const float dist = a.l2 ? tot : 1.f - tot;
+        const int r = r0 + (lane >> 3);
+        bool in = false;
+        int id = 0;
+        uint64_t key = 0;
+        if ((lane & 7) == 0 && r < cnt) {
+          id = cid[base + r];
+          key = make_key(dist, id);
+          in = key < worst;            // past the ef-th entry it cannot enter
+        }
+        const unsigned m = __ballot_sync(kFull, in);
+        int sb = 0;
+        if (lane == 0 && m) sb = atomicAdd(ns_s, __popc(m));
+        sb = __shfl_sync(kFull, sb, 0);
+        if (in) {
+          const int j = sb + __popc(m & lt_mask);
+          skey[j] = key;
+          sdist[j] = dist;
+          sid[j] = id;
+        }
+      }
+    }
+    __syncthreads();
+    PHASE(4)
+
+    // -- 5. rank merge into the next beam. Rank = entries below the key:
+    //    beam entries (their slot, or a binary search for a candidate),
+    //    kept candidates (counted by groups of g lanes), and, for a key
+    //    past the empty slots' (INF, -1), the empty slots outside
+    //    beam[0, ef): efp - ef beam slots and T * 2M - nk candidate slots.
+    //    Candidates dropped above sort after every entry that lands
+    //    below ef, so they change no such rank. Each entry placed puts
+    //    its id in the next hop's table.
+    const int ns = *ns_s;
+    const int extra = (efp - ef) + (w - nk);
+    const int items = ef + ns;
+    int g = 1;
+    while (g < 32 && items * 2 * g <= nthr) g <<= 1;
+    const int per = nthr / g;
+    const int sub = lane & (g - 1);
+    for (int base = 0; base < items; base += per) {
+      const int it = base + tid / g;
+      bool live = false;
+      uint64_t key = 0;
+      if (it < ef) {
+        live = ci[it] >= 0;
+        if (live) key = make_key(cd[it], ci[it]);
+      } else if (it < items) {
+        live = true;
+        key = skey[it - ef];
+      }
+      int less = 0;
+      if (live) {
+#pragma unroll 4
+        for (int c = sub; c < ns; c += g) less += skey[c] < key ? 1 : 0;
+      }
+      for (int o = 1; o < g; o <<= 1) less += __shfl_xor_sync(kFull, less, o);
+      if (live && sub == 0) {
+        int rank = less + (key > pad_key ? extra : 0);
+        float dd;
+        int id, xx;
+        if (it < ef) {
+          rank += it;
+          dd = cd[it];
+          id = ci[it];
+          xx = cx[it] | static_cast<int>((selm[it >> 5] >> (it & 31)) & 1u);
+        } else {
+          const int k = it - ef;
+          rank += beam_below(cd, ci, ef, key);
+          dd = sdist[k];
+          id = sid[k];
+          xx = 0;
+        }
+        if (rank < ef) {
+          nd[rank] = dd;
+          ni[rank] = id;
+          nx[rank] = xx;
+          hash_claim(tnext, hmask, hshift, id);
+        }
+      }
+    }
+    __syncthreads();
+    PHASE(5)
+    cur ^= 1;
+  }
+#ifdef BEAM_PHASE_CLOCKS
+  if (tid == 0) {
+    for (int i = 0; i < 6; ++i) {
+      atomicAdd(&g_phase_clocks[i], static_cast<unsigned long long>(ph[i]));
+    }
+    atomicAdd(&g_phase_clocks[6], static_cast<unsigned long long>(hops_run));
+    atomicAdd(&g_phase_clocks[7], 1ull);
+  }
+#endif
+
+  const float* fd = beam_d(cur);
+  const int* fi = beam_i(cur);
+  for (int p = tid; p < ef; p += nthr) {
+    a.out_ids[static_cast<size_t>(b) * ef + p] = fi[p];
+    a.out_d[static_cast<size_t>(b) * ef + p] = fd[p];
+  }
+}
+
+// The instance a launch takes: 0 element copies, 1 16-byte rows with q
+// in shared memory, 2 16-byte rows with q in registers (D <= 512).
+__host__ inline int variant_of(int D, int vec) {
+  return vec ? (D <= 32 * kQRegFloats ? 2 : 1) : 0;
+}
+
+template <typename T>
+const void* kernel_of(int v) {
+  if (v == 2) return reinterpret_cast<const void*>(beam_search_kernel<T, true, true>);
+  if (v == 1) return reinterpret_cast<const void*>(beam_search_kernel<T, false, true>);
+  return reinterpret_cast<const void*>(beam_search_kernel<T, false, false>);
+}
+
+// Raises the kernel's dynamic shared-memory limit to the card's 227 KB
+// and asks for the largest shared-memory carveout, once a device.
+template <typename T>
+cudaError_t prepare(int v) {
+  static bool done[3][64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && done[v][dev]) return cudaSuccess;
+  const void* k = kernel_of<T>(v);
+  e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           227 * 1024);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  if (dev < 64) done[v][dev] = true;
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch(Args a, int B, int threads, void* stream) {
+  if (B <= 0) return 0;
+  const int w = a.T * a.m2;
+  if (threads < 32 || threads > kMaxThreads || threads % 32 || a.ring_rows < 1 ||
+      w > kSlots * threads || a.ef < 1 || a.T < 1 || a.D < 1 ||
+      a.efp != next_pow2(a.ef)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.L = make_layout(a.D, sizeof(T), a.m2, a.ef, a.T, threads, a.ring_rows);
+  if (a.L.total > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int v = variant_of(a.D, a.vec);
+  cudaError_t e = prepare<T>(v);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (v == 2) {
+    beam_search_kernel<T, true, true><<<B, threads, a.L.total, st>>>(a);
+  } else if (v == 1) {
+    beam_search_kernel<T, false, true><<<B, threads, a.L.total, st>>>(a);
+  } else {
+    beam_search_kernel<T, false, false><<<B, threads, a.L.total, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int occupancy(int D, int vec, int threads, size_t smem, int* blocks) {
+  const int v = variant_of(D, vec);
+  cudaError_t e = prepare<T>(v);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel_of<T>(v), threads, smem));
 }
 
 }  // namespace
@@ -276,20 +864,64 @@ extern "C" const char* kernel_error_string(int err) {
 // [B, ef] i32, out_d [B, ef] f32. efp = next_pow2(ef); T, budget, hops as
 // ref.beam_schedule gives them; l2 = 1 for squared L2, 0 for 1 - <q, x>;
 // vec = 1 promises a row of a whole number of 16 bytes and a
-// 16-byte-aligned vectors pointer. Each returns the launch's cudaError_t
-// (0 on success).
+// 16-byte-aligned vectors pointer. threads (a multiple of 32, <= 512,
+// >= T * m2 / 2) and ring_rows (>= 1) are the wrapper's plan
+// (ops._beam_plan). Each returns the launch's cudaError_t (0 on success).
 #define BEAM_SEARCH_ENTRY(NAME, RowT)                                        \
   extern "C" int NAME(const void* vectors, const void* scales,             \
                       const void* nbrs, const void* q, const void* ep,     \
                       const void* ep_dist, void* out_ids, void* out_d,     \
                       int B, int N, int D, int m2, int ef, int efp,        \
                       int T, int budget, int hops, int l2, int vec,        \
-                      void* stream) {                                      \
-    return launch<RowT>(vectors, scales, nbrs, q, ep, ep_dist, out_ids,    \
-                        out_d, B, N, D, m2, ef, efp, T, budget, hops, l2,  \
-                        vec, stream);                                      \
+                      int threads, int ring_rows, void* stream) {          \
+    Args a;                                                                \
+    a.vectors = vectors;                                                   \
+    a.scales = static_cast<const float*>(scales);                          \
+    a.nbrs = static_cast<const int32_t*>(nbrs);                            \
+    a.q = static_cast<const float*>(q);                                    \
+    a.ep = static_cast<const int32_t*>(ep);                                \
+    a.ep_dist = static_cast<const float*>(ep_dist);                        \
+    a.out_ids = static_cast<int32_t*>(out_ids);                            \
+    a.out_d = static_cast<float*>(out_d);                                  \
+    a.N = N; a.D = D; a.m2 = m2; a.ef = ef; a.efp = efp; a.T = T;          \
+    a.budget = budget; a.hops = hops; a.l2 = l2; a.vec = vec;              \
+    a.ring_rows = ring_rows;                                               \
+    return launch<RowT>(a, B, threads, stream);                            \
   }
 
 BEAM_SEARCH_ENTRY(beam_search_f32, float)
 BEAM_SEARCH_ENTRY(beam_search_bf16, __nv_bfloat16)
 BEAM_SEARCH_ENTRY(beam_search_int8, int8_t)
+
+// The launch's shared-memory bytes for rows of `elem` bytes an element
+// (4, 2 or 1), as the kernel lays them out.
+extern "C" long long beam_search_smem_bytes(int D, int elem, int m2, int ef,
+                                            int T, int threads,
+                                            int ring_rows) {
+  return static_cast<long long>(
+      make_layout(D, elem, m2, ef, T, threads, ring_rows).total);
+}
+
+// Blocks of the kernel resident an SM (cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor) for rows of `elem` bytes an element, into *blocks.
+// Returns the cudaError_t.
+extern "C" int beam_search_occupancy(int elem, int D, int vec, int threads,
+                                     long long smem, int* blocks) {
+  const size_t s = static_cast<size_t>(smem);
+  if (elem == 4) return occupancy<float>(D, vec, threads, s, blocks);
+  if (elem == 2) return occupancy<__nv_bfloat16>(D, vec, threads, s, blocks);
+  return occupancy<int8_t>(D, vec, threads, s, blocks);
+}
+
+#ifdef BEAM_PHASE_CLOCKS
+// Copies the phase clocks into out[8], then zeroes them. Returns the
+// cudaError_t.
+extern "C" int beam_search_phase_clocks(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_phase_clocks,
+                                       sizeof(g_phase_clocks));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long zero[8] = {};
+  return static_cast<int>(
+      cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero)));
+}
+#endif

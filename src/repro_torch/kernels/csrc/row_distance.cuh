@@ -1,6 +1,8 @@
-// One warp scores one row against a query row held in shared memory.
-// Shared by gather_distance.cu and beam_search.cu, so the two kernels sum
-// every (query, row) distance in the same order.
+// One warp scores one row against a query row held in shared memory
+// (gather_distance.cu). beam_search.cu scores rows staged in shared
+// memory with the same lane mapping and summation order (its
+// lane_sum_vec / lane_sum_elem and warp_total4), so the two kernels give
+// every (query, row) pair the same distance, bit for bit.
 //
 // Rows are fp32, bf16 or int8 (Row<T> below); an optional per-row scale
 // decodes each element as (float)x * scale, the plain version's own

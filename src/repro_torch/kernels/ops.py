@@ -41,7 +41,8 @@ _SIGS = {
                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "beam_search": ("beam_search_{}",
                     [_P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P]),
     "flash_decode": ("flash_decode_f32",
                      [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
@@ -187,10 +188,12 @@ def beam_search(vectors: torch.Tensor, neighbors0: torch.Tensor,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Whole layer-0 ef-beam HNSW search in ONE launch: per hop, the top
     ``expand_t`` unexpanded beam entries expand together (neighbor gather,
-    dedup, fused decode + row distance, bitonic merge). vectors [N,D]
-    (f32, bf16, or int8 with ``scales`` [N]), neighbors0 [N,2M] i32, q
-    [B,D], ep/ep_dist [B] -> (ids [B,ef] i32, dists [B,ef] f32) ascending
-    by (d, id), empty slots (-1, INF)."""
+    dedup, fused decode + row distance, merge). vectors [N,D] (f32, bf16,
+    or int8 with ``scales`` [N]), neighbors0 [N,2M] i32, q [B,D],
+    ep/ep_dist [B] -> (ids [B,ef] i32, dists [B,ef] f32) ascending by
+    (d, id), empty slots (-1, INF). On the card the block shape and the
+    rows in flight come from ``_beam_plan``; a shape no plan fits
+    raises."""
     l2 = _metric_code(metric)
     tensors = (vectors, neighbors0, q, ep, ep_dist)
     if scales is not None:
@@ -216,12 +219,112 @@ def beam_search(vectors: torch.Tensor, neighbors0: torch.Tensor,
     ids = torch.empty((b, ef), dtype=torch.int32, device=q.device)
     dists = torch.empty((b, ef), dtype=torch.float32, device=q.device)
     if b:
+        threads, ring, _ = _beam_plan(b, d, codec, m2, ef, t,
+                                      _sm_count(q.device))
         with torch.cuda.device(q.device):
             _launch("beam_search", codec, _ptr(vectors), _opt_ptr(scales),
                     _ptr(neighbors0), _ptr(q), _ptr(ep), _ptr(ep_dist),
                     _ptr(ids), _ptr(dists), b, n, d, m2, ef, efp, t, budget,
-                    hops, l2, _aligned16(vectors), _stream(q))
+                    hops, l2, _aligned16(vectors), threads, ring, _stream(q))
     return ids, dists
+
+
+# beam_search's block shapes: at most 512 threads (the kernel's launch
+# bounds, 64 registers a thread, so 1,024 threads an SM), 2 candidate
+# slots a thread; the card's shared memory a block and an SM (H100: 227
+# KB a block of the SM's 228 KB, 1 KB of each block's reserved)
+_BEAM_MAX_THREADS = 512
+_BEAM_SM_THREADS = 1024
+_BEAM_SLOTS = 2
+_SMEM_BLOCK = 232_448
+_SMEM_SM = 233_472
+_SMEM_RESERVED = 1024
+_ELEM_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
+
+
+def _r16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _beam_layout_bytes(d: int, elem: int, m2: int, ef: int, t: int,
+                       threads: int, ring: int) -> int:
+    """Shared-memory bytes of a ``beam_search`` block, as the kernel lays
+    them out (``make_layout`` in beam_search.cu): the ring of ``ring``
+    rows, two id tables (2^k >= 2 (ef + T 2M) slots of 4 bytes each), the
+    kept candidates' keys, the mbarrier and two hops' counters, q, the
+    beam's two buffers, the frontier mask, four candidate arrays and each
+    warp's frontier nodes."""
+    w = t * m2
+    efp = _ref.next_pow2(ef)
+    return (ring * _r16(d * elem) + _ref.next_pow2(2 * (ef + w)) * 8
+            + _r16(w * 8) + 32 + _r16(d * 4) + 2 * _r16(efp * 12)
+            + _r16(-(-efp // 32) * 4) + 4 * _r16(w * 4)
+            + _r16(threads // 32 * t * 4))
+
+
+def _beam_plan(b: int, d: int, codec: str, m2: int, ef: int, t: int,
+               sm_count: int) -> tuple[int, int, int]:
+    """-> (threads, ring rows, shared bytes) of a ``beam_search`` launch.
+
+    One block a query. ``b`` queries over ``sm_count`` SMs want
+    ceil(b / sm_count) blocks resident an SM (at most 8, rounded up to a
+    power of two); threads are what the registers leave for that many
+    (512 for 1 or 2, 256 for 4, 128 for 8), and each block takes an equal
+    share of the SM's shared memory, up to 227 KB. The ring, the rows in
+    flight at once, takes what the rest of the block leaves, up to the
+    T * 2M candidates of a hop: a whole hop at B <= the SM count (192 KB
+    for fp32 rows of 384 at T 4, 2M 32). Fewer blocks an SM are tried
+    when not one ring row fits; a shape that fits no plan raises."""
+    if codec not in _ELEM_BYTES:
+        raise ValueError(f"unknown codec {codec!r}")
+    elem = _ELEM_BYTES[codec]
+    w = t * m2
+    want = _ref.next_pow2(max(1, min(8, -(-b // max(1, sm_count)))))
+    per_sm = want
+    while per_sm >= 1:
+        threads = min(_BEAM_MAX_THREADS, _BEAM_SM_THREADS // per_sm)
+        if w <= _BEAM_SLOTS * threads:
+            budget = min(_SMEM_BLOCK, _SMEM_SM // per_sm - _SMEM_RESERVED)
+            fixed = _beam_layout_bytes(d, elem, m2, ef, t, threads, 0)
+            ring = min(w, max(0, budget - fixed) // _r16(d * elem))
+            if ring >= 1:
+                return threads, ring, fixed + ring * _r16(d * elem)
+        per_sm //= 2
+    raise ValueError(
+        f"beam_search: no block shape fits D {d} {codec} rows with T {t} x "
+        f"2M {m2} candidates a hop and ef {ef} (at most "
+        f"{_BEAM_SLOTS * _BEAM_MAX_THREADS} candidates a hop, and one row "
+        f"plus the search state within {_SMEM_BLOCK} bytes)")
+
+
+def beam_search_info(b: int, d: int, codec: str, m2: int, ef: int, t: int,
+                     *, vec: int = 1, device=None) -> dict:
+    """The plan of a ``beam_search`` launch on the card beside what the
+    built kernel reports for it: threads, ring rows, the plan's shared
+    bytes and the kernel's own layout's, and blocks resident an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    threads, ring, smem = _beam_plan(b, d, codec, m2, ef, t,
+                                     _sm_count(device))
+    lib = build.library("beam_search")
+    size = lib.beam_search_smem_bytes
+    size.argtypes = [_I] * 7
+    size.restype = ctypes.c_longlong
+    occ = lib.beam_search_occupancy
+    occ.argtypes = [_I, _I, _I, _I, ctypes.c_longlong,
+                    ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
+    elem = _ELEM_BYTES[codec]
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = occ(elem, d, vec, threads, smem, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"beam_search occupancy query failed (cudaError "
+                           f"{rc})")
+    return dict(threads=threads, ring_rows=ring, shared_bytes=smem,
+                kernel_shared_bytes=int(size(d, elem, m2, ef, t, threads,
+                                             ring)),
+                blocks_per_sm=blocks.value)
 
 
 def select_neighbors(vectors: torch.Tensor, q: torch.Tensor,

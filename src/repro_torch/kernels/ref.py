@@ -85,54 +85,6 @@ def next_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
 
 
-def _roll_pair(a: torch.Tensor, lower: torch.Tensor, stride: int):
-    return torch.where(lower, torch.roll(a, -stride, -1),
-                       torch.roll(a, stride, -1))
-
-
-def _compare_exchange(d, i, x, stride: int, asc_mask):
-    """One bitonic compare-exchange stage on (dist, id, payload) triples
-    along the last axis, ordered by the two-key (d, id) compare.
-    ``asc_mask`` [W] is each position's block direction; the partner of
-    position p is p ^ stride."""
-    lower = (torch.arange(d.shape[-1], device=d.device) & stride) == 0
-    pd = _roll_pair(d, lower, stride)
-    pi = _roll_pair(i, lower, stride)
-    px = _roll_pair(x, lower, stride)
-    le = (d < pd) | ((d == pd) & (i <= pi))
-    keep = torch.where(lower == asc_mask, le, ~le)
-    return (torch.where(keep, d, pd), torch.where(keep, i, pi),
-            torch.where(keep, x, px))
-
-
-def bitonic_sort(d, i, x, *, ascending: bool = True):
-    """Full bitonic sort along the last axis (power-of-two width) by the
-    two-key (d, id) order — the network the CUDA kernel runs in shared
-    memory."""
-    w = d.shape[-1]
-    idx = torch.arange(w, device=d.device)
-    size = 2
-    while size <= w:
-        asc_mask = ((idx & size) == 0) == bool(ascending)
-        stride = size // 2
-        while stride:
-            d, i, x = _compare_exchange(d, i, x, stride, asc_mask)
-            stride //= 2
-        size *= 2
-    return d, i, x
-
-
-def bitonic_merge(d, i, x):
-    """Bitonic merge: a bitonic input along the last axis (power-of-two
-    width) sorts ascending in log W compare-exchange stages."""
-    asc = torch.ones(d.shape[-1], dtype=torch.bool, device=d.device)
-    stride = d.shape[-1] // 2
-    while stride:
-        d, i, x = _compare_exchange(d, i, x, stride, asc)
-        stride //= 2
-    return d, i, x
-
-
 def beam_select_frontier(bd, bi, bx, t_live, t: int):
     """Mark the first ``t_live`` (<= t) unexpanded entries of the
     (ascending-sorted) beam as expanded and extract their node ids.
@@ -172,43 +124,22 @@ def lexsort2(d, i, x):
             torch.gather(x, -1, o))
 
 
-def beam_merge(bd, bi, bx, cd, ci, ef: int, use_bitonic: bool = True):
-    """One-hop beam merge: bitonic-sort the candidates DESCENDING, glue
-    them after the already-ascending beam (+ an INF plateau up to the
-    next power of two) — bitonic by construction — and run one bitonic
-    merge. Entries past ``ef`` reset to (INF, -1, expanded).
-
-    ``use_bitonic=False`` sorts the plain concatenation instead —
-    output-identical (live (d, id) keys are unique after dedup; ties
-    exist only among (INF, -1) pads, whose expanded bit is never read)."""
+def beam_merge(bd, bi, bx, cd, ci, ef: int):
+    """One-hop beam merge: the ef smallest (d, id) entries of the beam
+    and the candidates (a stable two-key sort of their concatenation);
+    entries past ``ef`` reset to (INF, -1, expanded). The JAX oracle's
+    bitonic network gives the same beam: live (d, id) keys are unique
+    after dedup, and ties exist only among (INF, -1) pads, whose expanded
+    bit is never read."""
     b, efp = bd.shape
     w = cd.shape[-1]
     dev = bd.device
     live = torch.arange(efp, device=dev) < ef
-    if not use_bitonic:
-        md = torch.cat([bd, cd], dim=-1)
-        mi = torch.cat([bi, ci], dim=-1)
-        mx = torch.cat([bx, torch.zeros((b, w), dtype=torch.bool,
-                                        device=dev)], dim=-1)
-        md, mi, mx = lexsort2(md, mi, mx)
-    else:
-        wp = next_pow2(w)
-        if wp > w:
-            cd = torch.cat([cd, torch.full((b, wp - w), BEAM_INF,
-                                           device=dev)], dim=-1)
-            ci = torch.cat([ci, torch.full((b, wp - w), -1,
-                                           dtype=ci.dtype, device=dev)],
-                           dim=-1)
-        cx = torch.zeros((b, wp), dtype=torch.bool, device=dev)
-        cd, ci, cx = bitonic_sort(cd, ci, cx, ascending=False)
-        pad = next_pow2(efp + wp) - efp - wp
-        md = torch.cat([bd, torch.full((b, pad), BEAM_INF, device=dev), cd],
-                       dim=-1)
-        mi = torch.cat([bi, torch.full((b, pad), -1, dtype=bi.dtype,
-                                       device=dev), ci], dim=-1)
-        mx = torch.cat([bx, torch.ones((b, pad), dtype=torch.bool,
-                                       device=dev), cx], dim=-1)
-        md, mi, mx = bitonic_merge(md, mi, mx)
+    md = torch.cat([bd, cd], dim=-1)
+    mi = torch.cat([bi, ci], dim=-1)
+    mx = torch.cat([bx, torch.zeros((b, w), dtype=torch.bool, device=dev)],
+                   dim=-1)
+    md, mi, mx = lexsort2(md, mi, mx)
     return (torch.where(live, md[:, :efp], BEAM_INF),
             torch.where(live, mi[:, :efp], -1),
             torch.where(live, mx[:, :efp], True))
@@ -277,8 +208,7 @@ def beam_search_ref(vectors: torch.Tensor, neighbors0: torch.Tensor,
             lists[nodes[nodes >= 0].clamp(0, n - 1).long()] = True
             rows[cand[valid].long()] = True
             pairs += valid.sum()
-        bd, bi, bx = beam_merge(bd, bi, bx, cd, ci, int(ef),
-                                use_bitonic=False)
+        bd, bi, bx = beam_merge(bd, bi, bx, cd, ci, int(ef))
         hop += 1
     if return_visited:
         return bi[:, :ef], bd[:, :ef], dict(rows=rows, lists=lists,

@@ -26,12 +26,19 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _int_graph(seed, n, d, m2, b):
+def _int_graph(seed, n, d, m2, b, graph="random"):
+    """Integer-valued rows and queries and a random layer-0 graph with -1
+    padding and a few all -1 lists. ``graph``: "empty", every list all -1
+    (the search ends after its first hop); "repeat", lists drawn from 12
+    ids, so that ids repeat within and across the lists of a hop."""
     rng = np.random.default_rng(seed)
     vec = rng.integers(-4, 5, size=(n, d)).astype(np.float32)
-    nbrs = rng.integers(0, n, size=(n, m2)).astype(np.int32)
+    nbrs = rng.integers(0, 12 if graph == "repeat" else n,
+                        size=(n, m2)).astype(np.int32)
     nbrs[rng.random((n, m2)) < 0.15] = -1                   # -1 padding
     nbrs[rng.integers(0, n, size=5)] = -1                    # whole -1 rows
+    if graph == "empty":
+        nbrs[:] = -1
     q = rng.integers(-4, 5, size=(b, d)).astype(np.float32)
     ep = rng.integers(0, n, size=b).astype(np.int32)
     return vec, nbrs, q, ep
@@ -65,101 +72,97 @@ def test_gather_distance_kernel_matches_plain(cuda_device, metric, d,
         rtol=0, atol=1e-5)
 
 
+def _rows_at(vec, device, offset):
+    """fp32 rows on the card, ``offset`` floats into their buffer (a view
+    that is not 16-byte aligned when offset % 4 != 0)."""
+    flat = np.zeros(vec.size + offset, np.float32)
+    flat[offset:] = vec.reshape(-1)
+    return _t(flat).to(device)[offset:].view(*vec.shape)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("expand_t,ef,d,m2,max_iters", [
-    (1, 24, 16, 16, None), (4, 24, 16, 16, None),
-    (3, 10, 30, 10, None),          # non-pow2 ef, T*2M and D % 4 != 0
-    (4, 16, 16, 16, 5), (4, 16, 16, 16, 0)])
-def test_beam_search_kernel_matches_plain(cuda_device, expand_t, ef, d, m2,
-                                          max_iters):
-    vec, nbrs, q, ep = _int_graph(21, n=2000, d=d, m2=m2, b=40)
-    args = [_t(a).to(cuda_device) for a in (vec, nbrs, q, ep)]
+@pytest.mark.parametrize("b,expand_t,ef,d,m2,max_iters,graph,offset", [
+    (40, 1, 24, 16, 16, None, "random", 0),
+    (40, 4, 24, 16, 16, None, "random", 0),
+    (40, 3, 10, 30, 10, None, "random", 0),   # non-pow2 ef, T*2M, D % 4
+    (40, 4, 16, 16, 16, 5, "random", 0), (40, 4, 16, 16, 16, 0, "random", 0),
+    (1, 4, 64, 384, 32, None, "random", 0),   # the served ring: a whole hop
+    (8, 4, 64, 384, 32, None, "random", 0),
+    (8, 1, 64, 384, 32, None, "random", 0),
+    (1500, 4, 64, 384, 32, None, "random", 0),  # more than are resident
+    (1500, 1, 24, 384, 32, None, "random", 0),
+    (64, 4, 64, 64, 64, None, "random", 0),    # 256 candidates a hop
+    (1024, 4, 20, 384, 10, None, "random", 0),  # the bulk build's shape
+    (8, 4, 64, 1000, 16, None, "random", 0),   # wider than a whole hop
+    (300, 4, 64, 1000, 32, None, "random", 0),  # chunks of a small ring
+    (40, 4, 24, 96, 16, None, "random", 1),    # 4 bytes off: element copy
+    (8, 4, 64, 384, 32, None, "random", 1),
+    (40, 4, 24, 96, 16, None, "empty", 0),     # every list all -1
+    (40, 4, 24, 96, 16, None, "repeat", 0),    # ids repeat in a hop
+    (40, 1, 24, 96, 16, None, "repeat", 0),
+    (8, 4, 64, 384, 32, 0, "random", 0), (8, 4, 64, 384, 32, 5, "random", 0)])
+def test_beam_search_kernel_matches_plain(cuda_device, b, expand_t, ef, d,
+                                          m2, max_iters, graph, offset):
+    """Integer-valued l2 rows: ids and distances equal the plain
+    version's on every block shape of ``ops._beam_plan``."""
+    vec, nbrs, q, ep = _int_graph(21, n=3000, d=d, m2=m2, b=b, graph=graph)
+    rows = _rows_at(vec, cuda_device, offset)
+    assert bool(tops._aligned16(rows)) == (offset == 0 and d % 4 == 0)
+    args = [rows] + [_t(a).to(cuda_device) for a in (nbrs, q, ep)]
     ep_d = tref.gather_distance_ref(args[0], args[2], args[3][:, None],
                                     metric="l2")[:, 0].contiguous()
     kw = dict(ef=ef, metric="l2", expand_t=expand_t, max_iters=max_iters)
     ki, kd = tops.beam_search(*args, ep_d, **kw)
     ri, rd = tref.beam_search_ref(*args, ep_d, **kw)
     torch.testing.assert_close(ki, ri, rtol=0, atol=0)
-    torch.testing.assert_close(kd, rd, rtol=0, atol=1e-5)
-
-
-def _flash_args(seed, b, s, kvh, g, dh, cur, device, offset=0):
-    """Seeded q, k, v (k and v ``offset`` floats into their buffers: a
-    16-byte misaligned view when offset % 4 != 0) and cur_len on the
-    card."""
-    rng = np.random.default_rng(seed)
-    q = _t(rng.normal(size=(b, g * kvh, dh)).astype(np.float32))
-    kv = []
-    for _ in range(2):
-        n = b * s * kvh * dh
-        flat = np.zeros(n + offset, np.float32)
-        flat[offset:] = rng.normal(size=n)
-        kv.append(_t(flat).to(device)[offset:].view(b, s, kvh, dh))
-    cur = cur if np.isscalar(cur) else _t(np.asarray(cur, np.int32)).to(
-        device)
-    return q.to(device), kv[0], kv[1], cur
+    torch.testing.assert_close(kd, rd, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,g,dh,s,cur", [
-    (4, 1, 64, 300, [1, 31, 33, 300]), (4, 4, 64, 300, [1, 31, 33, 300]),
-    (4, 4, 128, 4100, [1, 31, 33, 4100]), (4, 2, 256, 70, [1, 31, 33, 70]),
-    (1, 4, 128, 8192, [8192]),              # one group over every block
-    (1, 4, 128, 8192, [5001]),
-    (8, 4, 128, 100, [1, 15, 16, 17, 31, 32, 48, 100]),  # tile edges
-    (8, 1, 128, 1000, [3, 16, 999, 1000, 64, 65, 2, 1]),
-    (8, 8, 128, 600, [600, 1, 512, 513, 17, 256, 300, 599]),
-    (3, 4, 256, 500, [500, 257, 3]), (3, 8, 64, 500, [500, 129, 3]),
-    (3, 4, 30, 200, [200, 33, 5]),          # Dh % 4 != 0: element copies
-    (3, 3, 128, 200, [200, 33, 5]),         # G 3: a padded head group
-    (2, 16, 128, 300, [300, 77]),           # G 16: two head groups
-    (2, 2, 1000, 64, [64, 20])])            # wide rows, one ring stage
-def test_flash_decode_kernel_matches_plain(cuda_device, b, g, dh, s, cur):
-    args = _flash_args(22, b, s, 2, g, dh, cur, cuda_device)
-    torch.testing.assert_close(tops.flash_decode(*args),
-                               tref.flash_decode_ref(*args),
-                               rtol=0, atol=2e-5)
+@pytest.mark.parametrize("codec", ["fp32", "int8"])
+@pytest.mark.parametrize("expand_t,ef", [(4, 8), (1, 8), (4, 16), (2, 12)])
+def test_beam_search_kernel_distances_past_inf(cuda_device, codec, expand_t,
+                                               ef):
+    """Rows whose l2 distance overflows to inf (fp32 rows x 1e19, or int8
+    rows with a scale of 1e19) sort after the (INF, -1) empty slots, and
+    half the entry points start there: ids and distances equal the plain
+    version's."""
+    vec, nbrs, q, ep = _int_graph(28, n=600, d=32, m2=4, b=6)
+    huge = np.random.default_rng(ef).random(600) < 0.6
+    huge[ep[:3]], huge[ep[3:]] = True, False
+    if codec == "fp32":
+        rows = _t(vec * np.where(huge, 1e19, 1).astype(np.float32)[:, None])
+        scl = None
+    else:
+        rows = _t(vec.astype(np.int8))
+        scl = _t(np.where(huge, 1e19, 1).astype(np.float32)).to(cuda_device)
+    rows = rows.to(cuda_device)
+    nb, qq, e = (_t(a).to(cuda_device) for a in (nbrs, q, ep))
+    ep_d = tref.gather_distance_ref(rows, qq, e[:, None], metric="l2",
+                                    scales=scl)[:, 0].contiguous()
+    assert bool(torch.isinf(ep_d).any())
+    kw = dict(ef=ef, metric="l2", scales=scl, expand_t=expand_t)
+    ki, kd = tops.beam_search(rows, nb, qq, e, ep_d, **kw)
+    ri, rd = tref.beam_search_ref(rows, nb, qq, e, ep_d, **kw)
+    torch.testing.assert_close(ki, ri, rtol=0, atol=0)
+    torch.testing.assert_close(kd, rd, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cur", [5000, 9000, [9000, 1, 8192, 40]])
-def test_flash_decode_kernel_scalar_and_clamped_cur_len(cuda_device, cur):
-    """A scalar ``cur_len`` and lengths past S, clamped to S."""
-    args = _flash_args(23, 4, 8192, 8, 4, 128, cur, cuda_device)
-    torch.testing.assert_close(tops.flash_decode(*args),
-                               tref.flash_decode_ref(*args),
-                               rtol=0, atol=2e-5)
-
-
-@pytest.mark.cuda
-def test_flash_decode_kernel_misaligned_cache_and_zero_length(cuda_device):
-    """A cache view 4 bytes off 16-byte alignment takes the element-copy
-    instance; a row at cur_len 0 gets zeros (the TPU kernel's), the others
-    the plain version's."""
-    q, k, v, cur = _flash_args(24, 3, 300, 2, 4, 128, [0, 300, 45],
-                               cuda_device, offset=1)
-    got = tops.flash_decode(q, k, v, cur)
-    assert bool((got[0] == 0).all())
-    torch.testing.assert_close(got[1:], tref.flash_decode_ref(
-        q, k, v, cur)[1:], rtol=0, atol=2e-5)
-
-
-@pytest.mark.cuda
-def test_flash_decode_kernel_tickets_reset_between_calls(cuda_device):
-    """Three launches back to back on one stream with other shapes (more
-    groups, then fewer): each leaves its group counters at zero for the
-    next, through the one cached scratch."""
-    shapes = [(8, 4, 128, 8192, [8192, 4000, 1, 17, 8192, 300, 5000, 64]),
-              (2, 8, 64, 3000, [3000, 1500]),
-              (8, 4, 128, 8192, [1, 8192, 8192, 16, 7000, 33, 2048, 4097])]
-    calls = [_flash_args(25 + i, b, s, 8, g, dh, cur, cuda_device)
-             for i, (b, g, dh, s, cur) in enumerate(shapes)]
-    outs = [tops.flash_decode(*a) for a in calls]
-    for a, o in zip(calls, outs):
-        torch.testing.assert_close(o, tref.flash_decode_ref(*a), rtol=0,
-                                   atol=2e-5)
-    again = tops.flash_decode(*calls[0])
-    torch.testing.assert_close(again, outs[0], rtol=0, atol=0)
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("b,d,m2,ef,t", [
+    (8, 384, 32, 64, 4), (1024, 384, 32, 64, 4), (1024, 384, 10, 20, 4),
+    (1024, 384, 32, 64, 1), (8, 1000, 16, 64, 4), (1500, 30, 64, 40, 4)])
+def test_beam_plan_is_the_kernels_layout(cuda_device, codec, b, d, m2, ef,
+                                         t):
+    """The plan's shared bytes are the kernel's own layout's, and the card
+    keeps at least the blocks an SM that 64 registers a thread and the
+    block's shared memory (+ 1 KB reserved, of 228 KB) allow."""
+    info = tops.beam_search_info(b, d, codec, m2, ef, t, device=cuda_device)
+    assert info["kernel_shared_bytes"] == info["shared_bytes"]
+    fits = min(1024 // info["threads"],
+               233_472 // (info["shared_bytes"] + 1024))
+    assert info["blocks_per_sm"] >= fits >= 1
 
 
 # ---------------------------------------------------------------------------
@@ -372,23 +375,29 @@ def _encoded_flat(flat, codec, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("codec", ["bf16", "int8"])
-@pytest.mark.parametrize("expand_t,ef,d,m2", [
-    (1, 24, 32, 16), (4, 24, 32, 16),
-    (3, 10, 30, 10),               # non-pow2 ef, T*2M and scalar loads
-    (4, 64, 384, 10)])             # the served width, M 5
-def test_beam_search_codec_kernel_exact_on_integer_rows(cuda_device, codec,
-                                                        expand_t, ef, d, m2):
+@pytest.mark.parametrize("b,expand_t,ef,d,m2,offset", [
+    (40, 1, 24, 32, 16, 0), (40, 4, 24, 32, 16, 0),
+    (40, 3, 10, 30, 10, 0),        # non-pow2 ef, T*2M and scalar loads
+    (40, 4, 64, 384, 10, 0),       # the served width, M 5
+    (1, 4, 64, 384, 32, 0), (8, 4, 64, 384, 32, 0),   # the served ring
+    (1500, 4, 64, 384, 32, 0), (1500, 1, 64, 384, 32, 0),
+    (64, 4, 64, 384, 64, 0),       # 256 candidates a hop
+    (1024, 4, 20, 384, 10, 0),     # the bulk build's shape
+    (40, 4, 24, 384, 16, 3)])      # a misaligned view: element copy
+def test_beam_search_codec_kernel_exact_on_integer_rows(
+        cuda_device, codec, b, expand_t, ef, d, m2, offset):
     """Integer-valued l2 rows (int8 with scales 1.0; bf16 holds small
     integers exactly): the kernel's ids and distances equal the plain
     version's."""
-    vec, nbrs, q, ep = _int_graph(24, n=2000, d=d, m2=m2, b=40)
-    if codec == "int8":
-        rows = _t(vec.astype(np.int8)).to(cuda_device)
-        scl = torch.ones(2000, device=cuda_device)
-    else:
-        from repro_torch.core.codec import device_rows, get_codec
-        rows = device_rows(get_codec("bf16").encode(vec)[0], cuda_device)
-        scl = None
+    from repro_torch.core.codec import get_codec
+    vec, nbrs, q, ep = _int_graph(24, n=2000, d=d, m2=m2, b=b)
+    enc = vec.astype(np.int8) if codec == "int8" else \
+        get_codec("bf16").encode(vec)[0]
+    flat = np.zeros(enc.size + offset, enc.dtype)
+    flat[offset:] = enc.reshape(-1)
+    rows = _encoded_flat(flat, codec, cuda_device)[offset:].view(2000, d)
+    assert bool(tops._aligned16(rows)) == (offset == 0 and d != 30)
+    scl = torch.ones(2000, device=cuda_device) if codec == "int8" else None
     nb, qq, e = (_t(a).to(cuda_device) for a in (nbrs, q, ep))
     ep_d = tref.gather_distance_ref(rows, qq, e[:, None], metric="l2",
                                     scales=scl)[:, 0].contiguous()
@@ -401,13 +410,13 @@ def test_beam_search_codec_kernel_exact_on_integer_rows(cuda_device, codec,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("codec", ["bf16", "int8"])
-@pytest.mark.parametrize("d", [30, 384])
-def test_beam_search_codec_kernel_matches_plain(cuda_device, codec, d):
+@pytest.mark.parametrize("d,b", [(30, 64), (384, 64), (384, 8), (384, 1500)])
+def test_beam_search_codec_kernel_matches_plain(cuda_device, codec, d, b):
     """Random cosine rows through the port's codec: ids equal on most
     queries, distances within 1e-5 where they are."""
     from repro_torch.core.codec import device_rows, get_codec
     rng = np.random.default_rng(25)
-    n, m2, b = 3000, 16, 64
+    n, m2 = 3000, 16
     enc, scales = get_codec(codec).encode(_unit(rng.normal(size=(n, d))))
     rows = device_rows(enc, cuda_device)
     scl = None if scales is None else _t(scales).to(cuda_device)
@@ -423,6 +432,35 @@ def test_beam_search_codec_kernel_matches_plain(cuda_device, codec, d):
     same = (ki == ri).all(dim=1)
     assert same.float().mean().item() >= 0.9
     torch.testing.assert_close(kd[same], rd[same], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("d,b", [(384, 8), (384, 300), (1000, 8), (30, 40)])
+def test_beam_search_distances_are_gather_distances(cuda_device, codec, d,
+                                                    b):
+    """The two kernels sum every (query, row) pair in the same order: the
+    beam's distances equal ``gather_distance``'s of its ids, bit for bit
+    (q in registers, q from shared memory, element copies)."""
+    from repro_torch.core.codec import device_rows, get_codec
+    rng = np.random.default_rng(27)
+    n, m2 = 3000, 16
+    x = _unit(rng.normal(size=(n, d)))
+    if codec == "fp32":
+        rows, scl = _t(x).to(cuda_device), None
+    else:
+        enc, scales = get_codec(codec).encode(x)
+        rows = device_rows(enc, cuda_device)
+        scl = None if scales is None else _t(scales).to(cuda_device)
+    nbrs = _t(rng.integers(0, n, size=(n, m2)).astype(np.int32)).to(
+        cuda_device)
+    q = _t(_unit(rng.normal(size=(b, d)))).to(cuda_device)
+    ep = _t(rng.integers(0, n, size=b).astype(np.int32)).to(cuda_device)
+    ep_d = tops.gather_distance(rows, q, ep[:, None], scales=scl)[:, 0]
+    ki, kd = tops.beam_search(rows, nbrs, q, ep, ep_d.contiguous(), ef=32,
+                              scales=scl)
+    assert bool((ki >= 0).all())
+    assert torch.equal(kd, tops.gather_distance(rows, q, ki, scales=scl))
 
 
 @pytest.mark.cuda

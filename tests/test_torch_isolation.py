@@ -1,6 +1,7 @@
 """The port stands alone: ``src/repro_torch`` (the durable store
-``repro_torch.store`` included) and ``chip_smoke.py`` import neither JAX
-nor the JAX package, and the entry points refuse to fall back to the CPU
+``repro_torch.store`` included), ``chip_smoke.py`` and the timing and
+profiling scripts under ``scripts/`` import neither JAX nor the JAX
+package, and the entry points refuse to fall back to the CPU
 when a card was asked for and none is present."""
 import ast
 import os
@@ -18,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _port_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("*.py")))
 
 
 def _port_modules():
