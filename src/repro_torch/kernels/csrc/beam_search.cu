@@ -74,28 +74,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Phase clocks (only in a build with -DBEAM_PHASE_CLOCKS, which
-// scripts/profile_beam_search.py makes): thread 0 of each block adds the
-// clock64 cycles of each phase of each hop it runs into g_phase_clocks
-// (frontier, lists, dedup and copy issue, the rows' wait, distances,
-// merge; then hops and blocks). PHASE_USE first waits for a value, so a
-// load's latency falls in the phase that issued it.
-#ifdef BEAM_PHASE_CLOCKS
-__device__ unsigned long long g_phase_clocks[8];
-#define PHASE(i)                                        \
-  if (tid == 0) {                                       \
-    const long long t_ = clock64();                     \
-    ph[i] += t_ - ph_last;                              \
-    ph_last = t_;                                       \
-  }
-#define PHASE_USE(i, v)                                 \
-  if (tid == 0) asm volatile("" ::"r"(v));              \
-  PHASE(i)
-#else
-#define PHASE(i)
-#define PHASE_USE(i, v)
-#endif
-
 namespace {
 
 constexpr int kMaxThreads = 512;
@@ -513,11 +491,6 @@ beam_search_kernel(const Args a) {
 
   uint32_t parity = 0;
   int cur = 0;
-#ifdef BEAM_PHASE_CLOCKS
-  long long ph[6] = {0, 0, 0, 0, 0, 0};
-  long long ph_last = clock64();
-  int hops_run = 0;
-#endif
   for (int hop = 0; hop < a.hops; ++hop) {
     const float* cd = beam_d(cur);
     const int* ci = beam_i(cur);
@@ -548,10 +521,6 @@ beam_search_kernel(const Args a) {
     if (running == 0) break;   // no frontier left: the search has converged
     for (int j = min(running, t_live) + lane; j < a.T; j += 32) nodes[j] = -1;
     __syncwarp();
-#ifdef BEAM_PHASE_CLOCKS
-    ++hops_run;
-#endif
-    PHASE(0)
 
     // the next hop's beam, table and counters start empty
     for (int p = tid; p < efp; p += nthr) {
@@ -586,7 +555,6 @@ beam_search_kernel(const Args a) {
       cand[s] = nb < 0 ? 0 : (nb >= a.N ? a.N - 1 : nb);
       sc[s] = scaled && ok[s] ? __ldg(a.scales + cand[s]) : 1.f;
     }
-    PHASE_USE(1, cand[0])
 
     // -- 3. dedup: a valid slot is kept iff it claims its id in the table
     //    that holds the beam's ids, so each id outside the beam is kept
@@ -622,7 +590,6 @@ beam_search_kernel(const Args a) {
         if (scaled) cscale[kk[s]] = sc[s];
       }
     }
-    PHASE(2)
     if (VEC) {
       __syncwarp();                  // the warp's stores, before its arrival
       if (lane == 0) mbar_arrive(bar);
@@ -632,7 +599,6 @@ beam_search_kernel(const Args a) {
       __syncthreads();
     }
     const int nk = *nk_s;
-    PHASE(3)
 
     // -- 4. distances, a warp four rows at a time; keep what can enter
     const uint64_t worst = make_key(cd[ef - 1], ci[ef - 1]);
@@ -706,7 +672,6 @@ beam_search_kernel(const Args a) {
       }
     }
     __syncthreads();
-    PHASE(4)
 
     // -- 5. rank merge into the next beam. Rank = entries below the key:
     //    beam entries (their slot, or a binary search for a candidate),
@@ -765,18 +730,8 @@ beam_search_kernel(const Args a) {
       }
     }
     __syncthreads();
-    PHASE(5)
     cur ^= 1;
   }
-#ifdef BEAM_PHASE_CLOCKS
-  if (tid == 0) {
-    for (int i = 0; i < 6; ++i) {
-      atomicAdd(&g_phase_clocks[i], static_cast<unsigned long long>(ph[i]));
-    }
-    atomicAdd(&g_phase_clocks[6], static_cast<unsigned long long>(hops_run));
-    atomicAdd(&g_phase_clocks[7], 1ull);
-  }
-#endif
 
   const float* fd = beam_d(cur);
   const int* fi = beam_i(cur);
@@ -912,16 +867,3 @@ extern "C" int beam_search_occupancy(int elem, int D, int vec, int threads,
   if (elem == 2) return occupancy<__nv_bfloat16>(D, vec, threads, s, blocks);
   return occupancy<int8_t>(D, vec, threads, s, blocks);
 }
-
-#ifdef BEAM_PHASE_CLOCKS
-// Copies the phase clocks into out[8], then zeroes them. Returns the
-// cudaError_t.
-extern "C" int beam_search_phase_clocks(unsigned long long* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, g_phase_clocks,
-                                       sizeof(g_phase_clocks));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const unsigned long long zero[8] = {};
-  return static_cast<int>(
-      cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero)));
-}
-#endif

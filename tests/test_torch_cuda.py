@@ -165,6 +165,85 @@ def test_beam_plan_is_the_kernels_layout(cuda_device, codec, b, d, m2, ef,
     assert info["blocks_per_sm"] >= fits >= 1
 
 
+def _flash_args(seed, b, s, kvh, g, dh, cur, device, offset=0):
+    """Seeded q, k, v (k and v ``offset`` floats into their buffers: a
+    16-byte misaligned view when offset % 4 != 0) and cur_len on the
+    card."""
+    rng = np.random.default_rng(seed)
+    q = _t(rng.normal(size=(b, g * kvh, dh)).astype(np.float32))
+    kv = []
+    for _ in range(2):
+        n = b * s * kvh * dh
+        flat = np.zeros(n + offset, np.float32)
+        flat[offset:] = rng.normal(size=n)
+        kv.append(_t(flat).to(device)[offset:].view(b, s, kvh, dh))
+    cur = cur if np.isscalar(cur) else _t(np.asarray(cur, np.int32)).to(
+        device)
+    return q.to(device), kv[0], kv[1], cur
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,dh,s,cur", [
+    (4, 1, 64, 300, [1, 31, 33, 300]), (4, 4, 64, 300, [1, 31, 33, 300]),
+    (4, 4, 128, 4100, [1, 31, 33, 4100]), (4, 2, 256, 70, [1, 31, 33, 70]),
+    (1, 4, 128, 8192, [8192]),              # one group over every block
+    (1, 4, 128, 8192, [5001]),
+    (8, 4, 128, 100, [1, 15, 16, 17, 31, 32, 48, 100]),  # tile edges
+    (8, 1, 128, 1000, [3, 16, 999, 1000, 64, 65, 2, 1]),
+    (8, 8, 128, 600, [600, 1, 512, 513, 17, 256, 300, 599]),
+    (3, 4, 256, 500, [500, 257, 3]), (3, 8, 64, 500, [500, 129, 3]),
+    (3, 4, 30, 200, [200, 33, 5]),          # Dh % 4 != 0: element copies
+    (3, 3, 128, 200, [200, 33, 5]),         # G 3: a padded head group
+    (2, 16, 128, 300, [300, 77]),           # G 16: two head groups
+    (2, 2, 1000, 64, [64, 20])])            # wide rows, one ring stage
+def test_flash_decode_kernel_matches_plain(cuda_device, b, g, dh, s, cur):
+    args = _flash_args(22, b, s, 2, g, dh, cur, cuda_device)
+    torch.testing.assert_close(tops.flash_decode(*args),
+                               tref.flash_decode_ref(*args),
+                               rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cur", [5000, 9000, [9000, 1, 8192, 40]])
+def test_flash_decode_kernel_scalar_and_clamped_cur_len(cuda_device, cur):
+    """A scalar ``cur_len`` and lengths past S, clamped to S."""
+    args = _flash_args(23, 4, 8192, 8, 4, 128, cur, cuda_device)
+    torch.testing.assert_close(tops.flash_decode(*args),
+                               tref.flash_decode_ref(*args),
+                               rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_misaligned_cache_and_zero_length(cuda_device):
+    """A cache view 4 bytes off 16-byte alignment takes the element-copy
+    instance; a row at cur_len 0 gets zeros (the TPU kernel's), the others
+    the plain version's."""
+    q, k, v, cur = _flash_args(24, 3, 300, 2, 4, 128, [0, 300, 45],
+                               cuda_device, offset=1)
+    got = tops.flash_decode(q, k, v, cur)
+    assert bool((got[0] == 0).all())
+    torch.testing.assert_close(got[1:], tref.flash_decode_ref(
+        q, k, v, cur)[1:], rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernel_tickets_reset_between_calls(cuda_device):
+    """Three launches back to back on one stream with other shapes (more
+    groups, then fewer): each leaves its group counters at zero for the
+    next, through the one cached scratch."""
+    shapes = [(8, 4, 128, 8192, [8192, 4000, 1, 17, 8192, 300, 5000, 64]),
+              (2, 8, 64, 3000, [3000, 1500]),
+              (8, 4, 128, 8192, [1, 8192, 8192, 16, 7000, 33, 2048, 4097])]
+    calls = [_flash_args(25 + i, b, s, 8, g, dh, cur, cuda_device)
+             for i, (b, g, dh, s, cur) in enumerate(shapes)]
+    outs = [tops.flash_decode(*a) for a in calls]
+    for a, o in zip(calls, outs):
+        torch.testing.assert_close(o, tref.flash_decode_ref(*a), rtol=0,
+                                   atol=2e-5)
+    again = tops.flash_decode(*calls[0])
+    torch.testing.assert_close(again, outs[0], rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # distance_topk (ops.flat_topk)
 # ---------------------------------------------------------------------------
