@@ -13,10 +13,19 @@ Phases (none catches an exception; any failure exits non-zero):
    sizes — MeMemo's 1M x 384 cosine corpus (configs/mememo.py) and the
    llama3-8b decode geometry — each timed with CUDA events beside its
    plain version, its bound and, where PyTorch computes the same function,
-   that call. ``gather_distance`` and ``beam_search`` run on the same rows,
-   graph, queries and ids under each row codec (fp32; bf16; int8 +
-   scales, encoded by the port's codec), and exactly on integer-valued l2
-   rows (int8 with scales 1.0). ``beam_search`` runs three cells: B 1024
+   that call. ``gather_distance``, the greedy descent and
+   ``beam_search`` run on the same rows and queries under each row codec
+   (fp32; bf16; int8 + scales, encoded by the port's codec).
+   ``gather_distance`` (the hop kernel) runs three cells, B 1024 x K 32,
+   a served hop (B 8 x K 16) and a bulk-build hop (B 1024 x K 5), each
+   cycling over enough id sets that every call finds its rows cold. The
+   descent (``ops.greedy_descent``, one launch a search) runs the served
+   (B 8, M 16) and the build (B 1024, M 5) shapes on random upper tables
+   [L, 1M, M], held bit for bit against the per-hop loop through the hop
+   kernel and against its plain version, timed beside both, with its
+   hops and the bound of the lists and rows its traversal reads.
+   ``beam_search`` runs exactly on integer-valued l2
+   rows (int8 with scales 1.0) and in three cells: B 1024
    at T 4 and 1 (ef 64); the served tick, B 8, the calls cycling over 128
    disjoint query sets; and, for int8, the bulk build's launch (B 1024,
    the graph's first 10 columns, ef 20); each with its hop count, block
@@ -49,7 +58,8 @@ Phases (none catches an exception; any failure exits non-zero):
    random weights from a seeded ``torch.Generator``) over the built-in
    corpus plus 2,000 synthetic documents, 8 requests, 16 new tokens each,
    4 slots. The kernel launch counters are zeroed just before and read
-   just after; every kernel of the path must have launched. The retrieved
+   just after; every kernel of the path must have launched, the upper
+   layers descending in one launch a search with no host sync. The retrieved
    keys must equal a CPU search of the same host graph (plain versions),
    and ``HNSW.exact_query`` on the card must equal it on the CPU.
    At the served cache geometry (slots x max_len, each slot at its own
@@ -70,8 +80,10 @@ Phases (none catches an exception; any failure exits non-zero):
    call on the CPU bit for bit; (b) ``make_index("hnsw", M=5,
    ef_construction=20, use_bulk_build=True, dtype="int8")`` bulk-inserts
    MeMemo's ``build_1m`` shape (1M x 384 seeded cosine rows): wall time,
-   ``hnsw.h2d_bytes``, kernel launches and the resident device bytes
-   (rows x (384 + 4) plus the graph); ``query_batch`` at ef 64, k 10 over
+   ``hnsw.h2d_bytes``, kernel launches (one descent and one beam launch a
+   batch, no host sync) and the resident device bytes
+   (rows x (384 + 4) plus the graph); the descent held again on the
+   built index's 1,024 queries; ``query_batch`` at ef 64, k 10 over
    1,024 queries must return the keys of a CPU search of the same host
    graph on >= 99 % of a 256-query sample; recall@10 against
    ``exact_query``, and on a 20,000-row prefix the bulk and the
@@ -92,7 +104,10 @@ Phases (none catches an exception; any failure exits non-zero):
    the int8 instances of ``gather_distance`` and ``beam_search`` and
    ``flash_decode`` must launch; the served keys must equal a CPU
    ``HNSW(dtype="int8")`` of the same corpus; a bf16 HNSW of the corpus
-   (its run counted) must return the CPU's keys.
+   (its run counted) must return the CPU's keys; and the hop kernel's
+   route, an fp32, bf16 and int8 HNSW of the corpus searched with the
+   per-hop layer-0 beam (``beam_impl="jnp"``, each run counted), must
+   return the CPU's keys.
 7. The same int8 HNSW served path with ``--store-dir``, cold and then
    warm: the warm run restores the index, inserts nothing (the epoch, the
    WAL and the snapshots stay as the cold run left them) and retrieves
@@ -108,6 +123,7 @@ import copy
 import gc
 import itertools
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -125,7 +141,14 @@ FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
 
 N_VECTORS, DIM = 1_000_000, 384          # configs/mememo.py
-N_QUERIES, K_GATHER, M2, EF = 1024, 32, 32, 64
+N_QUERIES, M2, EF = 1024, 32, 64
+L2_BYTES = 50_000_000                    # the H100's L2
+# gather_distance cells: name -> (B, K): B 1024 x K 32, a served
+# descent hop (8 coalesced requests, M 16) and a bulk-build hop (M 5,
+# configs/mememo.py build_1m); the descent cells: name -> (B, M)
+GATHER_CELLS = {"b1024_k32": (1024, 32), "served_b8_k16": (8, 16),
+                "build_b1024_k5": (1024, 5)}
+DESCENT_CELLS = {"served": (8, 16), "build": (1024, 5)}
 # beam_search's served tick (8 coalesced requests, M 16: 2M 32, ef 64)
 # and the bulk build's launch (configs/mememo.py build_1m: M 5, efC 20)
 SERVED_B, BUILD_M2, BUILD_EF = 8, 10, 20
@@ -169,23 +192,46 @@ HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
 FLAT_PATH = ("kernel.distance_topk", "kernel.flash_decode")
 HNSW_INT8_PATH = ("kernel.gather_distance.int8", "kernel.beam_search.int8",
                   "kernel.flash_decode")
-# kernel record -> the run of the main path whose launches it reports
+# kernel record -> the run of the main path whose launches it reports.
+# The served search descends in one gather_distance launch (the
+# greedy_descent records); the hop kernel runs on the per-hop beam's
+# route, where its launches are the codec's gather launches less the
+# descents (HOP_COUNTER).
 MAIN_PATH = {
-    "gather_distance.fp32": "hnsw fp32", "beam_search.fp32": "hnsw fp32",
+    "greedy_descent.fp32": "hnsw fp32", "beam_search.fp32": "hnsw fp32",
     "flash_decode": "hnsw fp32",
-    "gather_distance.bf16": "hnsw bf16", "beam_search.bf16": "hnsw bf16",
-    "gather_distance.int8": "hnsw int8", "beam_search.int8": "hnsw int8",
+    "greedy_descent.bf16": "hnsw bf16", "beam_search.bf16": "hnsw bf16",
+    "greedy_descent.int8": "hnsw int8", "beam_search.int8": "hnsw int8",
+    "gather_distance.fp32": "hnsw fp32 per-hop beam",
+    "gather_distance.bf16": "hnsw bf16 per-hop beam",
+    "gather_distance.int8": "hnsw int8 per-hop beam",
     "distance_topk.fp32": "flat fp32", "distance_topk.bf16": "flat bf16",
     "distance_topk.int8": "flat int8",
     "embedding_bag.fp32": BAG_ENTRY, "embedding_bag.bf16": BAG_ENTRY,
 }
+HOP_COUNTER = "kernel.gather_distance.hop"
+# record -> the counter its launches are read from (default kernel.<name>)
+COUNTER_OF = {**{f"greedy_descent.{c}": f"hnsw.descent_launches.{c}"
+                 for c in ("fp32", "bf16", "int8")},
+              **{f"gather_distance.{c}": f"{HOP_COUNTER}.{c}"
+                 for c in ("fp32", "bf16", "int8")}}
+# the descent is an entry point of gather_distance.cu
+SOURCE_OF = {"greedy_descent": "gather_distance"}
 REPLACES = {
     "gather_distance": "src/repro/kernels/gather_distance.py:170",
+    "greedy_descent": "src/repro/kernels/gather_distance.py:170",
     "beam_search": "src/repro/kernels/beam_search.py:269",
     "flash_decode": "src/repro/kernels/flash_decode.py:94",
     "distance_topk": "src/repro/kernels/distance_topk.py:146",
     "embedding_bag": "src/repro/kernels/embedding_bag.py:101",
 }
+
+
+def hop_launches(counts: dict, codec: str) -> int:
+    """The hop kernel's launches in a run: ``codec``'s gather_distance
+    launches less its one-launch descents (both count as the kernel's)."""
+    return (counts.get(f"kernel.gather_distance.{codec}", 0)
+            - counts.get(f"hnsw.descent_launches.{codec}", 0))
 
 
 def log(msg: str) -> None:
@@ -252,8 +298,9 @@ def phase_environment(torch):
     took = build.build()
     log(f"kernel build: {time.perf_counter() - t0:.2f}s wall, per source "
         + json.dumps({k: round(v, 2) for k, v in took.items()}))
-    for line in ptxas_report("beam_search"):
-        log(f"beam_search ptxas {line}")
+    for name in ("gather_distance", "beam_search"):
+        for line in ptxas_report(name):
+            log(f"{name} ptxas {line}")
     return smi
 
 
@@ -280,36 +327,176 @@ def row_bytes(rows, scales) -> int:
     return rows.shape[1] * rows.element_size() + (0 if scales is None else 4)
 
 
-def check_gather(torch, codec, rows, scales, q, id_sets) -> dict:
+def check_gather(torch, codec, rows, scales, q, gen) -> dict:
     """``gather_distance`` on ``rows`` (1M x 384 of ``codec``) against its
-    plain version, within 1e-5; timed cold over 8 id sets."""
+    plain version, within 1e-5, in three cells (``GATHER_CELLS``): B 1024
+    x K 32, a served hop (B 8 x K 16) and a bulk-build hop (B 1024 x
+    K 5). Each is timed cycling over enough random id sets that every
+    call finds its rows cold (the sets' rows pass twice the 50 MB L2).
+    The record is the first cell's, with every cell beside it."""
     from repro_torch.kernels import ops, ref
 
-    ids = id_sets[0]
-    got = ops.gather_distance(rows, q, ids, scales=scales)
-    want = ref.gather_distance_ref(rows, q, ids, scales=scales)
+    dev = q.device
+    cells = {}
+    for name, (b, k) in GATHER_CELLS.items():
+        n_sets = max(8, -(-2 * L2_BYTES // (b * k * row_bytes(rows,
+                                                               scales))))
+        ids = torch.randint(0, N_VECTORS, (n_sets * b, k), device=dev,
+                            generator=gen, dtype=torch.int32)
+        sets = [(q[i * b % N_QUERIES:i * b % N_QUERIES + b],
+                 ids[i * b:(i + 1) * b]) for i in range(n_sets)]
+        err = 0.0
+        for qs, ii in sets[:4]:
+            got = ops.gather_distance(rows, qs, ii, scales=scales)
+            want = ref.gather_distance_ref(rows, qs, ii, scales=scales)
+            torch.cuda.synchronize()
+            err = max(err, (got - want).abs().max().item())
+        assert err <= 1e-5, f"gather_distance {codec} {name}: err {err}"
+        # bytes: each distinct row (+ scale) once, q, ids, out; operations:
+        # a multiply-add per element, plus the decode multiply under int8
+        qs, ii = sets[0]
+        per_elem = 2.0 if scales is None else 3.0
+        b_ms, b_by = bound(torch.unique(ii).numel() * row_bytes(rows, scales)
+                           + qs.numel() * 4 + ii.numel() * 8,
+                           per_elem * ii.numel() * q.shape[1])
+        cyc = itertools.cycle(sets)
+
+        def run(fn):
+            def call():
+                qq, jj = next(cyc)
+                return fn(rows, qq, jj, scales=scales)
+            return call
+
+        # a call at the small cells is the wrapper's host time; the
+        # profiler's time a launch is the kernel's
+        split = device_split(torch, run(ops.gather_distance),
+                             "gather_distance_kernel", reps=32)
+        assert split["other_device_ms"] == 0, f"gather_distance: {split}"
+        cells[name] = dict(
+            max_abs_err=err, B=b, K=k, id_sets=n_sets, **split,
+            ms=time_ms(torch, run(ops.gather_distance),
+                       max(48, min(n_sets, 512))),
+            plain_ms=time_ms(torch, run(ref.gather_distance_ref),
+                             24 if b > SERVED_B else 96),
+            bound_ms=b_ms, bound_by=b_by,
+            plan=ops._gather_plan(b, k, torch.cuda.get_device_properties(
+                0).multi_processor_count),
+            shapes=f"vectors {rows.shape[0]}x{rows.shape[1]} {codec}"
+                   + ("" if scales is None else " + scales")
+                   + f", q {b}x{q.shape[1]}, ids {b}x{k}")
+        log(f"gather_distance {codec} {name} " + json.dumps(cells[name]))
+        del ids, sets
+    first = next(iter(cells))
+    return dict(cells[first], library_ms=None, library="none", cells=cells)
+
+
+def random_upper(torch, gen, m: int):
+    """A random upper table [L, 1M, M] with 10 % -1 padding, L =
+    floor(ln N / ln M): the top level a graph of 1M rows at that M
+    reaches."""
+    layers = int(math.log(N_VECTORS) / math.log(m))
+    up = torch.randint(0, N_VECTORS, (layers, N_VECTORS, m),
+                       device=gen.device, generator=gen, dtype=torch.int32)
+    pad = torch.rand(layers, N_VECTORS, m, device=gen.device, generator=gen)
+    return torch.where(pad < 0.1, -1, up).contiguous()
+
+
+def descent_agree(torch, rows, scales, up, q, ep, ep_d, what: str) -> dict:
+    """``ops.greedy_descent`` (one launch) on these queries against the
+    per-hop loop through the hop kernel (bit for bit: ep and ep_dist) and
+    against the plain version (ep equal on >= 99 % of queries, ep_dist
+    within 1e-5 where it is)."""
+    from repro_torch.kernels import ops, ref
+
+    layers = up.shape[0]
+    kw = dict(max_level=layers, scales=scales)
+    ge, gd = ops.greedy_descent(rows, up, q, ep, ep_d, **kw)
+    le, ld = ref.greedy_descent_ref(rows, up, q, ep, ep_d,
+                                    gather=ops.gather_distance, **kw)
+    we, wd = ref.greedy_descent_ref(rows, up, q, ep, ep_d, **kw)
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    assert err <= 1e-5, f"gather_distance {codec}: max abs err {err}"
-    # bytes: each distinct row (+ scale) once, q, ids, out; operations: a
-    # multiply-add per element, plus the decode multiply under int8
-    n_rows = torch.unique(ids).numel()
-    per_elem = 2.0 if scales is None else 3.0
-    b_ms, b_by = bound(n_rows * row_bytes(rows, scales) + q.numel() * 4
-                       + ids.numel() * 8, per_elem * ids.numel() * q.shape[1])
-    cyc = itertools.cycle(id_sets)
-    rec = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: ops.gather_distance(
-            rows, q, next(cyc), scales=scales), 48),
-        plain_ms=time_ms(torch, lambda: ref.gather_distance_ref(
-            rows, q, next(cyc), scales=scales), 24),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none",
-        shapes=f"vectors {rows.shape[0]}x{rows.shape[1]} {codec}"
-               + ("" if scales is None else " + scales")
-               + f", q {q.shape[0]}x{q.shape[1]}, ids {tuple(ids.shape)}")
-    log(f"gather_distance {codec} " + json.dumps(rec))
-    return rec
+    assert torch.equal(ge, le) and torch.equal(gd, ld), \
+        f"{what}: the descent differs from the per-hop loop"
+    same = ge == we
+    frac = same.float().mean().item()
+    err = (gd[same] - wd[same]).abs().max().item()
+    assert frac >= 0.99, f"{what}: ep equal the plain version's on {frac}"
+    assert err <= 1e-5, f"{what}: ep_dist err {err}"
+    assert bool((ge != ep).any()), f"{what}: no query moved"
+    return dict(max_abs_err=err, ep_equal_plain_frac=frac,
+                equals_per_hop_loop=True)
+
+
+def check_descent(torch, codec, rows, scales, q, ups) -> dict:
+    """The one-launch greedy descent on ``rows`` (1M x 384 of ``codec``)
+    in two cells (``DESCENT_CELLS``): the served search (B 8, M 16, the
+    calls cycling over the 128 sets of 8 queries) and the bulk build's
+    (B 1024, M 5), each on a random upper table [L, 1M, M]
+    (``random_upper``), every query entering at row 0. Each cell holds
+    ``descent_agree`` and times the descent (CUDA events a call), its
+    plain version and the per-hop loop through the hop kernel (a launch,
+    the PyTorch ops around it and a host read of the loop condition a
+    hop: the parent's descent); the bound is the distinct lists and rows
+    the traversal reads (+ q, ep, ep_dist in and out) over 3.35 TB/s, and
+    ``hops_max`` the most hops a query takes, the chain of dependent
+    reads."""
+    from repro_torch.kernels import ops, ref
+
+    cells = {}
+    ep = torch.zeros(N_QUERIES, dtype=torch.int32, device=q.device)
+    ep_d = ref.gather_distance_ref(rows, q, ep[:, None],
+                                   scales=scales)[:, 0].contiguous()
+    for name, (b, m) in DESCENT_CELLS.items():
+        up = ups[m]
+        layers = up.shape[0]
+        sets = [slice(i, i + b) for i in range(0, N_QUERIES, b)]
+        rec = descent_agree(torch, rows, scales, up, q, ep, ep_d,
+                            f"greedy_descent {codec} {name}")
+        first = {}
+        ref.greedy_descent_ref(rows, up, q[sets[0]], ep[sets[0]],
+                               ep_d[sets[0]], max_level=layers,
+                               scales=scales, stats=first)
+        nbytes = (first["lists"] * m * 4
+                  + int(first["rows"].sum().item()) * row_bytes(rows, scales)
+                  + b * (q.shape[1] * 4 + 16))
+        per_elem = 2.0 if scales is None else 3.0
+        b_ms, b_by = bound(nbytes, per_elem * first["pairs"] * q.shape[1])
+        cyc = itertools.cycle(sets)
+
+        def run(fn, **kw):
+            def call():
+                s = next(cyc)
+                return fn(rows, up, q[s], ep[s], ep_d[s], max_level=layers,
+                          scales=scales, **kw)
+            return call
+
+        reps = max(len(sets), 8)
+        split = device_split(torch, run(ops.greedy_descent),
+                             "greedy_descent_kernel", reps=reps)
+        assert split["other_device_ms"] == 0, f"greedy_descent: {split}"
+        rec.update(
+            B=b, M=m, L=layers, **split,
+            ms=time_ms(torch, run(ops.greedy_descent), reps),
+            plain_ms=time_ms(torch, run(ref.greedy_descent_ref),
+                             max(len(sets) // 8, 2), warmup=1),
+            per_hop_loop_ms=time_ms(
+                torch, run(ref.greedy_descent_ref, gather=ops.gather_distance),
+                max(len(sets) // 8, 2), warmup=1),
+            bound_ms=b_ms, bound_by=b_by,
+            hops_max=int(first["hops"].max().item()),
+            hops_total=int(first["hops"].sum().item()),
+            lockstep_hops=first["lockstep_hops"], lists=first["lists"],
+            rows=int(first["rows"].sum().item()), pairs=first["pairs"],
+            plan=ops._descent_plan(q.shape[1], codec, m,
+                                   ops._aligned16(rows)),
+            shapes=f"vectors {rows.shape[0]}x{rows.shape[1]} {codec}"
+                   + ("" if scales is None else " + scales")
+                   + f", upper {layers}x{N_VECTORS}x{m} (10% -1), q {b}x"
+                   f"{q.shape[1]}, entry row 0")
+        cells[name] = rec
+        log(f"greedy_descent {codec} {name} " + json.dumps(rec))
+    first = next(iter(cells))
+    return dict(cells[first], library_ms=None, library="none", cells=cells)
 
 
 def beam_agree(torch, ki, kd, ri, rd, what: str) -> dict:
@@ -472,15 +659,7 @@ def phase_kernels(torch) -> dict:
     vec = unit(torch.randn(N_VECTORS, DIM, device=dev, generator=gen))
     q = unit(torch.randn(N_QUERIES, DIM, device=dev, generator=gen))
 
-    # -- gather_distance and beam_search, per row codec ------------------
-    ids = torch.randint(0, N_VECTORS, (N_QUERIES, K_GATHER), device=dev,
-                        generator=gen, dtype=torch.int32)
-    # one call's rows (~50 MB in fp32) would fit the 50 MB L2: timed calls
-    # cycle through 8 id sets so that every call finds its rows cold, as
-    # the greedy descent does
-    id_sets = [ids] + [
-        torch.randint(0, N_VECTORS, ids.shape, device=dev, generator=gen,
-                      dtype=torch.int32) for _ in range(7)]
+    # -- gather_distance, the descent and beam_search, per row codec -----
     nbrs = torch.randint(0, N_VECTORS, (N_VECTORS, M2), device=dev,
                          generator=gen, dtype=torch.int32)
     pad = torch.rand(N_VECTORS, M2, device=dev, generator=gen) < 0.1
@@ -493,16 +672,19 @@ def phase_kernels(torch) -> dict:
     qint = torch.randint(-3, 4, (N_QUERIES, DIM), device=dev,
                          generator=gen).float()
     del pad
+    ups = {m: random_upper(torch, gen, m) for _, m in DESCENT_CELLS.values()}
     for codec in CODECS:
         rows, scales = encode_rows(torch, vec, codec)
         irows, iscales = encode_rows(torch, vint, codec, integer=True)
         out[f"gather_distance.{codec}"] = check_gather(
-            torch, codec, rows, scales, q, id_sets)
+            torch, codec, rows, scales, q, gen)
+        out[f"greedy_descent.{codec}"] = check_descent(
+            torch, codec, rows, scales, q, ups)
         out[f"beam_search.{codec}"] = check_beam(
             torch, codec, rows, scales, nbrs, q, ep, irows, iscales, qint)
         del rows, scales, irows, iscales
         torch.cuda.empty_cache()
-    del nbrs, vec, q, ids, id_sets, vint, qint
+    del nbrs, vec, q, vint, qint, ups
     torch.cuda.empty_cache()
 
     out["flash_decode"] = check_flash_decode(torch, dev, gen)
@@ -1088,6 +1270,11 @@ def phase_serve(torch) -> dict:
         assert counts.get(c, 0) > 0, f"{c} never launched on the served path"
     assert counts["kernel.flash_decode"] == cfg.n_layers * es["decode_ticks"]
     assert counts["kernel.beam_search"] == rs["searches"]
+    # the upper layers descend in one launch a search, with no host sync
+    assert serve_out["graph_max_level"] >= 1
+    assert counts["hnsw.descent_launches"] == rs["searches"] \
+        == counts["kernel.gather_distance"]
+    assert counts.get("hnsw.host_syncs", 0) == 0
 
     # retrieved keys == the same host graph searched on the CPU (plain
     # versions of the kernels)
@@ -1329,6 +1516,7 @@ def phase_bulk(torch) -> dict:
         build_h2d_bytes=build_counts["hnsw.h2d_bytes"],
         beam_search_launches=build_counts["kernel.beam_search"],
         gather_distance_launches=build_counts["kernel.gather_distance"],
+        descent_launches=build_counts.get("hnsw.descent_launches", 0),
         host_syncs=build_counts.get("hnsw.host_syncs", 0),
         max_level=dg.max_level, upload_s=upload_s,
         upload_h2d_bytes=dispatch.get("hnsw.h2d_bytes"),
@@ -1336,8 +1524,13 @@ def phase_bulk(torch) -> dict:
         rows_and_scales_bytes=nb["vectors"] + nb["scales"],
         adjacency_bytes=adjacency)
     assert rec["beam_search_launches"] == batches
+    # one descent a batch's search, and no host sync in any search
+    assert rec["descent_launches"] == batches == rec[
+        "gather_distance_launches"]
+    assert rec["host_syncs"] == 0
     log("bulk build, MeMemo build_1m in int8 " + json.dumps(rec))
     out["build_1m_int8"] = rec
+    out["descent_1m_int8"] = check_built_descent(torch, dg, qs)
 
     # query_batch at ef 64, k 10 (over-fetch k * 4, host rerank), then the
     # same host graph searched on the CPU through the plain versions
@@ -1427,6 +1620,34 @@ def phase_bulk(torch) -> dict:
         device_idle_share=1.0 - busy / wall, top_device_ms=dict(top))
     log("bulk build profile " + json.dumps(out["profile"]))
     return out
+
+
+def check_built_descent(torch, dg, qs) -> dict:
+    """The descent on the built 1M int8 index's resident graph and its
+    1,024 queries (prepared as a search prepares them, entering at the
+    graph's entry point): ``descent_agree``, and its time against the
+    per-hop loop through the hop kernel."""
+    from repro_torch.core import hnsw as thnsw
+    from repro_torch.kernels import ops, ref
+
+    q = thnsw._prep_queries(dg, qs)
+    ep = torch.full((q.shape[0],), dg.entry, dtype=torch.int32,
+                    device=q.device)
+    ep_d = ref.gather_distance_ref(dg.vectors, q, ep[:, None], metric=dg.metric,
+                                   scales=dg.scales)[:, 0].contiguous()
+    up = dg.upper
+    rec = descent_agree(torch, dg.vectors, dg.scales, up[:dg.max_level], q,
+                        ep, ep_d, "greedy_descent on the built 1M int8 index")
+    kw = dict(max_level=dg.max_level, metric=dg.metric, scales=dg.scales)
+    rec.update(
+        B=q.shape[0], M=up.shape[2], L=dg.max_level,
+        ms=time_ms(torch, lambda: ops.greedy_descent(
+            dg.vectors, up, q, ep, ep_d, **kw), 8),
+        per_hop_loop_ms=time_ms(torch, lambda: ref.greedy_descent_ref(
+            dg.vectors, up, q, ep, ep_d, gather=ops.gather_distance, **kw),
+            2, warmup=1))
+    log("greedy_descent on the built 1M int8 index " + json.dumps(rec))
+    return rec
 
 
 def store_dir(name: str) -> Path:
@@ -1630,12 +1851,14 @@ def phase_serve_int8(torch) -> dict:
     vecs = rag.encoder.encode([text for _, text in corpus])
     conf = rag.index.config_dict()
     out["graph_max_level"] = rag.index.host_graph().max_level
+    idx = {("int8", "cuda"): rag.index}
     del res, rag
 
     def hnsw_keys(dtype, device):
-        idx = make_index("hnsw", device=device, **dict(conf, dtype=dtype))
-        idx.bulk_insert(keys, vecs)
-        return idx.query_batch(qv, k=3)[0]
+        idx[dtype, device] = make_index("hnsw", device=device,
+                                        **dict(conf, dtype=dtype))
+        idx[dtype, device].bulk_insert(keys, vecs)
+        return idx[dtype, device].query_batch(qv, k=3)[0]
 
     want = hnsw_keys("int8", "cpu")
     assert got == want, f"served hnsw int8 keys {got} != CPU index {want}"
@@ -1648,6 +1871,31 @@ def phase_serve_int8(torch) -> dict:
     out["keys"]["bf16"] = card
     log("hnsw keys (int8 served == CPU; bf16 card == CPU) "
         + json.dumps(out["keys"]))
+    # the hop kernel's route: these indexes (and an fp32 one, searched on
+    # the CPU through a copy) searched with the per-hop layer-0 beam
+    # (beam_impl="jnp"), each hop one gather_distance launch; its launches
+    # are the codec's gather launches less the one descent a search
+    hnsw_keys("fp32", "cuda")
+    idx["fp32", "cpu"] = copy.copy(idx["fp32", "cuda"])
+    idx["fp32", "cpu"].device = torch.device("cpu")
+    idx["fp32", "cpu"]._device_graph = None
+
+    def per_hop_keys(dtype, device):
+        c = copy.copy(idx[dtype, device])
+        c.beam_impl = "jnp"
+        return c.query_batch(qv, k=3)[0]
+
+    out["per_hop_beam"] = {}
+    for dtype in CODECS:
+        dispatch.reset()
+        card = per_hop_keys(dtype, "cuda")
+        counts = dispatch.snapshot()
+        cpu = per_hop_keys(dtype, "cpu")
+        assert card == cpu, f"hnsw {dtype} per-hop beam: {card} != {cpu}"
+        assert hop_launches(counts, dtype) > 0
+        out["per_hop_beam"][dtype] = counts
+    log("hnsw per-hop beam keys == CPU, counters "
+        + json.dumps(out["per_hop_beam"]))
     return out
 
 
@@ -1803,15 +2051,21 @@ def main() -> int:
              "hnsw bf16": int8_out["counters_bf16"],
              "hnsw int8 store cold": store_out["cold"]["counters"],
              "hnsw int8 store warm": store_out["warm"]["counters"],
+             **{f"hnsw {c} per-hop beam": int8_out["per_hop_beam"][c]
+                for c in CODECS},
              BAG_ENTRY: bag_counts}
+    for counts in paths.values():
+        for c in CODECS:
+            counts[f"{HOP_COUNTER}.{c}"] = hop_launches(counts, c)
     line = []
     for name, rec in kern.items():
         base = name.split(".")[0]
-        counter = f"kernel.{name}"
+        counter = COUNTER_OF.get(name, f"kernel.{name}")
         launches = paths[MAIN_PATH[name]].get(counter, 0)
         assert launches > 0, f"{name} never launched on {MAIN_PATH[name]}"
         line.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{base}.cu",
+                     "source": "src/repro_torch/kernels/csrc/"
+                               f"{SOURCE_OF.get(base, base)}.cu",
                      "replaces": REPLACES[base], "launches": launches,
                      "main_path": MAIN_PATH[name],
                      "launches_by_path": {

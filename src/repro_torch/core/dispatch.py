@@ -2,9 +2,12 @@
 
 Tests, benches and ``chip_smoke.py`` read these to show what a run
 submitted: ``hnsw.search_graph`` searches, ``hnsw.beam_launches`` layer-0
-beam launches, ``hnsw.h2d_bytes`` host-to-device graph bytes,
-``hnsw.host_syncs`` device-to-host waits in the search's Python loops,
-and one counter per hand kernel (``kernel.gather_distance``,
+beam launches, ``hnsw.descent_launches`` one-launch greedy descents on the
+card (beside ``hnsw.descent_launches.<codec>``; each also counts as a
+``kernel.gather_distance`` launch, so a run tells them from per-hop
+gathers), ``hnsw.h2d_bytes`` host-to-device graph
+bytes, ``hnsw.host_syncs`` device-to-host waits in the search's Python
+loops, and one counter per hand kernel (``kernel.gather_distance``,
 ``kernel.beam_search``, ``kernel.flash_decode``,
 ``kernel.distance_topk``, ``kernel.embedding_bag``) that ``kernels.ops``
 bumps where it launches the kernel and nowhere else — the CPU branch,

@@ -3,18 +3,21 @@
 Every query of the batch advances together (the reference's DESIGN.md §2):
 
   * upper layers: greedy descent, one hop per loop iteration, all queries
-    stepping together until none improves — each hop is one
-    ``gather_distance`` launch;
+    stepping together until none improves (``ops.greedy_descent``). On
+    the card it is ONE launch for every layer and hop, each query
+    stopping on its own (``hnsw.descent_launches``); on the CPU the plain
+    version's per-hop loop;
   * layer 0: the ef-beam best-first search, either as ONE launch of the
     fused ``beam_search`` kernel (``beam_impl="fused"``, default) or as
     the per-hop reference loop (``beam_impl="jnp"``, the name kept from
-    the JAX package so configurations stay interchangeable).
+    the JAX package so configurations stay interchangeable), whose hops
+    launch ``gather_distance``.
 
-The JAX package runs both loops as ``while_loop``s on the device. Here
-they are Python loops: each hop of the greedy descent, and of the per-hop
-beam, ends with one device-to-host read of its loop condition (counted in
-``hnsw.host_syncs``). The fused beam has no such read: its loop runs
-inside the kernel.
+The JAX package runs both loops as ``while_loop``s on the device. The
+port runs the descent and the fused beam inside their kernels, with no
+host read. The Python loops left, the per-hop beam and the descent's
+plain version on the CPU, end each hop with one device-to-host read of
+their loop condition (counted in ``hnsw.host_syncs``).
 """
 from __future__ import annotations
 
@@ -224,30 +227,6 @@ def _synced_any(mask: torch.Tensor) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# upper-layer greedy descent (all queries lock-step)
-# ---------------------------------------------------------------------------
-def _greedy_layer(g: DeviceGraph, q: torch.Tensor, ep: torch.Tensor,
-                  ep_dist: torch.Tensor, layer: int):
-    """One layer's greedy descent. ep/ep_dist [B]."""
-    nbr_table = g.upper[layer - 1]                         # [N, M]
-    improved = torch.ones_like(ep, dtype=torch.bool)
-    while _synced_any(improved):
-        nbrs = nbr_table[ep.long()]                          # [B, M]
-        valid = nbrs >= 0
-        ids = nbrs.clamp(0, g.n - 1).contiguous()
-        d = ops.gather_distance(g.vectors, q, ids, metric=g.metric,
-                                scales=g.scales)
-        d = torch.where(valid, d, INF)
-        j = torch.argmin(d, dim=-1, keepdim=True)
-        best_d = torch.gather(d, 1, j)[:, 0]
-        best_i = torch.gather(ids, 1, j)[:, 0]
-        improved = best_d < ep_dist
-        ep = torch.where(improved, best_i, ep)
-        ep_dist = torch.where(improved, best_d, ep_dist)
-    return ep, ep_dist
-
-
-# ---------------------------------------------------------------------------
 # layer-0 beam search
 # ---------------------------------------------------------------------------
 def _beam_search(g: DeviceGraph, q: torch.Tensor, ep: torch.Tensor,
@@ -328,8 +307,10 @@ def search_core(g: DeviceGraph, q: torch.Tensor, k: int, ef: int,
     if g.scales is not None:                 # decode the entry row
         x0 = x0 * g.scales[ep.long()][:, None]
     ep_dist = batched_dist(g.metric, q, x0[:, None])[:, 0]
-    for layer in range(g.max_level, 0, -1):
-        ep, ep_dist = _greedy_layer(g, q, ep, ep_dist, layer)
+    if g.max_level > 0:
+        ep, ep_dist = ops.greedy_descent(
+            g.vectors, g.upper, q, ep, ep_dist.contiguous(),
+            max_level=g.max_level, metric=g.metric, scales=g.scales)
     if beam_impl == "fused":
         beam_i, beam_d = _beam_search_fused(g, q, ep, ep_dist, ef,
                                             max_iters, beam_expand)

@@ -74,14 +74,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bulk_copy.cuh"
+#include "row_distance.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 512;
 constexpr int kMinBlocks = 2;        // 512 x 2 threads: 64 registers each
 constexpr int kSlots = 2;            // candidate slots a thread, at most
-constexpr int kQRegFloats = 16;      // q floats a lane holds (D <= 512)
 constexpr float kInf = 3.0e38f;      // == core.hnsw.INF, the empty slot
-constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline int next_pow2(int n) {
   int p = 1;
@@ -142,53 +143,6 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// mbarrier and bulk-copy primitives
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-// Raise the current phase's expected bytes (no arrival), before the
-// copies it counts are issued, so that its byte count never goes below
-// zero. One lane of a warp does it for the warp's copies.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-// Arrive (release): lane 0 of each warp, once a phase, after the warp's
-// stores that the waiters read.
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-// Wait for the phase of the given parity to complete (acquire). A wait
-// that never completes traps after ~2^26 tries, so the launch fails
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    asm volatile("{\n .reg .pred p;\n"
-                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 " selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
-    if (tries == (1u << 26)) __trap();
-  }
-}
-// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
-// shared memory, counted on bar's transaction count
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
-               "::bytes [%0], [%1], %2, [%3];\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes),
-                  "r"(smem_u32(bar)) : "memory");
-}
-
-// ---------------------------------------------------------------------------
 // keys, the hop's id hash
 // ---------------------------------------------------------------------------
 // (d, id) as one unsigned 64-bit key whose order is the plain version's
@@ -215,165 +169,6 @@ __device__ __forceinline__ bool hash_claim(int* tab, uint32_t mask, int shift,
     if (v == -1) return true;
     if (v == id) return false;
   }
-}
-
-// ---------------------------------------------------------------------------
-// rows in shared memory: decode, distance
-// ---------------------------------------------------------------------------
-// Four int8 in a word, as fp32: x + 128 as the low byte of 2^23's
-// mantissa, (2^23 + x + 128) - (2^23 + 128) is x exactly: one byte permute
-// and one add, no I2F (which issues at a quarter of the FMA rate). The
-// same decode as distance_topk.cu.
-__device__ __forceinline__ void int8x4(uint32_t w, float* x) {
-  w ^= 0x80808080u;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    x[e] = __uint_as_float(__byte_perm(w, 0x4b00u, 0x5440u | e)) - 8388736.f;
-  }
-}
-
-// SRow<T>: kVec elements a 16-byte vector; vec() decodes one vector,
-// elem() element d of a row, both to fp32 and both exact.
-template <typename T>
-struct SRow;
-
-template <>
-struct SRow<float> {
-  static constexpr int kVec = 4;
-  __device__ static void vec(const uint4 a, float* v) {
-    v[0] = __uint_as_float(a.x);
-    v[1] = __uint_as_float(a.y);
-    v[2] = __uint_as_float(a.z);
-    v[3] = __uint_as_float(a.w);
-  }
-  __device__ static float elem(const unsigned char* row, int d) {
-    return reinterpret_cast<const float*>(row)[d];
-  }
-};
-
-template <>
-struct SRow<__nv_bfloat16> {  // the 16 bits become the high half of an fp32
-  static constexpr int kVec = 8;
-  __device__ static void vec(const uint4 a, float* v) {
-    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      v[2 * t] = __uint_as_float(w[t] << 16);
-      v[2 * t + 1] = __uint_as_float(w[t] & 0xffff0000u);
-    }
-  }
-  __device__ static float elem(const unsigned char* row, int d) {
-    const uint32_t u = reinterpret_cast<const unsigned short*>(row)[d];
-    return __uint_as_float(u << 16);
-  }
-};
-
-template <>
-struct SRow<int8_t> {
-  static constexpr int kVec = 16;
-  __device__ static void vec(const uint4 a, float* v) {
-    int8x4(a.x, v);
-    int8x4(a.y, v + 4);
-    int8x4(a.z, v + 8);
-    int8x4(a.w, v + 12);
-  }
-  __device__ static float elem(const unsigned char* row, int d) {
-    const uint32_t u = static_cast<uint32_t>(row[d] ^ 0x80u) | 0x4b000000u;
-    return __uint_as_float(u) - 8388736.f;
-  }
-};
-
-// one element's term, as warp_row_distance (row_distance.cuh) adds it
-__device__ __forceinline__ float term(float acc, float v, float q, float s,
-                                      bool scaled, int l2) {
-  // __fmul_rn: never contracted into the subtraction below
-  const float xv = scaled ? __fmul_rn(v, s) : v;
-  if (l2) {
-    const float diff = xv - q;
-    return fmaf(diff, diff, acc);
-  }
-  return fmaf(q, xv, acc);
-}
-
-// Lane `lane`'s share of <q, x> (l2 = 0) or |q - x|^2 (l2 = 1) for the
-// row at `row` (shared, 16-byte vectors): its vectors lane, lane + 32,
-// ... in row order, the order of warp_row_distance's vector path. QREG:
-// the lane's q floats are in qr (nvec <= 32 * kQRegFloats / kVec), else
-// read from q_s.
-template <typename T, bool QREG>
-__device__ __forceinline__ float lane_sum_vec(const unsigned char* row,
-                                                  const float* qr,
-                                                  const float* q_s, float s,
-                                                  bool scaled, int nvec,
-                                                  int lane, int l2) {
-  using R = SRow<T>;
-  const uint4* x4 = reinterpret_cast<const uint4*>(row);
-  float acc = 0.f;
-  if (QREG) {
-    constexpr int NV = kQRegFloats / R::kVec;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int idx = lane + 32 * i;
-      if (idx < nvec) {
-        float v[R::kVec];
-        R::vec(x4[idx], v);
-#pragma unroll
-        for (int t = 0; t < R::kVec; ++t) {
-          acc = term(acc, v[t], qr[i * R::kVec + t], s, scaled, l2);
-        }
-      }
-    }
-  } else {
-    const float4* q4 = reinterpret_cast<const float4*>(q_s);
-    for (int idx = lane; idx < nvec; idx += 32) {
-      float v[R::kVec];
-      R::vec(x4[idx], v);
-#pragma unroll
-      for (int t = 0; t < R::kVec / 4; ++t) {
-        const float4 b = q4[idx * (R::kVec / 4) + t];
-        acc = term(acc, v[4 * t], b.x, s, scaled, l2);
-        acc = term(acc, v[4 * t + 1], b.y, s, scaled, l2);
-        acc = term(acc, v[4 * t + 2], b.z, s, scaled, l2);
-        acc = term(acc, v[4 * t + 3], b.w, s, scaled, l2);
-      }
-    }
-  }
-  return acc;
-}
-
-// The same from an element-copied row: lane sums d = lane, lane + 32, ...,
-// the order of warp_row_distance's element path.
-template <typename T>
-__device__ __forceinline__ float lane_sum_elem(const unsigned char* row,
-                                               const float* q_s, float s,
-                                               bool scaled, int D, int lane,
-                                               int l2) {
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    acc = term(acc, SRow<T>::elem(row, d), q_s[d], s, scaled, l2);
-  }
-  return acc;
-}
-
-// The warp totals of four rows' lane sums: a reduce-scatter over the
-// xor tree of warp_row_distance (lanes l and l ^ 16 first, then ^ 8, ^ 4,
-// ^ 2, ^ 1). Each addition pairs the same two partial sums as that tree,
-// so the totals are its totals bit for bit; row j's lands in lanes
-// 8 j .. 8 j + 7.
-__device__ __forceinline__ float warp_total4(const float* acc, int lane) {
-  const bool hi16 = (lane & 16) != 0;
-  const bool hi8 = (lane & 8) != 0;
-  float k0 = hi16 ? acc[2] : acc[0];
-  float k1 = hi16 ? acc[3] : acc[1];
-  const float s0 = hi16 ? acc[0] : acc[2];
-  const float s1 = hi16 ? acc[1] : acc[3];
-  k0 += __shfl_xor_sync(kFull, s0, 16);
-  k1 += __shfl_xor_sync(kFull, s1, 16);
-  float t = hi8 ? k1 : k0;
-  t += __shfl_xor_sync(kFull, hi8 ? k0 : k1, 8);
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1) t += __shfl_xor_sync(kFull, t, off);
-  return t;
 }
 
 // Number of the sorted keys of beam[0, n) below `key`.
@@ -477,17 +272,7 @@ beam_search_kernel(const Args a) {
   __syncthreads();
 
   float qr[QREG ? kQRegFloats : 1];
-  if (QREG) {
-    constexpr int KV = SRow<T>::kVec;
-#pragma unroll
-    for (int i = 0; i < kQRegFloats / KV; ++i) {
-      const int idx = lane + 32 * i;
-#pragma unroll
-      for (int t = 0; t < KV; ++t) {
-        qr[i * KV + t] = idx < nvec ? q_s[idx * KV + t] : 0.f;
-      }
-    }
-  }
+  if (QREG) lane_q_regs<T>(q_s, nvec, lane, qr);
 
   uint32_t parity = 0;
   int cur = 0;

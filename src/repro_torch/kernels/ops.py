@@ -12,9 +12,11 @@ launch error, and bumps its ``kernel.<name>`` counter (core/dispatch.py)
 on the kernel branch only, beside ``kernel.<name>.<codec>`` for the row
 codec it read (fp32, bf16, int8). ``gather_distance``, ``beam_search``
 and ``flat_topk`` take fp32, bf16 and int8 (+ fp32 scales) rows: one CUDA
-kernel per function, instantiated per row type; ``embedding_bag`` takes
-fp32 and bf16 tables. ``select_neighbors`` is plain PyTorch on either
-device (the JAX package keeps it jnp-only too).
+kernel per function, instantiated per row type; ``greedy_descent`` is a
+second entry point of ``gather_distance``'s kernel source and counts as
+its launch; ``embedding_bag`` takes fp32 and bf16 tables.
+``select_neighbors`` is plain PyTorch on either device (the JAX package
+keeps it jnp-only too).
 """
 from __future__ import annotations
 
@@ -38,7 +40,11 @@ _SYM_SUFFIX = {"fp32": "f32", "bf16": "bf16", "int8": "int8"}
 # point per row codec
 _SIGS = {
     "gather_distance": ("gather_distance_{}",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P]),
+    "greedy_descent": ("greedy_descent_{}",
+                       [_P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "beam_search": ("beam_search_{}",
                     [_P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -52,15 +58,17 @@ _SIGS = {
     "embedding_bag": ("embedding_bag_{}",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
+# entry point -> the kernel (its library and launch counters) it belongs to
+_KERNEL_OF = {"greedy_descent": "gather_distance"}
 _FNS: dict[tuple[str, str], tuple] = {}
 
 
 def _kernel(name: str, codec: str):
-    """-> (C function, error-string function) of kernel ``name`` for rows
-    of ``codec``."""
+    """-> (C function, error-string function) of entry point ``name`` for
+    rows of ``codec``."""
     fns = _FNS.get((name, codec))
     if fns is None:
-        lib = build.library(name)
+        lib = build.library(_KERNEL_OF.get(name, name))
         sym, argtypes = _SIGS[name]
         fn = getattr(lib, sym.format(_SYM_SUFFIX[codec]))
         fn.argtypes = argtypes
@@ -78,8 +86,9 @@ def _launch(name: str, codec: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{err(rc).decode()} (cudaError {rc})")
-    dispatch.bump(f"kernel.{name}")
-    dispatch.bump(f"kernel.{name}.{codec}")
+    kernel = _KERNEL_OF.get(name, name)
+    dispatch.bump(f"kernel.{kernel}")
+    dispatch.bump(f"kernel.{kernel}.{codec}")
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -150,6 +159,12 @@ def _opt_ptr(t: torch.Tensor | None):
 
 
 # ---------------------------------------------------------------------------
+def _aligned_q(q: torch.Tensor) -> torch.Tensor:
+    """``q`` itself, or a copy when a view's base is not 16-byte aligned:
+    the kernels read a query's floats as float4."""
+    return q if q.data_ptr() % 16 == 0 else q.clone()
+
+
 def gather_distance(vectors: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
                     *, metric: str = "cosine",
                     scales: torch.Tensor | None = None) -> torch.Tensor:
@@ -157,7 +172,8 @@ def gather_distance(vectors: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
     ``scales`` [N] decoding each row by a multiply), q [B,D] f32, ids
     [B,K] i32 -> [B,K] f32 (``1 - <q,x>`` for cosine/ip, squared L2 for
     l2). Callers pre-clip ids to [0, N) and mask invalid slots after the
-    call."""
+    call. On the card a warp scores four of a query's pairs, the warps
+    spread over the grid (``_gather_plan``)."""
     l2 = _metric_code(metric)
     tensors = (vectors, q, ids) if scales is None else (vectors, q, ids,
                                                          scales)
@@ -173,11 +189,127 @@ def gather_distance(vectors: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"q {tuple(q.shape)} does not match ids {b} x D {d}")
     out = torch.empty((b, k), dtype=torch.float32, device=q.device)
     if b * k:
+        threads, blocks = _gather_plan(b, k, _sm_count(q.device))
+        q = _aligned_q(q)
         with torch.cuda.device(q.device):
             _launch("gather_distance", codec, _ptr(vectors), _opt_ptr(scales),
                     _ptr(q), _ptr(ids), _ptr(out), b, k, d, n, l2,
-                    _aligned16(vectors), _stream(q))
+                    _aligned16(vectors), threads, blocks, _stream(q))
     return out
+
+
+_GATHER_MAX_WARPS = 8
+
+
+def _gather_plan(b: int, k: int, sm_count: int) -> tuple[int, int]:
+    """-> (threads, blocks) of a ``gather_distance`` launch. A warp scores
+    four of one query's pairs, so a query takes ceil(K / 4) warps. A
+    block takes the most warps (at most 8) that still leave at least one
+    block an SM, so that B 8 x K 16 (32 warps) and B 1024 x K 5 (2,048)
+    reach the SMs."""
+    warps = b * -(-k // 4)
+    w = _GATHER_MAX_WARPS
+    while w > 1 and -(-warps // w) < sm_count:
+        w //= 2
+    return 32 * w, -(-warps // w)
+
+
+def greedy_descent(vectors: torch.Tensor, upper: torch.Tensor,
+                   q: torch.Tensor, ep: torch.Tensor, ep_dist: torch.Tensor,
+                   *, max_level: int, metric: str = "cosine",
+                   scales: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The upper-layer greedy descent of an HNSW search: vectors [N,D]
+    (f32, bf16, or int8 with ``scales`` [N]), upper [L,N,M] i32 (-1 pad),
+    q [B,D] f32, ep [B] i32, ep_dist [B] f32 -> (ep, ep_dist) after
+    descending layers ``max_level`` .. 1 (``max_level`` <= L), the
+    result of ``core/hnsw.py``'s per-hop greedy loop layer by layer.
+
+    On the card ONE launch of the descent kernel (every layer and hop on
+    the device, no host sync), counted under ``kernel.gather_distance``
+    and ``hnsw.descent_launches`` (each beside its ``.<codec>``);
+    ``max_level`` 0 launches nothing and returns ``ep`` and ``ep_dist``
+    as they are. On the CPU the plain version's lock-step loop, whose
+    condition reads count under ``hnsw.host_syncs``."""
+    l2 = _metric_code(metric)
+    tensors = (vectors, upper, q, ep, ep_dist)
+    if scales is not None:
+        tensors += (scales,)
+    if not _on_cuda(*tensors):
+        stats = {}
+        out = _ref.greedy_descent_ref(vectors, upper, q, ep, ep_dist,
+                                      max_level=max_level, metric=metric,
+                                      scales=scales, stats=stats)
+        dispatch.bump("hnsw.host_syncs", stats["syncs"])
+        return out
+    codec = _check_rows(vectors, scales)
+    _check(upper, "upper", torch.int32, 3)
+    _check(q, "q", torch.float32, 2)
+    _check(ep, "ep", torch.int32, 1)
+    _check(ep_dist, "ep_dist", torch.float32, 1)
+    n, d = vectors.shape
+    layers, _, m = upper.shape
+    b = q.shape[0]
+    if upper.shape[1] != n or q.shape[1] != d or ep.shape != (b,) \
+            or ep_dist.shape != (b,):
+        raise ValueError("greedy_descent: inconsistent shapes")
+    max_level = int(max_level)
+    if not 0 <= max_level <= layers:
+        raise ValueError(f"greedy_descent: max_level {max_level} outside "
+                         f"[0, {layers}]")
+    if b == 0 or max_level == 0:
+        return ep, ep_dist
+    vec = _aligned16(vectors)
+    threads, ring, _, _ = _descent_plan(d, codec, m, vec)
+    q = _aligned_q(q)
+    out_ep = torch.empty_like(ep)
+    out_d = torch.empty_like(ep_dist)
+    with torch.cuda.device(q.device):
+        _launch("greedy_descent", codec, _ptr(vectors), _opt_ptr(scales),
+                _ptr(upper), _ptr(q), _ptr(ep), _ptr(ep_dist), _ptr(out_ep),
+                _ptr(out_d), b, n, d, m, max_level, l2, vec, ring, threads,
+                _stream(q))
+    dispatch.bump("hnsw.descent_launches")
+    dispatch.bump(f"hnsw.descent_launches.{codec}")
+    return out_ep, out_d
+
+
+_DESCENT_MAX_THREADS = 1024
+_SM_THREADS = 2048
+_SM_BLOCKS = 32
+
+
+def _descent_layout_bytes(d: int, elem: int, m: int, ring: int) -> int:
+    """Shared-memory bytes of a descent block, as the kernel lays them out
+    (``descent_layout`` in gather_distance.cu): the ring of M rows when
+    staged, the mbarrier, the list and its scales, and the warps' bests
+    for two hops."""
+    return (m * _r16(d * elem) if ring else 0) + 16 + 2 * _r16(m * 4) + 768
+
+
+def _descent_plan(d: int, codec: str, m: int, vec: int
+                  ) -> tuple[int, int, int, int]:
+    """-> (threads, ring, shared bytes, blocks an SM) of a descent launch.
+
+    One block a query: a warp scores four list slots, so ceil(M / 4)
+    warps put every row of a hop in flight. The rows go to a shared ring
+    (one bulk copy a row) when they are 16-byte rows and M of them fit a
+    block's 227 KB; else they are read from global memory (``ring`` 0).
+    Blocks an SM: what the SM's threads, blocks and shared memory allow
+    (1 KB of each block's reserved). M > 128 raises."""
+    if codec not in _ELEM_BYTES:
+        raise ValueError(f"unknown codec {codec!r}")
+    elem = _ELEM_BYTES[codec]
+    threads = 32 * -(-m // 4)
+    if m < 1 or threads > _DESCENT_MAX_THREADS:
+        raise ValueError(f"greedy_descent: M {m} outside [1, "
+                         f"{4 * _DESCENT_MAX_THREADS // 32}]")
+    ring = int(bool(vec) and _descent_layout_bytes(d, elem, m, 1)
+               <= _SMEM_BLOCK)
+    smem = _descent_layout_bytes(d, elem, m, ring)
+    per_sm = min(_SM_BLOCKS, _SM_THREADS // threads,
+                 _SMEM_SM // (smem + _SMEM_RESERVED))
+    return threads, ring, smem, per_sm
 
 
 def beam_search(vectors: torch.Tensor, neighbors0: torch.Tensor,

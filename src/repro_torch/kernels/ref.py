@@ -34,6 +34,75 @@ def gather_distance_ref(vectors: torch.Tensor, q: torch.Tensor,
     return torch.einsum("bkd,bkd->bk", d, d)
 
 
+def greedy_descent_ref(vectors: torch.Tensor, upper: torch.Tensor,
+                       q: torch.Tensor, ep: torch.Tensor,
+                       ep_dist: torch.Tensor, *, max_level: int,
+                       metric: str = "cosine",
+                       scales: torch.Tensor | None = None, gather=None,
+                       stats: dict | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the upper-layer greedy descent, the lock-step loop
+    of ``core/hnsw.py`` (the JAX package's ``_greedy_layer``) for layers
+    ``max_level`` .. 1: per hop every query reads ``upper[layer - 1][ep]``
+    [B, M], clamps the ids to [0, N), scores them (slots with id < 0 at
+    INF), takes the argmin (lowest slot among ties) and moves iff it beats
+    ``ep_dist``; a layer ends when no query moved. vectors [N, D] (any
+    codec dtype; ``scales`` [N] decodes), upper [L, N, M] i32, q [B, D],
+    ep [B] i32, ep_dist [B] f32 -> (ep, ep_dist).
+
+    ``gather`` scores a hop's ids (default ``gather_distance_ref``;
+    ``kernels.ops.gather_distance`` runs the loop through the hop
+    kernel). ``stats``, a dict, receives ``syncs`` (loop-condition reads,
+    one a hop plus one a layer), ``lockstep_hops``, ``hops`` ([B] i32,
+    the hops each query needs when it stops as soon as it does not
+    improve: its moves plus one a layer), and the work those hops read:
+    ``lists`` (distinct (layer, node) lists), ``rows`` (bool [N], rows of
+    valid slots) and ``pairs`` ((query, valid slot) distances)."""
+    gather = gather_distance_ref if gather is None else gather
+    n = vectors.shape[0]
+    b = q.shape[0]
+    dev = q.device
+    ep = ep.to(torch.int32)
+    ep_dist = ep_dist.float()
+    syncs = lockstep = pairs = lists = 0
+    if stats is not None:
+        hops = torch.zeros(b, dtype=torch.int32, device=dev)
+        rows = torch.zeros(n, dtype=torch.bool, device=dev)
+    for layer in range(int(max_level), 0, -1):
+        table = upper[layer - 1]
+        improved = torch.ones(b, dtype=torch.bool, device=dev)
+        if stats is not None:
+            seen = torch.zeros(n, dtype=torch.bool, device=dev)
+        while True:
+            syncs += 1
+            if not bool(improved.any()):
+                break
+            lockstep += 1
+            nbrs = table[ep.long()]                            # [B, M]
+            valid = nbrs >= 0
+            ids = nbrs.clamp(0, n - 1).contiguous()
+            if stats is not None:        # the queries still moving
+                hops += improved.to(torch.int32)
+                seen[ep[improved].long()] = True
+                live = valid & improved[:, None]
+                rows[ids[live].long()] = True
+                pairs += int(live.sum())
+            d = gather(vectors, q, ids, metric=metric, scales=scales)
+            d = torch.where(valid, d, BEAM_INF)
+            j = torch.argmin(d, dim=-1, keepdim=True)
+            best_d = torch.gather(d, 1, j)[:, 0]
+            best_i = torch.gather(ids, 1, j)[:, 0]
+            improved = best_d < ep_dist
+            ep = torch.where(improved, best_i, ep)
+            ep_dist = torch.where(improved, best_d, ep_dist)
+        if stats is not None:
+            lists += int(seen.sum())
+    if stats is not None:
+        stats.update(syncs=syncs, lockstep_hops=lockstep, hops=hops,
+                     lists=lists, rows=rows, pairs=pairs)
+    return ep, ep_dist
+
+
 # ---------------------------------------------------------------------------
 # exact search
 # ---------------------------------------------------------------------------

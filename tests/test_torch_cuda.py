@@ -542,6 +542,197 @@ def test_beam_search_distances_are_gather_distances(cuda_device, codec, d,
     assert torch.equal(kd, tops.gather_distance(rows, q, ki, scales=scl))
 
 
+# ---------------------------------------------------------------------------
+# the hop kernel's pair layouts, and the one-launch greedy descent
+# ---------------------------------------------------------------------------
+def _codec_rows(x, codec, device, offset=0):
+    """fp32 rows -> (rows of ``codec`` on the card, ``offset`` elements into
+    their buffer, and their scales or None)."""
+    from repro_torch.core.codec import get_codec
+    if codec == "fp32":
+        enc, scales = x, None
+    else:
+        enc, scales = get_codec(codec).encode(x)
+    flat = np.zeros(enc.size + offset, enc.dtype)
+    flat[offset:] = enc.reshape(-1)
+    rows = _encoded_flat(flat, codec, device)[offset:].view(*x.shape)
+    return rows, None if scales is None else _t(scales).to(device)
+
+
+def _upper(rng, layers, n, m):
+    """A random upper table [L, N, M] with 15 % -1 padding and a few all -1
+    lists."""
+    up = rng.integers(0, n, size=(layers, n, m)).astype(np.int32)
+    up[rng.random(up.shape) < 0.15] = -1
+    up[:, rng.integers(0, n, size=7)] = -1
+    return up
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("b,k", [(8, 16), (1024, 5), (1024, 32), (3, 1),
+                                 (300, 6), (40, 64)])
+def test_gather_distance_kernel_pair_layouts(cuda_device, codec, b, k):
+    """Every block shape of ``ops._gather_plan`` (1 to 8 warps a block; a
+    query's last warp with 1 to 4 pairs) against the plain version
+    (1e-5), and its distances equal the same pairs scored one query at a
+    time."""
+    rng = np.random.default_rng(31)
+    n, d = 4000, 384
+    rows, scl = _codec_rows(_unit(rng.normal(size=(n, d))), codec,
+                            cuda_device)
+    q = _t(_unit(rng.normal(size=(b, d)))).to(cuda_device)
+    ids = _t(rng.integers(0, n, size=(b, k)).astype(np.int32)).to(
+        cuda_device)
+    got = tops.gather_distance(rows, q, ids, scales=scl)
+    torch.testing.assert_close(
+        got, tref.gather_distance_ref(rows, q, ids, scales=scl),
+        rtol=0, atol=1e-5)
+    one = torch.cat([tops.gather_distance(rows, q[i:i + 1], ids[i:i + 1],
+                                          scales=scl) for i in range(3)])
+    assert torch.equal(got[:3], one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("b,m,layers", [(8, 16, 3), (1024, 5, 8)])
+@pytest.mark.parametrize("metric,d,offset", [
+    ("cosine", 384, 0), ("l2", 384, 0), ("ip", 30, 0), ("cosine", 96, 0),
+    ("cosine", 1000, 0), ("l2", 96, 1), ("cosine", 384, 3)])
+def test_greedy_descent_equals_per_hop_loop(cuda_device, codec, b, m, layers,
+                                            metric, d, offset):
+    """The one-launch descent's (ep, ep_dist) equal the per-hop loop's
+    through the hop kernel bit for bit, at the served (B 8, M 16) and the
+    bulk build's (B 1024, M 5) shapes, on 16-byte rows in the ring,
+    element reads (D 30, misaligned views) and D 1000."""
+    from repro_torch.core import dispatch
+    rng = np.random.default_rng(32)
+    n = 3000
+    rows, scl = _codec_rows(_unit(rng.normal(size=(n, d))), codec,
+                            cuda_device, offset)
+    up = _t(_upper(rng, layers, n, m)).to(cuda_device)
+    q = _t(_unit(rng.normal(size=(b, d)))).to(cuda_device)
+    ep = torch.full((b,), 17, dtype=torch.int32, device=cuda_device)
+    ep_d = tops.gather_distance(rows, q, ep[:, None], metric=metric,
+                                scales=scl)[:, 0].contiguous()
+    kw = dict(max_level=layers, metric=metric, scales=scl)
+    dispatch.reset()
+    ge, gd = tops.greedy_descent(rows, up, q, ep, ep_d, **kw)
+    assert dispatch.get("hnsw.descent_launches") == 1
+    assert dispatch.get(f"kernel.gather_distance.{codec}") == 1
+    we, wd = tref.greedy_descent_ref(rows, up, q, ep, ep_d,
+                                     gather=tops.gather_distance, **kw)
+    assert torch.equal(ge, we)
+    assert torch.equal(gd, wd)
+    assert bool((ge != ep).any())
+    # the descent's distances are the hop kernel's of its ids
+    assert torch.equal(gd, tops.gather_distance(rows, q, ge[:, None],
+                                                metric=metric,
+                                                scales=scl)[:, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("m", [1, 4, 5, 16, 32, 33, 100])
+def test_greedy_descent_exact_on_integer_rows(cuda_device, codec, m):
+    """Integer-valued l2 rows (exact arithmetic): the descent equals the
+    plain version, ties included (the lowest slot wins), for one to 25
+    warps a block; max_level 0 launches nothing."""
+    from repro_torch.core import dispatch
+    vec, _, q, _ = _int_graph(33, n=2000, d=64, m2=4, b=64)
+    rows, scl = _codec_rows(vec, codec, cuda_device)
+    if codec == "int8":
+        rows, scl = _t(vec.astype(np.int8)).to(cuda_device), torch.ones(
+            2000, device=cuda_device)
+    rng = np.random.default_rng(m)
+    up = _t(_upper(rng, 4, 2000, m)).to(cuda_device)
+    qq = _t(q).to(cuda_device)
+    ep = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    ep_d = tref.gather_distance_ref(rows, qq, ep[:, None], metric="l2",
+                                    scales=scl)[:, 0].contiguous()
+    kw = dict(metric="l2", scales=scl)
+    for level in (4, 2):
+        ge, gd = tops.greedy_descent(rows, up, qq, ep, ep_d, max_level=level,
+                                     **kw)
+        we, wd = tref.greedy_descent_ref(rows, up, qq, ep, ep_d,
+                                         max_level=level, **kw)
+        assert torch.equal(ge, we) and torch.equal(gd, wd)
+    dispatch.reset()
+    ge, gd = tops.greedy_descent(rows, up, qq, ep, ep_d, max_level=0, **kw)
+    assert ge is ep and gd is ep_d
+    assert dispatch.get("kernel.gather_distance") == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("d,m", [(384, 16), (384, 5), (1000, 32), (30, 16),
+                                 (8000, 32)])
+def test_descent_plan_is_the_kernels_layout(cuda_device, codec, d, m):
+    """The plan's shared bytes are the kernel's own layout's; rows wider
+    than the ring (8000 fp32 x 32) are read from global memory."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library("gather_distance")
+    size = lib.greedy_descent_smem_bytes
+    size.argtypes = [ctypes.c_int] * 4
+    size.restype = ctypes.c_longlong
+    vec = int(d * tops._ELEM_BYTES[codec] % 16 == 0)
+    threads, ring, smem, per_sm = tops._descent_plan(d, codec, m, vec)
+    assert smem == size(d, tops._ELEM_BYTES[codec], m, ring)
+    assert ring == int(vec and m * d * tops._ELEM_BYTES[codec] < 200_000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16", "int8"])
+def test_served_search_descends_in_one_launch(cuda_device, dtype):
+    """A search on the card: one descent launch, one beam launch, no host
+    sync; the keys equal the same index searched on the CPU."""
+    from repro_torch.core import dispatch
+    from repro_torch.core.index import make_index
+    rng = np.random.default_rng(34)
+    data = rng.integers(-4, 5, size=(3000, 64)).astype(np.float32)
+    q = rng.integers(-4, 5, size=(8, 64)).astype(np.float32)
+    keys = [f"d{i}" for i in range(3000)]
+    out = {}
+    for device in ("cpu", cuda_device):
+        idx = make_index("hnsw", dim=64, metric="l2", M=4,
+                         ef_construction=40, dtype=dtype, device=device)
+        idx.bulk_insert(keys, data)
+        assert idx.host_graph().max_level >= 2
+        idx.query_batch(q[:1], k=5)                 # uploads the graph
+        dispatch.reset()
+        out[str(device)] = idx.query_batch(q, k=5)[0]
+        counts = dispatch.snapshot()
+    assert out["cpu"] == out[str(cuda_device)]
+    assert counts["hnsw.descent_launches"] == 1
+    assert counts["kernel.gather_distance"] == 1
+    assert counts["kernel.beam_search"] == 1
+    assert counts.get("hnsw.host_syncs", 0) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("d,b", [(384, 8), (384, 300), (1000, 8), (30, 40)])
+def test_descent_distances_are_gather_distances(cuda_device, codec, d, b):
+    """The descent and the hop kernel sum every (query, row) pair in the
+    same order (as ``beam_search`` does): the descent's ep_dist equals
+    ``gather_distance``'s distance of its ep, bit for bit."""
+    rng = np.random.default_rng(35)
+    n, m = 3000, 16
+    rows, scl = _codec_rows(_unit(rng.normal(size=(n, d))), codec,
+                            cuda_device)
+    up = _t(_upper(rng, 2, n, m)).to(cuda_device)
+    q = _t(_unit(rng.normal(size=(b, d)))).to(cuda_device)
+    ep = _t(rng.integers(0, n, size=b).astype(np.int32)).to(cuda_device)
+    ep_d = tops.gather_distance(rows, q, ep[:, None], scales=scl)[:, 0]
+    ge, gd = tops.greedy_descent(rows, up, q, ep, ep_d.contiguous(),
+                                 max_level=2, scales=scl)
+    moved = ge != ep
+    assert bool(moved.any())
+    assert torch.equal(gd, tops.gather_distance(rows, q, ge[:, None],
+                                                scales=scl)[:, 0])
+
+
 @pytest.mark.cuda
 def test_codec_kernels_check_their_rows(cuda_device):
     """int8 rows need fp32 scales; bf16 and fp32 rows take none."""
