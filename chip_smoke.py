@@ -152,6 +152,11 @@ DESCENT_CELLS = {"served": (8, 16), "build": (1024, 5)}
 # beam_search's served tick (8 coalesced requests, M 16: 2M 32, ef 64)
 # and the bulk build's launch (configs/mememo.py build_1m: M 5, efC 20)
 SERVED_B, BUILD_M2, BUILD_EF = 8, 10, 20
+# HNSW past M 128 (the descent in rounds of 128 list slots, the beam's
+# hops in waves of 1,024 candidates): M 200 at the served B 8, on a
+# random upper table [2, 1M, 200] and layer-0 graph [1M, 400] (1.6 GB
+# each)
+WIDE_M, WIDE_CODECS = 200, ("fp32", "int8")
 # distance_topk: k from configs/base.py retrieval_cand; B 8 is the served
 # flat batch, and k 1000 there takes four passes
 TOPK_K, TOPK_BATCHES = 10, (1, 8, 128)
@@ -298,7 +303,7 @@ def phase_environment(torch):
     took = build.build()
     log(f"kernel build: {time.perf_counter() - t0:.2f}s wall, per source "
         + json.dumps({k: round(v, 2) for k, v in took.items()}))
-    for name in ("gather_distance", "beam_search"):
+    for name in ("gather_distance", "beam_search", "embedding_bag"):
         for line in ptxas_report(name):
             log(f"{name} ptxas {line}")
     return smi
@@ -628,6 +633,119 @@ def check_beam(torch, codec, rows, scales, nbrs, q, ep, irows, iscales,
                f"[:, :{BUILD_M2}], ef {BUILD_EF})")
 
 
+def check_wide(torch, codec, rows, scales, up, nbrs, q, irows, iscales,
+               qint) -> tuple[dict, dict]:
+    """A search past M 128 on ``rows`` (1M x 384 of ``codec``): the
+    descent on the upper table ``up`` [2, 1M, 200] and the beam (ef 64, T
+    4: 1,600 candidates a hop, two waves) on the layer-0 graph ``nbrs``
+    [1M, 400], each at the served B 8, the calls cycling over the 128
+    sets of 8 queries, every query entering at row 0. Held, over the
+    1,024 queries: the descent bit for bit against the per-hop loop and
+    against the plain version (``descent_agree``); the beam from the
+    descent's entry points against its plain version (``beam_agree``);
+    on integer-valued l2 rows both exactly. Each: ms (CUDA events a
+    call), device ms a launch (profiler), the plain version's ms, the
+    bound and the block plan."""
+    from repro_torch.kernels import ops, ref
+
+    layers, m2 = up.shape[0], nbrs.shape[1]
+    dev = q.device
+    b = SERVED_B
+    sets = [slice(i, i + b) for i in range(0, N_QUERIES, b)]
+    ep = torch.zeros(N_QUERIES, dtype=torch.int32, device=dev)
+    ep_d = ref.gather_distance_ref(rows, q, ep[:, None],
+                                   scales=scales)[:, 0].contiguous()
+    what = f"{codec} M {WIDE_M}"
+    desc = descent_agree(torch, rows, scales, up, q, ep, ep_d,
+                         f"greedy_descent {what}")
+    kw = dict(max_level=layers, scales=scales)
+    de, dd = (torch.cat(x) for x in zip(*[
+        ops.greedy_descent(rows, up, q[s], ep[s], ep_d[s], **kw)
+        for s in sets]))
+    bkw = dict(ef=EF, expand_t=4, scales=scales)
+    ki, kd = (torch.cat(x) for x in zip(*[
+        ops.beam_search(rows, nbrs, q[s], de[s], dd[s], **bkw)
+        for s in sets]))
+    ri, rd = ref.beam_search_ref(rows, nbrs, q, de, dd, **bkw)
+    torch.cuda.synchronize()
+    beam = beam_agree(torch, ki, kd, ri, rd, f"beam_search {what}")
+    # integer-valued l2 rows: both exact against the plain version
+    ikw = dict(max_level=layers, metric="l2", scales=iscales)
+    ie_d = ref.gather_distance_ref(irows, qint, ep[:, None], metric="l2",
+                                   scales=iscales)[:, 0].contiguous()
+    ge, gd = (torch.cat(x) for x in zip(*[
+        ops.greedy_descent(irows, up, qint[s], ep[s], ie_d[s], **ikw)
+        for s in sets]))
+    we, wd = ref.greedy_descent_ref(irows, up, qint, ep, ie_d, **ikw)
+    ibkw = dict(ef=EF, expand_t=4, metric="l2", scales=iscales)
+    ki2, kd2 = (torch.cat(x) for x in zip(*[
+        ops.beam_search(irows, nbrs, qint[s], ge[s], gd[s], **ibkw)
+        for s in sets]))
+    ri2, rd2 = ref.beam_search_ref(irows, nbrs, qint, ge, gd, **ibkw)
+    torch.cuda.synchronize()
+    assert torch.equal(ge, we) and torch.equal(gd, wd), \
+        f"greedy_descent {what} l2: differs from the plain version"
+    assert torch.equal(ki2, ri2) and torch.equal(kd2, rd2), \
+        f"beam_search {what} l2: differs from the plain version"
+
+    first = {}
+    ref.greedy_descent_ref(rows, up, q[sets[0]], ep[sets[0]], ep_d[sets[0]],
+                           stats=first, **kw)
+    b_ms, b_by = bound(first["lists"] * WIDE_M * 4
+                       + int(first["rows"].sum().item())
+                       * row_bytes(rows, scales) + b * (q.shape[1] * 4 + 16),
+                       (2.0 if scales is None else 3.0) * first["pairs"]
+                       * q.shape[1])
+    cyc = itertools.cycle(sets)
+
+    def descend(fn):
+        def call():
+            s = next(cyc)
+            return fn(rows, up, q[s], ep[s], ep_d[s], **kw)
+        return call
+
+    split = device_split(torch, descend(ops.greedy_descent),
+                         "greedy_descent_kernel", reps=len(sets))
+    assert split["other_device_ms"] == 0, f"greedy_descent {what}: {split}"
+    desc.update(
+        B=b, M=WIDE_M, L=layers, int_l2_exact=True, **split,
+        ms=time_ms(torch, descend(ops.greedy_descent), len(sets)),
+        plain_ms=time_ms(torch, descend(ref.greedy_descent_ref), 8,
+                         warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        hops_max=int(first["hops"].max().item()),
+        plan=ops._descent_plan(q.shape[1], codec, WIDE_M,
+                               ops._aligned16(rows)))
+    log(f"greedy_descent {what} " + json.dumps(desc))
+
+    seen = [ref.beam_search_ref(rows, nbrs, q[s], de[s], dd[s],
+                                return_visited=True, **bkw)[2]
+            for s in sets[:16]]
+
+    def searched(fn):
+        def call():
+            s = next(cyc)
+            return fn(rows, nbrs, q[s], de[s], dd[s], **bkw)
+        return call
+
+    split = device_split(torch, searched(ops.beam_search),
+                         "beam_search_kernel", reps=len(sets))
+    beam.update(
+        int_l2_exact=True, B=b, m2=m2, ef=EF, T=4, **split,
+        hops=ref.beam_schedule(EF, 4, None)[2],
+        ms=time_ms(torch, searched(ops.beam_search), len(sets)),
+        plain_ms=time_ms(torch, searched(ref.beam_search_ref), 8,
+                         warmup=1),
+        **beam_work(rows, scales, m2, b, EF, seen),
+        plan=beam_plan(codec, b, rows.shape[1], m2, EF, 4),
+        shapes=f"vectors {rows.shape[0]}x{rows.shape[1]} {codec}"
+               + ("" if scales is None else " + scales")
+               + f", upper {layers}x{N_VECTORS}x{WIDE_M}, neighbors0 "
+               f"{N_VECTORS}x{m2} (10% -1), B {b}, 128 query sets cycled")
+    log(f"beam_search {what} " + json.dumps(beam))
+    return desc, beam
+
+
 def ptxas_report(name: str) -> list[str]:
     """Registers, stack and spills of each kernel of ``name``'s build, as
     ``nvcc -Xptxas -v`` reported them (build/torch_kernels/<name>.log)."""
@@ -673,6 +791,11 @@ def phase_kernels(torch) -> dict:
                          generator=gen).float()
     del pad
     ups = {m: random_upper(torch, gen, m) for _, m in DESCENT_CELLS.values()}
+    wide_up = random_upper(torch, gen, WIDE_M)
+    wide_nbrs = torch.randint(0, N_VECTORS, (N_VECTORS, 2 * WIDE_M),
+                              device=dev, generator=gen, dtype=torch.int32)
+    wide_nbrs[torch.rand(N_VECTORS, 2 * WIDE_M, device=dev,
+                         generator=gen) < 0.1] = -1
     for codec in CODECS:
         rows, scales = encode_rows(torch, vec, codec)
         irows, iscales = encode_rows(torch, vint, codec, integer=True)
@@ -682,9 +805,14 @@ def phase_kernels(torch) -> dict:
             torch, codec, rows, scales, q, ups)
         out[f"beam_search.{codec}"] = check_beam(
             torch, codec, rows, scales, nbrs, q, ep, irows, iscales, qint)
+        if codec in WIDE_CODECS:
+            (out[f"greedy_descent.{codec}"][f"m{WIDE_M}"],
+             out[f"beam_search.{codec}"][f"m{WIDE_M}"]) = check_wide(
+                torch, codec, rows, scales, wide_up, wide_nbrs, q, irows,
+                iscales, qint)
         del rows, scales, irows, iscales
         torch.cuda.empty_cache()
-    del nbrs, vec, q, vint, qint, ups
+    del nbrs, vec, q, vint, qint, ups, wide_up, wide_nbrs
     torch.cuda.empty_cache()
 
     out["flash_decode"] = check_flash_decode(torch, dev, gen)
@@ -776,7 +904,11 @@ def check_embedding_bag(torch, dev, gen) -> dict:
     without (the entry run's branch: w 1, ``mean`` divides by L), against
     its plain version (rtol 1e-5, atol 1e-5); integer-valued rows with 0/1
     weights exactly. Ids are uniform; the weights are a behaviour mask
-    (each bag's first n_b members, n_b uniform in [1, L], the tail 0)."""
+    (each bag's first n_b members, n_b uniform in [1, L], the tail 0).
+    Each cell: CUDA events a call, the profiler's device ms a launch, the
+    plain version's and the library's ms, the bound (the distinct rows of
+    weighted members) and the time to read every member's row (what the
+    reference's 0 x row semantics reads) at 3.35 TB/s."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
@@ -865,14 +997,28 @@ def check_embedding_bag(torch, dev, gen) -> dict:
                                                    per_sample_weights=wi)
                                    - want).abs().max().item()
                         library_ms = time_ms(torch, library, 20)
+                    # a call at B 512 is mostly the wrapper's host time;
+                    # the profiler's time a launch is the kernel's
+                    split = device_split(torch, kernel,
+                                         "embedding_bag_kernel",
+                                         reps=32 if b == BAG_BATCHES[0]
+                                         else 8)
+                    assert split["other_device_ms"] == 0, \
+                        f"embedding_bag {tname} B={b}: {split}"
                     key = (tname, b, combine, wk)
                     recs[key] = dict(
                         max_abs_err=err, int_rows_exact=combine == "sum",
-                        ms=time_ms(torch, kernel, 20),
+                        ms=time_ms(torch, kernel, 20), **split,
                         plain_ms=time_ms(torch, plain, 5, warmup=1),
-                        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                        bound_ms=b_ms, bound_by=b_by,
+                        every_row_ms=ids.numel() * BAG_DIM
+                        * table.element_size() / HBM_BYTES_PER_S * 1e3,
+                        library_ms=library_ms,
                         library_max_abs_err=lib_err, distinct_rows=n_rows,
-                        weighted_members=members)
+                        weighted_members=members,
+                        splits=ops._bag_plan(b, BAG_LEN, BAG_DIM,
+                                             torch.cuda.get_device_properties(
+                                                 0).multi_processor_count))
                     log(f"embedding_bag {tname} B={b} {combine} w={wk} "
                         + json.dumps(recs[key]))
             del table, tint

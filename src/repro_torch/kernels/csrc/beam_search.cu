@@ -36,7 +36,10 @@
 //      candidate slot claims its id with one atomicCAS and is kept iff
 //      the id was not there, so every id outside the beam is kept once:
 //      ref.beam_dedup_valid's ids (it keeps the first valid copy; a copy's
-//      row and distance are its id's, so which copy is kept is moot);
+//      row and distance are its id's, so which copy is kept is moot). A
+//      thread takes two candidate slots; a hop of more than 2 * threads
+//      candidates (T * 2M > 1,024 at 512 threads) runs steps 2 and 3 in
+//      waves of that many, each wave's kept rows in flight as it goes;
 //   3. every kept row in flight at once: kept slots take ring slots (one
 //      shared atomic a warp) and issue one cp.async.bulk each for their
 //      row into a shared-memory ring, counted on one mbarrier (lane 0 of
@@ -81,7 +84,7 @@ namespace {
 
 constexpr int kMaxThreads = 512;
 constexpr int kMinBlocks = 2;        // 512 x 2 threads: 64 registers each
-constexpr int kSlots = 2;            // candidate slots a thread, at most
+constexpr int kSlots = 2;            // candidate slots a thread a wave
 constexpr float kInf = 3.0e38f;      // == core.hnsw.INF, the empty slot
 
 __host__ __device__ inline int next_pow2(int n) {
@@ -320,59 +323,64 @@ beam_search_kernel(const Args a) {
     }
 
     // -- 2. neighbour lists of the frontier (slot c = j * m2 + e), an
-    //    int8 slot's scale as soon as its id is known
-    int cand[kSlots];
-    bool ok[kSlots];
-    float sc[kSlots];
+    //    int8 slot's scale as soon as its id is known; a hop of more
+    //    than kSlots * threads candidates takes them in waves of that
+    //    many, each through steps 2 and 3
+    for (int w0 = 0; w0 < w; w0 += kSlots * nthr) {
+      int cand[kSlots];
+      bool ok[kSlots];
+      float sc[kSlots];
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int c = tid + s * nthr;
-      int nb = -1;
-      if (c < w) {
-        const int j = c / m2;
-        const int node = nodes[j];
-        if (node >= 0) {
-          const int row = node >= a.N ? a.N - 1 : node;
-          nb = __ldg(a.nbrs + static_cast<size_t>(row) * m2 + (c - j * m2));
+      for (int s = 0; s < kSlots; ++s) {
+        const int c = w0 + tid + s * nthr;
+        int nb = -1;
+        if (c < w) {
+          const int j = c / m2;
+          const int node = nodes[j];
+          if (node >= 0) {
+            const int row = node >= a.N ? a.N - 1 : node;
+            nb = __ldg(a.nbrs + static_cast<size_t>(row) * m2 + (c - j * m2));
+          }
         }
+        ok[s] = nb >= 0;
+        cand[s] = nb < 0 ? 0 : (nb >= a.N ? a.N - 1 : nb);
+        sc[s] = scaled && ok[s] ? __ldg(a.scales + cand[s]) : 1.f;
       }
-      ok[s] = nb >= 0;
-      cand[s] = nb < 0 ? 0 : (nb >= a.N ? a.N - 1 : nb);
-      sc[s] = scaled && ok[s] ? __ldg(a.scales + cand[s]) : 1.f;
-    }
 
-    // -- 3. dedup: a valid slot is kept iff it claims its id in the table
-    //    that holds the beam's ids, so each id outside the beam is kept
-    //    once (ref.beam_dedup_valid keeps the first valid copy: the same
-    //    ids, and a copy's row and distance are the copy's id's). Kept
-    //    slots take ring slots (one shared atomic a warp) and request
-    //    their rows at once.
-    int kk[kSlots];
+      // -- 3. dedup: a valid slot is kept iff it claims its id in the
+      //    table that holds the beam's ids (and the earlier waves'
+      //    kept ids), so each id outside the beam is kept once
+      //    (ref.beam_dedup_valid keeps the first valid copy: the same
+      //    ids, and a copy's row and distance are the copy's id's). Kept
+      //    slots take ring slots (one shared atomic a warp) and request
+      //    their rows at once.
+      int kk[kSlots];
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const bool keep = ok[s] && hash_claim(tab, hmask, hshift, cand[s]);
-      const unsigned m = __ballot_sync(kFull, keep);
-      int base = 0;
-      if (lane == 0 && m) base = atomicAdd(nk_s, __popc(m));
-      base = __shfl_sync(kFull, base, 0);
-      kk[s] = keep ? base + __popc(m & lt_mask) : -1;
-      if (VEC) {
-        // the warp's copies: lane 0 raises the phase's bytes first
-        const bool copy = keep && kk[s] < a.ring_rows;
-        const unsigned mc = __ballot_sync(kFull, copy);
-        if (lane == 0 && mc) mbar_expect_tx(bar, __popc(mc) * rowb);
-        __syncwarp();
-        if (copy) {
-          bulk_copy(ring + static_cast<size_t>(kk[s]) * L.stride,
-                    vectors + static_cast<size_t>(cand[s]) * D, rowb, bar);
+      for (int s = 0; s < kSlots; ++s) {
+        const bool keep = ok[s] && hash_claim(tab, hmask, hshift, cand[s]);
+        const unsigned m = __ballot_sync(kFull, keep);
+        int base = 0;
+        if (lane == 0 && m) base = atomicAdd(nk_s, __popc(m));
+        base = __shfl_sync(kFull, base, 0);
+        kk[s] = keep ? base + __popc(m & lt_mask) : -1;
+        if (VEC) {
+          // the warp's copies: lane 0 raises the phase's bytes first
+          const bool copy = keep && kk[s] < a.ring_rows;
+          const unsigned mc = __ballot_sync(kFull, copy);
+          if (lane == 0 && mc) mbar_expect_tx(bar, __popc(mc) * rowb);
+          __syncwarp();
+          if (copy) {
+            bulk_copy(ring + static_cast<size_t>(kk[s]) * L.stride,
+                      vectors + static_cast<size_t>(cand[s]) * D, rowb, bar);
+          }
         }
       }
-    }
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      if (kk[s] >= 0) {
-        cid[kk[s]] = cand[s];
-        if (scaled) cscale[kk[s]] = sc[s];
+      for (int s = 0; s < kSlots; ++s) {
+        if (kk[s] >= 0) {
+          cid[kk[s]] = cand[s];
+          if (scaled) cscale[kk[s]] = sc[s];
+        }
       }
     }
     if (VEC) {
@@ -562,10 +570,8 @@ cudaError_t prepare(int v) {
 template <typename T>
 int launch(Args a, int B, int threads, void* stream) {
   if (B <= 0) return 0;
-  const int w = a.T * a.m2;
   if (threads < 32 || threads > kMaxThreads || threads % 32 || a.ring_rows < 1 ||
-      w > kSlots * threads || a.ef < 1 || a.T < 1 || a.D < 1 ||
-      a.efp != next_pow2(a.ef)) {
+      a.ef < 1 || a.T < 1 || a.D < 1 || a.efp != next_pow2(a.ef)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.L = make_layout(a.D, sizeof(T), a.m2, a.ef, a.T, threads, a.ring_rows);
@@ -604,9 +610,10 @@ extern "C" const char* kernel_error_string(int err) {
 // [B, ef] i32, out_d [B, ef] f32. efp = next_pow2(ef); T, budget, hops as
 // ref.beam_schedule gives them; l2 = 1 for squared L2, 0 for 1 - <q, x>;
 // vec = 1 promises a row of a whole number of 16 bytes and a
-// 16-byte-aligned vectors pointer. threads (a multiple of 32, <= 512,
-// >= T * m2 / 2) and ring_rows (>= 1) are the wrapper's plan
-// (ops._beam_plan). Each returns the launch's cudaError_t (0 on success).
+// 16-byte-aligned vectors pointer. threads (a multiple of 32, <= 512;
+// a hop's T * m2 candidates go in waves of 2 * threads) and ring_rows
+// (>= 1) are the wrapper's plan (ops._beam_plan). Each returns the
+// launch's cudaError_t (0 on success).
 #define BEAM_SEARCH_ENTRY(NAME, RowT)                                        \
   extern "C" int NAME(const void* vectors, const void* scales,             \
                       const void* nbrs, const void* q, const void* ep,     \

@@ -656,6 +656,88 @@ cudaError_t launch(const Args& a, int grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// heads wider than 1,024 floats
+// ---------------------------------------------------------------------------
+// The stream kernel above keeps a lane's share of gb heads' q and acc in
+// registers, which caps Dh at 1,024. A wider head takes this kernel: one
+// block of kWideThreads a (b, query head), q (pre-scaled) and acc in
+// shared memory, each thread owning dims tid, tid + kWideThreads, ...;
+// per live position one block-wide dot product (warp shuffles, then the
+// eight warp sums in order from a double-buffered slot, one barrier),
+// the online softmax in every thread alike, and acc = acc * alpha + p v.
+// It reads every live K and V row once a query head, G times the bytes of
+// the stream kernel; no configuration of the repo has such heads, so it
+// is kept simple and right, not fast.
+constexpr int kWideThreads = 256;
+
+struct WideArgs {
+  const float* q;                    // [B, H, Dh]
+  const float* k;                    // [B, S, KVH, Dh]
+  const float* v;
+  const int32_t* cur_len;            // [B]
+  float* out;                        // [B, H, Dh]
+  int H, S, KVH, Dh, G;
+  float scale;
+};
+
+__global__ void __launch_bounds__(kWideThreads)
+flash_decode_wide_kernel(const WideArgs a) {
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);          // [Dh]
+  float* acc = q_s + a.Dh;                               // [Dh]
+  float* red = acc + a.Dh;                               // [2][8]
+  const int b = blockIdx.x / a.H, h = blockIdx.x - b * a.H;
+  const int kh = h / a.G;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = min(max(a.cur_len[b], 0), a.S);
+  float* out = a.out + (static_cast<size_t>(b) * a.H + h) * a.Dh;
+  if (len == 0) {                    // zeros, as the stream kernel writes
+    for (int d = tid; d < a.Dh; d += kWideThreads) out[d] = 0.f;
+    return;
+  }
+  const float* q = a.q + (static_cast<size_t>(b) * a.H + h) * a.Dh;
+  for (int d = tid; d < a.Dh; d += kWideThreads) {
+    q_s[d] = q[d] * a.scale;
+    acc[d] = 0.f;
+  }
+  const size_t pos = static_cast<size_t>(a.KVH) * a.Dh;   // floats a position
+  const float* k0 = a.k + static_cast<size_t>(b) * a.S * pos +
+                    static_cast<size_t>(kh) * a.Dh;
+  const float* v0 = a.v + static_cast<size_t>(b) * a.S * pos +
+                    static_cast<size_t>(kh) * a.Dh;
+  float m = kNeg, l = 0.f;
+  for (int t = 0; t < len; ++t) {
+    const float* kr = k0 + t * pos;
+    float part = 0.f;
+    for (int d = tid; d < a.Dh; d += kWideThreads) {
+      part = fmaf(q_s[d], __ldg(kr + d), part);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(kFull, part, o);
+    float* slot = red + (t & 1) * 8;
+    if (lane == 0) slot[warp] = part;
+    __syncthreads();
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWideThreads / 32; ++w) s += slot[w];
+    const float m_new = fmaxf(m, s);
+    const float alpha = expf(m - m_new);
+    const float p = expf(s - m_new);
+    l = l * alpha + p;
+    m = m_new;
+    const float* vr = v0 + t * pos;
+    for (int d = tid; d < a.Dh; d += kWideThreads) {
+      acc[d] = fmaf(p, __ldg(vr + d), acc[d] * alpha);
+    }
+  }
+  for (int d = tid; d < a.Dh; d += kWideThreads) out[d] = acc[d] / l;
+}
+
+__host__ inline size_t wide_smem_bytes(int Dh) {
+  return (2 * static_cast<size_t>(Dh) + 16) * sizeof(float);
+}
+
 }  // namespace
 
 extern "C" const char* kernel_error_string(int err) {
@@ -746,4 +828,40 @@ extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
     }
   }
   return static_cast<int>(e);
+}
+
+// The same function for heads of any width whose q and acc fit a block's
+// shared memory (2 Dh + 16 floats <= 227 KB): one block a (b, query
+// head), no scratch. Returns the launch error (0 on success).
+extern "C" int flash_decode_wide_f32(const void* q, const void* k,
+                                     const void* v, const void* cur_len,
+                                     void* out, int B, int H, int S, int KVH,
+                                     int Dh, float scale, void* stream) {
+  if (B <= 0 || H <= 0) return 0;
+  const size_t smem = wide_smem_bytes(Dh);
+  if (KVH <= 0 || H % KVH || Dh <= 0 || smem > 227 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static bool raised[64] = {};       // the shared-memory limit, per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64 || !raised[dev]) {
+    e = cudaFuncSetAttribute(flash_decode_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             227 * 1024);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < 64) raised[dev] = true;
+  }
+  WideArgs a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.cur_len = static_cast<const int32_t*>(cur_len);
+  a.out = static_cast<float*>(out);
+  a.H = H; a.S = S; a.KVH = KVH; a.Dh = Dh; a.G = H / KVH;
+  a.scale = scale;
+  flash_decode_wide_kernel<<<B * H, kWideThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -40,14 +40,16 @@
 //     (one slot a thread, one 64-byte read at M 16) and each valid
 //     slot's thread issues one cp.async.bulk of its row into a shared
 //     ring (one mbarrier), so every row of the hop is in flight at once;
-//     each warp scores four slots from the ring, reduces its best (d,
-//     slot), and one block barrier later every thread holds the block's
-//     best and the same loop state. A query stops as soon as it does not
-//     improve: the lock-step loop of the reference leaves such a query
-//     at a fixed point (it reads the same list and finds the same best),
-//     so the result is the lock-step result. Rows that are not a whole
-//     number of 16 bytes, a misaligned table, or a hop too wide for the
-//     ring, are read straight from global memory in the same order.
+//     each warp scores four slots from the ring (slots 4 w + j; past M
+//     128, where the block has its 32 warps, again every 128 slots),
+//     reduces its best (d, slot), and one block barrier later every
+//     thread holds the block's best and the same loop state. A query
+//     stops as soon as it does not improve: the lock-step loop of the
+//     reference leaves such a query at a fixed point (it reads the same
+//     list and finds the same best), so the result is the lock-step
+//     result. Rows that are not a whole number of 16 bytes, a
+//     misaligned table, or a hop too wide for the ring, are read
+//     straight from global memory in the same order.
 //
 // Semantics of a descent hop, as core/hnsw.py:_greedy_layer: the list is
 // upper[layer - 1][ep]; ids clamp to [0, N); a slot with id < 0 scores
@@ -67,7 +69,7 @@
 namespace {
 
 constexpr int kHopMaxThreads = 256;
-constexpr int kDescentMaxThreads = 1024;   // 32 warps: M <= 128
+constexpr int kDescentMaxThreads = 1024;   // 32 warps: 128 slots a round
 constexpr float kInf = 3.0e38f;            // == core.hnsw.INF
 constexpr int kSmemOptIn = 227 * 1024;
 
@@ -189,8 +191,11 @@ __device__ __forceinline__ bool before(float d1, int r1, float d2, int r2) {
   return r1 < r2;
 }
 
-// QREG: q in registers (16-byte rows, D <= 512); VEC: 16-byte rows.
-template <typename T, bool QREG, bool VEC>
+// QREG: q in registers (16-byte rows, D <= 512); VEC: 16-byte rows;
+// ROUNDS: M > 128, the block's 32 warps take the list in rounds (else a
+// warp's four slots are the whole of its share, scored once: the round
+// loop, run once, cost the served descent ~8 % on the H100).
+template <typename T, bool QREG, bool VEC, bool ROUNDS>
 __global__ void __launch_bounds__(kDescentMaxThreads)
 greedy_descent_kernel(const DescentArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -209,7 +214,7 @@ greedy_descent_kernel(const DescentArgs a) {
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nw = blockDim.x >> 5;
-  const int list_warps = (M + 31) / 32;
+  const int list_warps = ROUNDS ? min(nw, (M + 31) / 32) : (M + 31) / 32;
   const bool scaled = a.scales != nullptr;
   const uint32_t rowb = static_cast<uint32_t>(D * sizeof(T));
   const int nvec = static_cast<int>(rowb / 16);
@@ -233,25 +238,36 @@ greedy_descent_kernel(const DescentArgs a) {
   for (int layer = a.max_level; layer >= 1; --layer) {
     const int32_t* table = a.upper + static_cast<size_t>(layer - 1) * N * M;
     for (;;) {
-      // -- 1. the list (slot c = tid), its scales, the rows in flight
+      // -- 1. the list (slot c = tid; in rounds, tid + 32 list_warps,
+      //    ...), its scales, the rows in flight
       if (warp < list_warps) {
         const int e = ep < 0 ? 0 : (ep >= N ? N - 1 : ep);
-        int nb = -1;
-        if (tid < M) nb = __ldg(table + static_cast<size_t>(e) * M + tid);
-        const int id = nb < 0 ? 0 : (nb >= N ? N - 1 : nb);
-        if (tid < M) cnb[tid] = nb;
-        if (VEC && a.ring) {
-          const unsigned m = __ballot_sync(kFull, nb >= 0);
-          if (lane == 0 && m) mbar_expect_tx(bar, __popc(m) * rowb);
-          __syncwarp();
-          if (nb >= 0) {
-            bulk_copy(ring + static_cast<size_t>(tid) * L.stride,
-                      vectors + static_cast<size_t>(id) * D, rowb, bar);
+        const int32_t* list = table + static_cast<size_t>(e) * M;
+        auto take = [&](int c) {
+          int nb = -1;
+          if (c < M) nb = __ldg(list + c);
+          const int id = nb < 0 ? 0 : (nb >= N ? N - 1 : nb);
+          if (c < M) cnb[c] = nb;
+          if (VEC && a.ring) {
+            const unsigned m = __ballot_sync(kFull, nb >= 0);
+            if (lane == 0 && m) mbar_expect_tx(bar, __popc(m) * rowb);
+            __syncwarp();
+            if (nb >= 0) {
+              bulk_copy(ring + static_cast<size_t>(c) * L.stride,
+                        vectors + static_cast<size_t>(id) * D, rowb, bar);
+            }
           }
-        }
-        // the scale's read waits here, after the row is requested
-        if (scaled && tid < M) {
-          cscale[tid] = nb >= 0 ? __ldg(a.scales + id) : 1.f;
+          // the scale's read waits here, after the row is requested
+          if (scaled && c < M) {
+            cscale[c] = nb >= 0 ? __ldg(a.scales + id) : 1.f;
+          }
+        };
+        if (ROUNDS) {
+          for (int c0 = 32 * warp; c0 < M; c0 += 32 * list_warps) {
+            take(c0 + lane);
+          }
+        } else {
+          take(tid);
         }
         __syncwarp();                 // the warp's stores, before its arrival
         if (lane == 0) mbar_arrive(bar);
@@ -259,38 +275,55 @@ greedy_descent_kernel(const DescentArgs a) {
       mbar_wait(bar, parity);
       parity ^= 1u;
 
-      // -- 2. distances, a warp four slots at a time; the warp's best
-      const int r0 = 4 * warp;
-      const unsigned char* row[4];
-      float s[4];
+      // -- 2. distances, a warp four slots at a time (slots r0 .. r0 + 3,
+      //    r0 = 4 warp, then in rounds + 4 nw, ...); the warp's best
+      auto score4 = [&](int r0, float& d, int& r, int& id) {
+        const unsigned char* row[4];
+        float s[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = r0 + j < M ? r0 + j : r0;
-        const int nb = cnb[r];
-        const int id = nb < 0 ? 0 : (nb >= N ? N - 1 : nb);
-        row[j] = (VEC && a.ring)
-                     ? ring + static_cast<size_t>(r) * L.stride
-                     : reinterpret_cast<const unsigned char*>(
-                           vectors + static_cast<size_t>(id) * D);
-        s[j] = scaled ? cscale[r] : 1.f;
-      }
-      float acc[4];
-      if (VEC) {
-        lane_sums_vec<T, QREG, 4>(row, qr, qv, s, scaled, nvec, lane, a.l2,
-                                  acc);
-      } else {
-        lane_sums_elem<T, 4>(row, qv, s, scaled, D, lane, a.l2, acc);
-      }
-      const float tot = warp_total4(acc, lane);
-      int r = r0 + (lane >> 3);
-      float d = kInf;
-      int id = 0;
-      if (r < M) {
-        const int nb = cnb[r];
-        id = nb < 0 ? 0 : (nb >= N ? N - 1 : nb);
-        if (nb >= 0) d = a.l2 ? tot : 1.f - tot;
-      } else {
-        r = -1;
+        for (int j = 0; j < 4; ++j) {
+          const int rj = r0 + j < M ? r0 + j : r0;
+          const int nb = cnb[rj];
+          const int rid = nb < 0 ? 0 : (nb >= N ? N - 1 : nb);
+          row[j] = (VEC && a.ring)
+                       ? ring + static_cast<size_t>(rj) * L.stride
+                       : reinterpret_cast<const unsigned char*>(
+                             vectors + static_cast<size_t>(rid) * D);
+          s[j] = scaled ? cscale[rj] : 1.f;
+        }
+        float acc[4];
+        if (VEC) {
+          lane_sums_vec<T, QREG, 4>(row, qr, qv, s, scaled, nvec, lane, a.l2,
+                                    acc);
+        } else {
+          lane_sums_elem<T, 4>(row, qv, s, scaled, D, lane, a.l2, acc);
+        }
+        const float tot = warp_total4(acc, lane);
+        r = r0 + (lane >> 3);
+        d = kInf;
+        id = 0;
+        if (r < M) {
+          const int nb = cnb[r];
+          id = nb < 0 ? 0 : (nb >= N ? N - 1 : nb);
+          if (nb >= 0) d = a.l2 ? tot : 1.f - tot;
+        } else {
+          r = -1;
+        }
+      };
+      float d;
+      int r, id;
+      score4(4 * warp, d, r, id);
+      if (ROUNDS) {
+        for (int r0 = 4 * warp + 4 * nw; r0 < M; r0 += 4 * nw) {
+          float dd;
+          int rr, ii;
+          score4(r0, dd, rr, ii);
+          if (before(dd, rr, d, r)) {
+            d = dd;
+            r = rr;
+            id = ii;
+          }
+        }
       }
 #pragma unroll
       for (int off = 8; off <= 16; off <<= 1) {
@@ -310,8 +343,8 @@ greedy_descent_kernel(const DescentArgs a) {
       }
       __syncthreads();
 
-      // -- 3. the block's best, the same in every thread (warps hold
-      //    ascending slot ranges, so warp order breaks ties)
+      // -- 3. the block's best, the same in every thread (before() breaks
+      //    ties by slot, so the warps' order does not matter)
       float bd = part_d[hb * 32];
       int br = part_r[hb * 32];
       int bi = part_i[hb * 32];
@@ -356,23 +389,30 @@ int launch_hop(const HopArgs& a, int threads, int blocks, int vec,
 }
 
 // The instance a descent takes: 0 element reads, 1 16-byte rows with q
-// read through L1, 2 16-byte rows with q in registers (D <= 512).
-__host__ inline int descent_variant(int D, int vec) {
-  return vec ? (qreg_of(D, vec) ? 2 : 1) : 0;
+// read through L1, 2 16-byte rows with q in registers (D <= 512); + 3
+// when the list takes rounds (M > 128).
+__host__ inline int descent_variant(int D, int M, int vec) {
+  return (vec ? (qreg_of(D, vec) ? 2 : 1) : 0) + (M > 128 ? 3 : 0);
+}
+
+template <typename T, bool ROUNDS>
+const void* descent_instance(int v) {
+  if (v == 2) return reinterpret_cast<const void*>(greedy_descent_kernel<T, true, true, ROUNDS>);
+  if (v == 1) return reinterpret_cast<const void*>(greedy_descent_kernel<T, false, true, ROUNDS>);
+  return reinterpret_cast<const void*>(greedy_descent_kernel<T, false, false, ROUNDS>);
 }
 
 template <typename T>
 const void* descent_kernel_of(int v) {
-  if (v == 2) return reinterpret_cast<const void*>(greedy_descent_kernel<T, true, true>);
-  if (v == 1) return reinterpret_cast<const void*>(greedy_descent_kernel<T, false, true>);
-  return reinterpret_cast<const void*>(greedy_descent_kernel<T, false, false>);
+  return v >= 3 ? descent_instance<T, true>(v - 3)
+                : descent_instance<T, false>(v);
 }
 
 // Raises a descent instance's dynamic shared-memory limit to the card's
 // 227 KB, once a device.
 template <typename T>
 cudaError_t prepare_descent(int v) {
-  static bool done[3][64] = {};
+  static bool done[6][64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -385,28 +425,40 @@ cudaError_t prepare_descent(int v) {
   return cudaSuccess;
 }
 
+template <typename T, bool ROUNDS>
+void run_descent(const DescentArgs& a, int v, int B, int threads,
+                 size_t smem, cudaStream_t st) {
+  if (v == 2) {
+    greedy_descent_kernel<T, true, true, ROUNDS><<<B, threads, smem, st>>>(a);
+  } else if (v == 1) {
+    greedy_descent_kernel<T, false, true, ROUNDS><<<B, threads, smem, st>>>(a);
+  } else {
+    greedy_descent_kernel<T, false, false, ROUNDS><<<B, threads, smem, st>>>(a);
+  }
+}
+
 template <typename T>
 int launch_descent(const DescentArgs& a, int B, int threads, int vec,
                    void* stream) {
   if (B <= 0 || a.max_level <= 0) return 0;
-  if (a.M < 1 || threads != 32 * ((a.M + 3) / 4) ||
-      threads > kDescentMaxThreads || (a.ring && !vec)) {
+  const int want = 32 * ((a.M + 3) / 4);
+  if (a.M < 1 ||
+      threads != (want < kDescentMaxThreads ? want : kDescentMaxThreads) ||
+      (a.ring && !vec)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DescentLayout L = descent_layout(a.D, sizeof(T), a.M, a.ring);
   if (L.total > static_cast<size_t>(kSmemOptIn)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int v = descent_variant(a.D, vec);
+  const int v = descent_variant(a.D, a.M, vec);
   const cudaError_t e = prepare_descent<T>(v);
   if (e != cudaSuccess) return static_cast<int>(e);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (v == 2) {
-    greedy_descent_kernel<T, true, true><<<B, threads, L.total, st>>>(a);
-  } else if (v == 1) {
-    greedy_descent_kernel<T, false, true><<<B, threads, L.total, st>>>(a);
+  if (v >= 3) {
+    run_descent<T, true>(a, v - 3, B, threads, L.total, st);
   } else {
-    greedy_descent_kernel<T, false, false><<<B, threads, L.total, st>>>(a);
+    run_descent<T, false>(a, v, B, threads, L.total, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -452,9 +504,9 @@ GATHER_DISTANCE_ENTRY(gather_distance_int8, int8_t)
 // vectors [N, D], scales [N] f32 or null, upper [L, N, M] i32 (-1 pad),
 // q [B, D] f32 (16-byte aligned), ep_in [B] i32, epd_in [B] f32 ->
 // ep_out [B] i32, epd_out [B] f32 after the greedy descent of layers
-// max_level .. 1 (max_level <= L). threads = 32 * ceil(M / 4); ring = 1
-// stages each hop's rows in shared memory (vec rows only), as the plan
-// of ops._descent_plan says.
+// max_level .. 1 (max_level <= L). threads = min(1024, 32 * ceil(M / 4));
+// ring = 1 stages each hop's rows in shared memory (vec rows only), as
+// the plan of ops._descent_plan says.
 #define GREEDY_DESCENT_ENTRY(NAME, T)                                        \
   extern "C" int NAME(const void* vectors, const void* scales,              \
                       const void* upper, const void* q, const void* ep_in,  \

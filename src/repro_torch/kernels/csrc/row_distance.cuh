@@ -18,10 +18,7 @@
 // factored out of the dot product: s * sum(q * x) rounds differently
 // from sum(q * (x * s)). Each decode is exact: bf16 widens by a shift,
 // int8 by a byte permute (int8x4), so the decode has no rounding to
-// match.
-//
-// Row<T> (fp32, bf16: element and 16-byte loads from global memory) is
-// embedding_bag.cu's.
+// match. embedding_bag.cu widens its fp32 and bf16 rows with SRow<T>.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,44 +26,6 @@
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kQRegFloats = 16;      // q floats a lane holds (D <= 512)
-
-// ---------------------------------------------------------------------------
-// Row<T>: kVec elements per 16-byte load from global memory; load() reads
-// element d alone, load_vec() the i-th 16-byte vector, both widened to fp32
-// ---------------------------------------------------------------------------
-template <typename T>
-struct Row;
-
-template <>
-struct Row<float> {
-  static constexpr int kVec = 4;
-  __device__ static float load(const float* x, int d) { return __ldg(x + d); }
-  __device__ static void load_vec(const float* x, int i, float* v) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(x) + i);
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = a.z;
-    v[3] = a.w;
-  }
-};
-
-template <>
-struct Row<__nv_bfloat16> {  // exact widening: the 16 bits become the
-  static constexpr int kVec = 8;  // high half of an fp32
-  __device__ static float load(const __nv_bfloat16* x, int d) {
-    const uint32_t u = __ldg(reinterpret_cast<const unsigned short*>(x) + d);
-    return __uint_as_float(u << 16);
-  }
-  __device__ static void load_vec(const __nv_bfloat16* x, int i, float* v) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(x) + i);
-    const uint32_t w[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      v[2 * t] = __uint_as_float(w[t] << 16);
-      v[2 * t + 1] = __uint_as_float(w[t] & 0xffff0000u);
-    }
-  }
-};
 
 // ---------------------------------------------------------------------------
 // SRow<T>: decode of a 16-byte vector or of one element of a row that lies

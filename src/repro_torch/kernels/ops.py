@@ -52,14 +52,17 @@ _SIGS = {
     "flash_decode": ("flash_decode_f32",
                      [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    "flash_decode_wide": ("flash_decode_wide_f32",
+                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "distance_topk": ("distance_topk",
                       [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "embedding_bag": ("embedding_bag_{}",
-                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
 }
 # entry point -> the kernel (its library and launch counters) it belongs to
-_KERNEL_OF = {"greedy_descent": "gather_distance"}
+_KERNEL_OF = {"greedy_descent": "gather_distance",
+              "flash_decode_wide": "flash_decode"}
 _FNS: dict[tuple[str, str], tuple] = {}
 
 
@@ -292,18 +295,22 @@ def _descent_plan(d: int, codec: str, m: int, vec: int
     """-> (threads, ring, shared bytes, blocks an SM) of a descent launch.
 
     One block a query: a warp scores four list slots, so ceil(M / 4)
-    warps put every row of a hop in flight. The rows go to a shared ring
-    (one bulk copy a row) when they are 16-byte rows and M of them fit a
-    block's 227 KB; else they are read from global memory (``ring`` 0).
-    Blocks an SM: what the SM's threads, blocks and shared memory allow
-    (1 KB of each block's reserved). M > 128 raises."""
+    warps put every row of a hop in flight; past M 128 the block's 32
+    warps take the list in rounds of 128 slots. The rows go to a shared
+    ring (one bulk copy a row) when they are 16-byte rows and M of them
+    fit a block's 227 KB; else they are read from global memory (``ring``
+    0). Blocks an SM: what the SM's threads, blocks and shared memory
+    allow (1 KB of each block's reserved). M < 1, or a list (its M ids
+    and scales) past the block's shared memory, raises."""
     if codec not in _ELEM_BYTES:
         raise ValueError(f"unknown codec {codec!r}")
     elem = _ELEM_BYTES[codec]
-    threads = 32 * -(-m // 4)
-    if m < 1 or threads > _DESCENT_MAX_THREADS:
+    if m < 1 or _descent_layout_bytes(d, elem, m, 0) > _SMEM_BLOCK:
         raise ValueError(f"greedy_descent: M {m} outside [1, "
-                         f"{4 * _DESCENT_MAX_THREADS // 32}]")
+                         f"{DESCENT_MAX_M}] (a hop's list of M ids and M "
+                         f"scales in a block's {_SMEM_BLOCK} bytes of "
+                         "shared memory)")
+    threads = min(_DESCENT_MAX_THREADS, 32 * -(-m // 4))
     ring = int(bool(vec) and _descent_layout_bytes(d, elem, m, 1)
                <= _SMEM_BLOCK)
     smem = _descent_layout_bytes(d, elem, m, ring)
@@ -363,15 +370,19 @@ def beam_search(vectors: torch.Tensor, neighbors0: torch.Tensor,
 
 # beam_search's block shapes: at most 512 threads (the kernel's launch
 # bounds, 64 registers a thread, so 1,024 threads an SM), 2 candidate
-# slots a thread; the card's shared memory a block and an SM (H100: 227
-# KB a block of the SM's 228 KB, 1 KB of each block's reserved)
+# slots a thread a wave; the card's shared memory a block and an SM
+# (H100: 227 KB a block of the SM's 228 KB, 1 KB of each block's
+# reserved)
 _BEAM_MAX_THREADS = 512
 _BEAM_SM_THREADS = 1024
-_BEAM_SLOTS = 2
 _SMEM_BLOCK = 232_448
 _SMEM_SM = 233_472
 _SMEM_RESERVED = 1024
 _ELEM_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
+# the widest upper-layer list a descent block holds: M ids and M scales
+# beside the mbarrier and the warps' bests (``_descent_layout_bytes``
+# without the ring)
+DESCENT_MAX_M = (_SMEM_BLOCK - 16 - 768) // 32 * 16 // 4
 
 
 def _r16(n: int) -> int:
@@ -402,11 +413,15 @@ def _beam_plan(b: int, d: int, codec: str, m2: int, ef: int, t: int,
     ceil(b / sm_count) blocks resident an SM (at most 8, rounded up to a
     power of two); threads are what the registers leave for that many
     (512 for 1 or 2, 256 for 4, 128 for 8), and each block takes an equal
-    share of the SM's shared memory, up to 227 KB. The ring, the rows in
-    flight at once, takes what the rest of the block leaves, up to the
-    T * 2M candidates of a hop: a whole hop at B <= the SM count (192 KB
-    for fp32 rows of 384 at T 4, 2M 32). Fewer blocks an SM are tried
-    when not one ring row fits; a shape that fits no plan raises."""
+    share of the SM's shared memory, up to 227 KB. A hop's T * 2M
+    candidates go through the neighbour read and the dedup in waves of
+    two a thread. The ring, the rows in flight at once, takes what the
+    rest of the block leaves, up to the T * 2M candidates of a hop: a
+    whole hop at B <= the SM count (192 KB for fp32 rows of 384 at T 4,
+    2M 32). Fewer blocks an SM are tried when not one ring row fits; a
+    shape where even one block an SM holds no row beside the search
+    state (the id tables, 2^k >= 2 (ef + T 2M) slots of 8 bytes, and 24
+    bytes a candidate) raises, naming that limit."""
     if codec not in _ELEM_BYTES:
         raise ValueError(f"unknown codec {codec!r}")
     elem = _ELEM_BYTES[codec]
@@ -415,18 +430,18 @@ def _beam_plan(b: int, d: int, codec: str, m2: int, ef: int, t: int,
     per_sm = want
     while per_sm >= 1:
         threads = min(_BEAM_MAX_THREADS, _BEAM_SM_THREADS // per_sm)
-        if w <= _BEAM_SLOTS * threads:
-            budget = min(_SMEM_BLOCK, _SMEM_SM // per_sm - _SMEM_RESERVED)
-            fixed = _beam_layout_bytes(d, elem, m2, ef, t, threads, 0)
-            ring = min(w, max(0, budget - fixed) // _r16(d * elem))
-            if ring >= 1:
-                return threads, ring, fixed + ring * _r16(d * elem)
+        budget = min(_SMEM_BLOCK, _SMEM_SM // per_sm - _SMEM_RESERVED)
+        fixed = _beam_layout_bytes(d, elem, m2, ef, t, threads, 0)
+        ring = min(w, max(0, budget - fixed) // _r16(d * elem))
+        if ring >= 1:
+            return threads, ring, fixed + ring * _r16(d * elem)
         per_sm //= 2
     raise ValueError(
         f"beam_search: no block shape fits D {d} {codec} rows with T {t} x "
-        f"2M {m2} candidates a hop and ef {ef} (at most "
-        f"{_BEAM_SLOTS * _BEAM_MAX_THREADS} candidates a hop, and one row "
-        f"plus the search state within {_SMEM_BLOCK} bytes)")
+        f"2M {m2} candidates a hop and ef {ef}: the search state "
+        f"({_beam_layout_bytes(d, elem, m2, ef, t, _BEAM_MAX_THREADS, 0)} "
+        f"bytes) and one row ({_r16(d * elem)}) exceed a block's "
+        f"{_SMEM_BLOCK} bytes of shared memory")
 
 
 def beam_search_info(b: int, d: int, codec: str, m2: int, ef: int, t: int,
@@ -483,8 +498,10 @@ def select_neighbors(vectors: torch.Tensor, q: torch.Tensor,
 
 
 _FLASH_WARPS = 8          # consumer warps of a flash_decode block, at most
-_FLASH_MAX_DH = 1024
+_FLASH_MAX_DH = 1024      # the stream kernel's heads; wider ones go wide
 _FLASH_HEAD = 16          # floats before a partial's acc: m[8], l[8]
+# the wide kernel's heads: q and acc (2 Dh floats) + 16 in a block's 227 KB
+FLASH_WIDE_MAX_DH = (_SMEM_BLOCK // 4 - 16) // 2
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -496,10 +513,12 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     On the card one launch a call: the blocks split the live positions
     among themselves on the device (no host sync), and the last partial
-    of each (b, KV head, head group) merges them. Dh > 1024 raises. A contiguous int32 [B]
-    ``cur_len`` on the device (the decode path's) is used as it is; the
-    scratch is cached per device and stream, so ``out`` is the only
-    allocation a call."""
+    of each (b, KV head, head group) merges them. Heads wider than 1,024
+    floats take the wide kernel of the same source (one block a query
+    head, q and acc in shared memory; Dh past ``FLASH_WIDE_MAX_DH``
+    raises). A contiguous int32 [B] ``cur_len`` on the device (the
+    decode path's) is used as it is; the scratch is cached per device
+    and stream, so ``out`` is the only allocation a call."""
     if not _on_cuda(q, k, v):
         return _ref.flash_decode_ref(q, k, v, cur_len)
     _check(q, "q", torch.float32, 3)
@@ -510,14 +529,23 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (b, s, kvh, dh) or v.shape != k.shape or h % kvh:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match "
                          f"k/v {tuple(k.shape)}")
-    if dh > _FLASH_MAX_DH:
-        raise ValueError(f"flash_decode: Dh {dh} > {_FLASH_MAX_DH}")
+    if dh > FLASH_WIDE_MAX_DH:
+        raise ValueError(f"flash_decode: Dh {dh} > {FLASH_WIDE_MAX_DH} (a "
+                         "head's q and acc in a block's shared memory)")
     if not (isinstance(cur_len, torch.Tensor) and cur_len.dtype == torch.int32
             and cur_len.shape == (b,) and cur_len.device == q.device
             and cur_len.is_contiguous()):
         cur_len = torch.as_tensor(cur_len, dtype=torch.int32,
                                   device=q.device).reshape(-1).expand(
                                       b).contiguous()
+    if dh > _FLASH_MAX_DH:
+        out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
+        if b:
+            with torch.cuda.device(q.device):
+                _launch("flash_decode_wide", "fp32", _ptr(q), _ptr(k),
+                        _ptr(v), _ptr(cur_len), _ptr(out), b, h, s, kvh, dh,
+                        dh ** -0.5, _stream(q))
+        return out
     vec = int(dh % 4 == 0 and k.data_ptr() % 16 == 0
               and v.data_ptr() % 16 == 0)
     gb, ng, grid = _flash_plan(h // kvh, dh, vec, q.device)
@@ -691,7 +719,8 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     """EmbeddingBag: table [R,E] (f32 or bf16), ids [B,L] i32, weights
     [B,L] f32 or None -> bags [B,E] f32, ``sum`` or ``mean`` (by L, or by
     ``max(sum w, 1e-9)`` with weights). Ids must lie in [0, R): the
-    kernel, like the TPU's, does not range-check them."""
+    kernel, like the TPU's, does not range-check them. On the card a
+    bag's members split over ``_bag_plan``'s warps."""
     if combine not in ("sum", "mean"):
         raise ValueError(f"unknown combine {combine!r}; expected 'sum' or "
                          "'mean'")
@@ -712,9 +741,29 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     e = table.shape[1]
     out = torch.empty((b, e), dtype=torch.float32, device=table.device)
     if b and e:
+        splits = _bag_plan(b, l, e, _sm_count(table.device))
         with torch.cuda.device(table.device):
             _launch("embedding_bag", CODEC_OF[table.dtype], _ptr(table),
                     _ptr(ids), _opt_ptr(weights), _ptr(out), b, l, e,
-                    int(combine == "mean"), _aligned16(table),
+                    int(combine == "mean"), _aligned16(table), splits,
                     _stream(table))
     return out
+
+
+_BAG_WARPS = 8            # warps of an embedding_bag block
+_BAG_SM_WARPS = 32        # warps an SM the plan aims to fill
+_BAG_SPLIT_SMEM = 48 * 1024
+
+
+def _bag_plan(b: int, l: int, e: int, sm_count: int) -> int:
+    """-> the warps a bag of an ``embedding_bag`` launch (1, 2, 4 or 8).
+    A warp takes a whole bag when B warps fill the card (32 an SM); a
+    smaller batch splits each bag's L members over more warps of one
+    block, while every warp keeps at least two members and the block's
+    partial sums (8 x (E + 1) floats) fit 48 KB of shared memory."""
+    splits = 1
+    while (splits < _BAG_WARPS and b * splits < _BAG_SM_WARPS * sm_count
+           and 2 * (2 * splits) <= l            # two members a warp
+           and _BAG_WARPS * (e + 1) * 4 <= _BAG_SPLIT_SMEM):
+        splits *= 2
+    return splits

@@ -50,11 +50,13 @@ def hash_bits(ef, w):
     return s.bit_length() - 1
 
 
-def mirror_dedup(cand, valid, bi, ef, rng):
+def mirror_dedup(cand, valid, bi, ef, rng, wave=None):
     """keep [B, w]: the kernel's dedup, one row at a time. The hop's table
     holds the beam's ids (``bi`` [B, efp], its live slots below ef); each
     valid slot, in a shuffled order (the kernel's atomics have none),
-    claims its id: it is kept iff the id was not there yet."""
+    claims its id: it is kept iff the id was not there yet. ``wave``: the
+    slots claim in waves of that many (2 x the block's threads), each
+    wave's order shuffled, as the kernel takes a hop of more candidates."""
     b, w = cand.shape
     bits = hash_bits(ef, w)
     mask = (1 << bits) - 1
@@ -74,7 +76,10 @@ def mirror_dedup(cand, valid, bi, ef, rng):
         for p in range(ef):
             if bi[r, p] >= 0:
                 assert claim(bi[r, p])          # the beam's ids are distinct
-        for c in rng.permutation(w):
+        order = rng.permutation(w) if wave is None else np.concatenate(
+            [c0 + rng.permutation(min(wave, w - c0))
+             for c0 in range(0, w, wave)])
+        for c in order:
             keep[r, c] = bool(valid[r, c]) and claim(cand[r, c])
     return keep
 
@@ -197,6 +202,22 @@ def test_dedup_matches_jax(ef, t, m2, pool):
     assert kept_ids(cand, got.numpy()) == kept_ids(cand, np.asarray(want))
 
 
+@pytest.mark.parametrize("ef,t,m2,wave", [
+    (64, 4, 258, 1024), (64, 4, 512, 1024), (64, 1, 2049, 1024),
+    (20, 4, 300, 256)])
+@pytest.mark.parametrize("pool", [40, 5000])
+def test_dedup_in_waves_matches_jax(ef, t, m2, wave, pool):
+    """A hop of more than 1,024 candidates (M > 128 at T 4) claims its
+    slots wave by wave: the same ids kept, once each."""
+    bd, bi, bx, cand, valid, _ = _hop_inputs(ef + m2 + wave, 3, ef, t, m2,
+                                             pool=pool)
+    want = jref.beam_dedup_valid(jnp.asarray(cand), jnp.asarray(valid),
+                                 jnp.asarray(bi))
+    got = mirror_dedup(_t(cand), _t(valid), _t(bi), ef,
+                       np.random.default_rng(m2), wave=wave)
+    assert kept_ids(cand, got.numpy()) == kept_ids(cand, np.asarray(want))
+
+
 def _merge_case(seed, ef, t, m2, pool, **kw):
     bd, bi, bx, cand, valid, cd = _hop_inputs(seed, 5, ef, t, m2,
                                               pool=pool, **kw)
@@ -261,7 +282,7 @@ def test_key_order_is_the_two_key_order():
 # the whole search, hop by hop as the kernel runs it
 # ---------------------------------------------------------------------------
 def mirror_beam_search(vec, nbrs, q, ep, ep_d, *, ef, metric, expand_t,
-                       max_iters, seed=0):
+                       max_iters, seed=0, wave=None):
     rng = np.random.default_rng(seed)
     n, m2 = nbrs.shape
     b = q.shape[0]
@@ -287,7 +308,7 @@ def mirror_beam_search(vec, nbrs, q, ep, ep_d, *, ef, metric, expand_t,
         lists = nbrs[nodes.clamp(0, n - 1).long()]
         valid = ((nodes >= 0)[:, :, None] & (lists >= 0)).reshape(b, -1)
         cand = lists.clamp(0, n - 1).reshape(b, -1)
-        keep = mirror_dedup(cand, valid, bi, ef, rng)
+        keep = mirror_dedup(cand, valid, bi, ef, rng, wave)
         cd = tref.gather_distance_ref(vec, q, cand, metric=metric)
         nd, ni, nx = mirror_merge(bd, bi, bx, sel, cd, cand, keep, ef, rng)
         a = active[:, None]
@@ -324,6 +345,24 @@ def test_whole_search_matches_jax(expand_t, ef, m2, max_iters, repeat):
                                   jnp.asarray(ep_d), **kw)
     ti, td = mirror_beam_search(_t(vec), _t(nbrs), _t(q), _t(ep), _t(ep_d),
                                 **kw)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("expand_t,m2", [(4, 260), (1, 1030)])
+def test_whole_search_in_waves_matches_jax(expand_t, m2):
+    """M > 128 at T 4 (and 2M > 1,024 at T 1): every hop's dedup in waves
+    of 1,024 candidates, the search equals the reference's."""
+    vec, nbrs, q, ep = _int_graph(m2, n=1500, d=8, m2=m2, b=3)
+    ep_d = np.asarray(jref.gather_distance_ref(
+        jnp.asarray(vec), jnp.asarray(q), jnp.asarray(ep[:, None]),
+        metric="l2"))[:, 0]
+    kw = dict(ef=16, metric="l2", expand_t=expand_t, max_iters=3)
+    ji, jd = jref.beam_search_ref(jnp.asarray(vec), jnp.asarray(nbrs),
+                                  jnp.asarray(q), jnp.asarray(ep),
+                                  jnp.asarray(ep_d), **kw)
+    ti, td = mirror_beam_search(_t(vec), _t(nbrs), _t(q), _t(ep), _t(ep_d),
+                                wave=1024, **kw)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
 
@@ -406,10 +445,48 @@ def test_beam_plan_served_and_build_shapes():
     assert tops._beam_plan(400, 384, "int8", 32, 64, 4, 132)[0] == 256
 
 
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("m", [129, 200, 256])
+@pytest.mark.parametrize("t", [4, 1])
+@pytest.mark.parametrize("b", [8, 1024])
+def test_beam_plan_serves_past_1024_candidates(codec, m, t, b):
+    """M 129 to 256 at D 384, ef 64: T 2M up to 2,048 candidates a hop go
+    through waves of two a thread, and the search state (id tables of
+    2^k >= 2 (ef + T 2M) slots, 24 bytes a candidate) leaves rows for
+    the ring."""
+    elem = tops._ELEM_BYTES[codec]
+    m2 = 2 * m
+    threads, ring, smem = tops._beam_plan(b, 384, codec, m2, 64, t, 132)
+    assert threads % 32 == 0 and 128 <= threads <= 512
+    assert 1 <= ring <= t * m2
+    assert smem == tops._beam_layout_bytes(384, elem, m2, 64, t, threads,
+                                           ring)
+    assert smem <= 232_448
+    if t == 1 and codec == "int8" and b == 8:
+        assert ring == t * m2                    # the whole hop in flight
+
+
 @pytest.mark.parametrize("d,codec,m2,t", [
-    (60_000, "fp32", 32, 4),        # one row past 227 KB
     (384, "int8", 600, 4),          # 2,400 candidates a hop
     (384, "fp32", 2049, 1)])
+def test_beam_plan_serves_wide_hops(d, codec, m2, t):
+    threads, ring, smem = tops._beam_plan(8, d, codec, m2, 64, t, 132)
+    assert threads == 512 and ring >= 1 and smem <= 232_448
+
+
+def test_beam_plan_limit_is_the_search_state():
+    # ef 64 at D 384: the id tables reach 2^14 slots (128 KB) past
+    # ef + T 2M = 4,096, where no fp32 row fits beside the state
+    for t, last in ((4, 1008), (1, 4032)):
+        tops._beam_plan(8, 384, "fp32", last, 64, t, 132)
+        with pytest.raises(ValueError, match="no block shape"):
+            tops._beam_plan(8, 384, "fp32", last + 1, 64, t, 132)
+
+
+@pytest.mark.parametrize("d,codec,m2,t", [
+    (60_000, "fp32", 32, 4),        # one row past 227 KB
+    (384, "fp32", 1009, 4),         # just past the limit at T 4
+    (384, "fp32", 4033, 1)])        # and at T 1
 def test_beam_plan_raises_on_what_no_plan_fits(d, codec, m2, t):
     with pytest.raises(ValueError, match="no block shape"):
         tops._beam_plan(8, d, codec, m2, 64, t, 132)

@@ -799,31 +799,8 @@ def test_embedding_bag_kernel_matches_plain(cuda_device, e, l, weights,
                                             combine, dtype):
     """The kernel against its plain version (rtol 1e-5 / atol 1e-5: fp32
     summation order only); integer-valued rows with 0/1 weights exactly."""
-    from repro_torch.core import dispatch
-    rng = np.random.default_rng(27 + e + l)
-    r, b = 5000, 77                      # B no multiple of a warp block
-    table = _t(rng.normal(size=(r, e)).astype(np.float32)).to(
-        cuda_device, dtype)
-    ids = _t(rng.integers(0, r, size=(b, l)).astype(np.int32)).to(
-        cuda_device)
-    w = None
-    if weights != "none":
-        wn = rng.random((b, l)).astype(np.float32)
-        if weights == "zero":
-            wn[:] = 0.0
-        wn[3] = 0.0                      # one all-zero bag in every case
-        w = _t(wn).to(cuda_device)
-    dispatch.reset()
-    got = tops.embedding_bag(table, ids, w, combine=combine)
-    assert dispatch.get("kernel.embedding_bag") == 1
-    want = tref.embedding_bag_ref(table, ids, w, combine=combine)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    tint = _t(rng.integers(-8, 9, size=(r, e)).astype(np.float32)).to(
-        cuda_device, dtype)
-    wint = _t((rng.random((b, l)) < 0.5).astype(np.float32)).to(cuda_device)
-    got = tops.embedding_bag(tint, ids, wint, combine=combine)
-    want = tref.embedding_bag_ref(tint, ids, wint, combine=combine)
-    assert torch.equal(got, want)
+    # B 77: no multiple of a block's bags
+    _bag_case(cuda_device, e, l, weights, combine, dtype, 77, 27 + e + l)
 
 
 @pytest.mark.cuda
@@ -859,3 +836,201 @@ def test_int8_store_restores_onto_card(cuda_device, kind, tmp_path):
     assert dispatch.get(counter) == 1
     if kind == "hnsw":
         assert dispatch.get("hnsw.h2d_bytes") > 0
+
+
+# ---------------------------------------------------------------------------
+# HNSW search past M 128: the descent's rounds of 128 slots and the beam's
+# waves of 1,024 candidates
+# ---------------------------------------------------------------------------
+def _wide_case(seed, codec, m, b, integer, device):
+    """Rows (random unit rows through the codec, or integer-valued rows:
+    bf16 exact, int8 with scales 1.0), an upper table [2, N, M], a
+    layer-0 graph [N, 2M], queries and entry points on the card."""
+    rng = np.random.default_rng(seed)
+    n, d = 3000, 384
+    if integer:
+        vec = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+        q = rng.integers(-3, 4, size=(b, d)).astype(np.float32)
+        if codec == "int8":
+            rows = _t(vec.astype(np.int8)).to(device)
+            scl = torch.ones(n, device=device)
+        else:
+            rows, scl = _codec_rows(vec, codec, device)
+    else:
+        vec = _unit(rng.normal(size=(n, d)))
+        q = _unit(rng.normal(size=(b, d)))
+        rows, scl = _codec_rows(vec, codec, device)
+    nbrs = rng.integers(0, n, size=(n, 2 * m)).astype(np.int32)
+    nbrs[rng.random(nbrs.shape) < 0.15] = -1
+    up = _upper(rng, 2, n, m)
+    ep = rng.integers(0, n, size=b).astype(np.int32)
+    return (rows, scl, _t(up).to(device), _t(nbrs).to(device),
+            _t(q).to(device), _t(ep).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("m", [129, 200, 256])
+@pytest.mark.parametrize("t", [4, 1])
+def test_wide_descent_and_beam_match_plain(cuda_device, codec, m, t):
+    """Random cosine rows at D 384, M 129 to 256: the descent's (ep,
+    ep_dist) equal the per-hop loop's through the hop kernel bit for bit
+    and the plain version's ep on most queries; the beam's ids equal the
+    plain version's on most queries, distances within 1e-5 where they
+    are."""
+    rows, scl, up, nbrs, q, ep = _wide_case(40 + m, codec, m, 8, False,
+                                            cuda_device)
+    ep_d = tops.gather_distance(rows, q, ep[:, None],
+                                scales=scl)[:, 0].contiguous()
+    kw = dict(max_level=2, scales=scl)
+    ge, gd = tops.greedy_descent(rows, up, q, ep, ep_d, **kw)
+    le, ld = tref.greedy_descent_ref(rows, up, q, ep, ep_d,
+                                     gather=tops.gather_distance, **kw)
+    assert torch.equal(ge, le) and torch.equal(gd, ld)
+    we, wd = tref.greedy_descent_ref(rows, up, q, ep, ep_d, **kw)
+    same = ge == we
+    assert same.float().mean().item() >= 0.75
+    torch.testing.assert_close(gd[same], wd[same], rtol=0, atol=1e-5)
+    kw = dict(ef=64, expand_t=t, scales=scl)
+    ki, kd = tops.beam_search(rows, nbrs, q, ge, gd, **kw)
+    ri, rd = tref.beam_search_ref(rows, nbrs, q, ge, gd, **kw)
+    same = (ki == ri).all(dim=1)
+    assert same.float().mean().item() >= 0.75
+    torch.testing.assert_close(kd[same], rd[same], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("m", [129, 200, 256])
+@pytest.mark.parametrize("t", [4, 1])
+@pytest.mark.parametrize("b", [8, 300])
+def test_wide_descent_and_beam_exact_on_integer_rows(cuda_device, codec, m,
+                                                     t, b):
+    """Integer-valued l2 rows (exact arithmetic), M 129 to 256: the
+    descent and the beam equal the plain version's ids and distances,
+    at the served batch and at one that fills the SMs."""
+    rows, scl, up, nbrs, q, ep = _wide_case(50 + m, codec, m, b, True,
+                                            cuda_device)
+    ep_d = tref.gather_distance_ref(rows, q, ep[:, None], metric="l2",
+                                    scales=scl)[:, 0].contiguous()
+    kw = dict(max_level=2, metric="l2", scales=scl)
+    ge, gd = tops.greedy_descent(rows, up, q, ep, ep_d, **kw)
+    we, wd = tref.greedy_descent_ref(rows, up, q, ep, ep_d, **kw)
+    assert torch.equal(ge, we) and torch.equal(gd, wd)
+    kw = dict(ef=64, expand_t=t, metric="l2", scales=scl)
+    ki, kd = tops.beam_search(rows, nbrs, q, ge, gd, **kw)
+    ri, rd = tref.beam_search_ref(rows, nbrs, q, ge, gd, **kw)
+    torch.testing.assert_close(ki, ri, rtol=0, atol=0)
+    torch.testing.assert_close(kd, rd, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_bulk_build_at_m130_bit_identical_to_cpu(cuda_device):
+    """M 130 (descent lists of 130 slots, beam hops of 1,040 candidates):
+    the graph bulk-built on the card from integer-valued l2 rows equals
+    the CPU's bit for bit."""
+    from repro_torch.core import dispatch
+    from repro_torch.core import hnsw_build as tbuild
+    rng = np.random.default_rng(36)
+    data = rng.integers(-4, 5, size=(4000, 32)).astype(np.float32)
+    kw = dict(M=130, ef_construction=40, metric="l2", seed=2, bootstrap=64,
+              batch_size=1024)
+    dispatch.reset()
+    gc = tbuild.bulk_build(data, device=cuda_device, **kw)
+    assert dispatch.get("kernel.beam_search") > 0
+    assert dispatch.get("hnsw.descent_launches") > 0
+    gh = tbuild.bulk_build(data, device="cpu", **kw)
+    assert gh.upper.shape[2] == 130
+    for name in ("neighbors0", "upper", "levels", "vectors"):
+        np.testing.assert_array_equal(getattr(gc, name), getattr(gh, name),
+                                      err_msg=name)
+    assert (gc.entry, gc.max_level) == (gh.entry, gh.max_level)
+
+
+# ---------------------------------------------------------------------------
+# flash_decode past Dh 1024, embedding_bag's splits and NaN rows
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,g,dh,s,cur", [
+    (3, 4, 1152, 300, [300, 33, 1]), (2, 2, 2048, 200, [200, 77]),
+    (2, 1, 1030, 50, 50)])                  # Dh % 4 != 0, scalar cur_len
+def test_flash_decode_wide_heads_match_plain(cuda_device, b, g, dh, s, cur):
+    """Heads wider than 1,024 floats take the wide kernel (one launch,
+    counted as flash_decode's) and match the plain version."""
+    from repro_torch.core import dispatch
+    args = _flash_args(29, b, s, 2, g, dh, cur, cuda_device)
+    dispatch.reset()
+    got = tops.flash_decode(*args)
+    assert dispatch.get("kernel.flash_decode") == 1
+    torch.testing.assert_close(got, tref.flash_decode_ref(*args), rtol=0,
+                               atol=2e-5)
+
+
+def _bag_case(cuda_device, e, l, weights, combine, dtype, b, seed):
+    """The kernel against its plain version (rtol 1e-5 / atol 1e-5: fp32
+    summation order only); integer-valued rows with 0/1 weights exactly."""
+    from repro_torch.core import dispatch
+    rng = np.random.default_rng(seed)
+    r = 5000
+    table = _t(rng.normal(size=(r, e)).astype(np.float32)).to(
+        cuda_device, dtype)
+    ids = _t(rng.integers(0, r, size=(b, l)).astype(np.int32)).to(
+        cuda_device)
+    w = None
+    if weights != "none":
+        wn = rng.random((b, l)).astype(np.float32)
+        if weights == "zero":
+            wn[:] = 0.0
+        wn[min(3, b - 1)] = 0.0          # one all-zero bag in every case
+        w = _t(wn).to(cuda_device)
+    dispatch.reset()
+    got = tops.embedding_bag(table, ids, w, combine=combine)
+    assert dispatch.get("kernel.embedding_bag") == 1
+    want = tref.embedding_bag_ref(table, ids, w, combine=combine)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    tint = _t(rng.integers(-8, 9, size=(r, e)).astype(np.float32)).to(
+        cuda_device, dtype)
+    wint = _t((rng.random((b, l)) < 0.5).astype(np.float32)).to(cuda_device)
+    got = tops.embedding_bag(tint, ids, wint, combine=combine)
+    want = tref.embedding_bag_ref(tint, ids, wint, combine=combine)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [10, 32, 64])      # scalar, vector loads
+@pytest.mark.parametrize("l", [1, 50])
+@pytest.mark.parametrize("weights", ["none", "zero", "random"])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 512])
+def test_embedding_bag_kernel_matches_plain_at_batch(cuda_device, e, l,
+                                                     weights, combine, dtype,
+                                                     b):
+    """B 1 and the serve batch B 512, where a bag's members split over up
+    to 8 warps (``ops._bag_plan``), and L 1, a warp's lone member."""
+    _bag_case(cuda_device, e, l, weights, combine, dtype, b, 27 + e + l + b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l", [(7, 50), (512, 50), (3, 1)])
+def test_embedding_bag_zero_weight_does_not_hide_nan(cuda_device, bad,
+                                                     combine, dtype, b, l):
+    """A zero-weight member whose row holds NaN or Inf: 0 x NaN and 0 x
+    Inf are NaN, so the bag is NaN wherever the plain version's is."""
+    rng = np.random.default_rng(37)
+    tn = rng.normal(size=(100, 64)).astype(np.float32)
+    tn[5, ::3] = bad
+    table = _t(tn).to(cuda_device, dtype)
+    ids = rng.integers(6, 100, size=(b, l)).astype(np.int32)
+    ids[::2, 0] = 5                          # every other bag holds row 5
+    wn = rng.random((b, l)).astype(np.float32)
+    wn[::2, 0] = 0.0                         # at weight 0
+    ids, w = _t(ids).to(cuda_device), _t(wn).to(cuda_device)
+    got = tops.embedding_bag(table, ids, w, combine=combine)
+    want = tref.embedding_bag_ref(table, ids, w, combine=combine)
+    assert bool(torch.isnan(want[0]).any())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                               equal_nan=True)

@@ -165,13 +165,24 @@ def _before(d1, r1, d2, r2):
     return r1 < r2
 
 
+def _warp_slots(m):
+    """The list slots each warp of a descent block scores, in its order:
+    warp w takes slots 4 w + j, then again every 4 x (its warps), the
+    block having min(32, ceil(M / 4)) warps."""
+    nw = min(32, -(-m // 4))
+    return [[r0 + j for r0 in range(4 * w, m, 4 * nw)
+             for j in range(4) if r0 + j < m] for w in range(nw)]
+
+
 def mirror_descent(table_d, up, ep, ep_d, max_level):
     """greedy_descent_kernel's control flow, one query at a time: each hop
     scores its list from ``table_d`` [B, N] (slot id < 0 at INF, ids
-    clamped), takes the best (d, slot) in the kernel's order, and the
-    query stops the layer at the first hop that does not improve it.
-    Returns (ep, ep_dist, hops a query)."""
+    clamped), takes each warp's best (d, slot) over its slots, then the
+    block's over the warps, in the kernel's order, and the query stops
+    the layer at the first hop that does not improve it. Returns (ep,
+    ep_dist, hops a query)."""
     n = table_d.shape[1]
+    warps = _warp_slots(up.shape[2])
     out_e, out_d, hops = ep.copy(), ep_d.copy(), np.zeros(len(ep), int)
     for b in range(len(ep)):
         e, d = int(ep[b]), np.float32(ep_d[b])
@@ -180,11 +191,17 @@ def mirror_descent(table_d, up, ep, ep_d, max_level):
                 hops[b] += 1
                 nbrs = up[layer - 1, min(max(e, 0), n - 1)]
                 best = (None, -1, 0)
-                for r, nb in enumerate(nbrs):
-                    i = min(max(int(nb), 0), n - 1)
-                    dr = table_d[b, i] if nb >= 0 else np.float32(INF)
-                    if best[0] is None or _before(dr, r, best[0], best[1]):
-                        best = (dr, r, i)
+                for slots in warps:
+                    wb = (None, -1, 0)
+                    for r in slots:
+                        nb = nbrs[r]
+                        i = min(max(int(nb), 0), n - 1)
+                        dr = table_d[b, i] if nb >= 0 else np.float32(INF)
+                        if wb[0] is None or _before(dr, r, wb[0], wb[1]):
+                            wb = (dr, r, i)
+                    if best[0] is None or _before(wb[0], wb[1], best[0],
+                                                  best[1]):
+                        best = wb
                 if not best[0] < d:
                     break
                 d, e = best[0], best[2]
@@ -202,7 +219,9 @@ def _table_gather(table_d):
 
 @pytest.mark.parametrize("integer", [False, True])
 @pytest.mark.parametrize("m,layers,max_level", [(6, 4, 4), (16, 3, 2),
-                                                (5, 8, 8), (1, 3, 3)])
+                                                (5, 8, 8), (1, 3, 3),
+                                                (130, 2, 2), (200, 2, 1),
+                                                (256, 2, 2)])
 def test_per_query_termination_is_the_lockstep_result(integer, m, layers,
                                                       max_level):
     vec, q, up, ep = _case(53 + m, 500, 16, m, layers, 24, integer)
@@ -226,6 +245,13 @@ def test_per_query_termination_is_the_lockstep_result(integer, m, layers,
     np.testing.assert_array_equal(hops, stats["hops"].numpy())
     assert hops.sum() <= 24 * stats["lockstep_hops"]
     assert (ge != ep).any()
+
+
+@pytest.mark.parametrize("m", [1, 5, 16, 128, 129, 200, 256, 1030])
+def test_warp_slots_cover_the_list_once(m):
+    slots = _warp_slots(m)
+    assert len(slots) == min(32, -(-m // 4))
+    assert sorted(r for w in slots for r in w) == list(range(m))
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +286,34 @@ def test_descent_plan_served_and_build_shapes():
     assert tops._descent_plan(30, "fp32", 16, 0)[1] == 0
 
 
-@pytest.mark.parametrize("m", [0, 129])
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("m", [129, 200, 256])
+def test_descent_plan_serves_past_128_slots(codec, m):
+    """Past M 128 the block keeps its 32 warps, which take the list in
+    rounds of 128 slots; the ring holds the hop's rows while M of them
+    fit (bf16 and int8 at D 384), else they are read from global
+    memory (fp32 past M 129)."""
+    elem = tops._ELEM_BYTES[codec]
+    threads, ring, smem, per_sm = tops._descent_plan(384, codec, m, 1)
+    assert threads == 1024
+    assert ring == int(tops._descent_layout_bytes(384, elem, m, 1)
+                       <= 232_448)
+    assert smem == tops._descent_layout_bytes(384, elem, m, ring)
+    assert smem <= 232_448 and per_sm >= 1
+    assert ring == int(codec != "fp32" or m == 129)
+
+
+def test_descent_plan_limit_is_the_list_in_shared_memory():
+    # the widest list: M ids and M scales beside the mbarrier and the
+    # warps' bests; any D serves, its rows read from global memory
+    m = tops.DESCENT_MAX_M
+    assert m == 28_956
+    assert tops._descent_plan(60_000, "fp32", m, 1)[:3] == (1024, 0,
+                                                            232_432)
+    assert tops._descent_plan(60_000, "fp32", 16, 1)[:2] == (128, 0)
+
+
+@pytest.mark.parametrize("m", [0, 28_957])       # past DESCENT_MAX_M
 def test_descent_plan_raises_on_what_no_block_holds(m):
     with pytest.raises(ValueError, match="M"):
         tops._descent_plan(384, "fp32", m, 1)

@@ -93,6 +93,41 @@ def test_search_graph_ids_exact_on_integer_l2(int_graph, beam_impl,
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-5, rtol=0)
 
 
+def _wide_graph(n=2000, d=32, m=130, layers=2, seed=11):
+    """A random HNSW graph at M 130 (2M 260: a T 4 hop is 1,040
+    candidates) over integer-valued rows: layer-0 lists [N, 2M] and
+    upper lists [2, N, M] of random ids with 15 % -1 padding."""
+    rng = np.random.default_rng(seed)
+    vec = rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+    nb0 = rng.integers(0, n, size=(n, 2 * m)).astype(np.int32)
+    nb0[rng.random(nb0.shape) < 0.15] = -1
+    up = rng.integers(0, n, size=(layers, n, m)).astype(np.int32)
+    up[rng.random(up.shape) < 0.15] = -1
+    levels = rng.integers(0, layers + 1, size=n).astype(np.int32)
+    entry = int(np.flatnonzero(levels == layers)[0])
+    g = jbuild.HNSWGraph(vectors=vec, neighbors0=nb0, upper=up,
+                         levels=levels, entry=entry, max_level=layers,
+                         metric="l2", n=n)
+    q = rng.integers(-3, 4, size=(16, d)).astype(np.float32)
+    return g, q
+
+
+@pytest.mark.parametrize("beam_impl", ["fused", "jnp"])
+@pytest.mark.parametrize("beam_expand", [None, 1])
+def test_search_graph_at_m130_matches_reference(beam_impl, beam_expand):
+    """M 130 on 2,000 x 32 rows: the port's search (its descent over
+    130-slot upper lists, its beam over 260-slot layer-0 lists) returns
+    the reference's ids and distances."""
+    g, q = _wide_graph()
+    assert g.M == 130
+    kw = dict(k=10, ef=32, beam_impl=beam_impl, beam_expand=beam_expand)
+    ji, jd = jhnsw.search_graph(jhnsw.to_device_graph(g), q, **kw)
+    ti, td = thnsw.search_graph(device_graph_from_host(g, device="cpu"), q,
+                                **kw)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("beam_impl", ["fused", "jnp"])
 def test_search_graph_cosine_recall_matches(cos_graph, beam_impl):
     g, q, data = cos_graph

@@ -206,3 +206,111 @@ def test_flash_decode_ref_matches_jax(g, per_seq):
         np.asarray(jops.flash_decode(jnp.asarray(q), jnp.asarray(k),
                                      jnp.asarray(v), jnp.asarray(cur))),
         atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dh", [1030, 1152, 2048])
+def test_flash_decode_ref_matches_jax_at_wide_heads(dh):
+    """Heads wider than 1,024 floats (the card's wide-head kernel): the
+    plain version against the reference's on the same inputs."""
+    rng = np.random.default_rng(dh)
+    b, kvh, g, s = 2, 2, 2, 30
+    q = rng.normal(size=(b, g * kvh, dh)).astype(np.float32)
+    k = rng.normal(size=(b, s, kvh, dh)).astype(np.float32)
+    v = rng.normal(size=(b, s, kvh, dh)).astype(np.float32)
+    cur = np.array([30, 7], np.int32)
+    want = np.asarray(jops.flash_decode(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), jnp.asarray(cur)))
+    got = tops.flash_decode(_t(q), _t(k), _t(v), _t(cur))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# embedding_bag: the kernel's member split and summation order, mirrored
+# ---------------------------------------------------------------------------
+def mirror_embedding_bag(table, ids, w, combine, splits, width):
+    """embedding_bag.cu's order, one bag at a time, in fp32: a bag's L
+    members cut into ``splits`` contiguous ranges (one warp each); a warp
+    takes its range in rounds of 32 members, lane group g of G = 32 //
+    width adding members j0 + i G + g of a round (j0 in steps of G x 8,
+    i < 8) in that order; group 0 adds groups 1 .. G-1; the block adds
+    the splits in order, then divides by L or max(sum w, 1e-9)."""
+    b, l = ids.shape
+    groups = 32 // width
+    rows = table.float()
+    out = torch.empty(b, table.shape[1])
+    seen = torch.zeros(b, l, dtype=torch.int64)
+    for bag in range(b):
+        tot = torch.zeros(table.shape[1])
+        wtot = torch.zeros(())
+        for s in range(splits):
+            lo, hi = s * l // splits, (s + 1) * l // splits
+            acc = [torch.zeros(table.shape[1]) for _ in range(groups)]
+            wsum = torch.zeros(())
+            for r0 in range(lo, hi, 32):
+                n = min(32, hi - r0)
+                for j0 in range(0, n, groups * 8):
+                    for i in range(8):
+                        for g in range(groups):
+                            j = j0 + i * groups + g
+                            if j < n:
+                                m = r0 + j
+                                wt = w[bag, m] if w is not None else 1.0
+                                acc[g] = acc[g] + wt * rows[ids[bag, m]]
+                                seen[bag, m] += 1
+                wsum = wsum + (w[bag, r0:r0 + n].sum() if w is not None
+                               else 0.0)
+            for g in range(1, groups):
+                acc[0] = acc[0] + acc[g]
+            tot = tot + acc[0]
+            wtot = wtot + wsum
+        if combine == "mean":
+            tot = tot / (float(l) if w is None
+                         else torch.clamp_min(wtot, 1e-9))
+        out[bag] = tot
+    assert bool((seen == 1).all())          # every member once
+    return out
+
+
+@pytest.mark.parametrize("b,l,e", [(512, 50, 64), (262_144, 50, 64),
+                                   (1, 50, 64), (1, 1, 64), (77, 1, 10),
+                                   (512, 4, 64), (8, 50, 2000)])
+def test_bag_plan(b, l, e):
+    """A whole bag a warp when B warps fill 132 SMs (32 an SM); a smaller
+    batch splits a bag over up to 8 warps, each with two members at
+    least, while the block's partials fit 48 KB."""
+    splits = tops._bag_plan(b, l, e, 132)
+    assert splits in (1, 2, 4, 8)
+    want = {(512, 50, 64): 8, (262_144, 50, 64): 1, (1, 50, 64): 8,
+            (1, 1, 64): 1, (77, 1, 10): 1, (512, 4, 64): 2,
+            (8, 50, 2000): 1}[(b, l, e)]
+    assert splits == want
+    assert splits == 1 or 2 * splits <= l
+
+
+@pytest.mark.parametrize("splits,width", [(1, 16), (8, 16), (4, 8),
+                                          (2, 10), (1, 32), (8, 32)])
+@pytest.mark.parametrize("weights", [None, "mask"])
+@pytest.mark.parametrize("combine", ["sum", "mean"])
+def test_embedding_bag_mirror_matches_jax(splits, width, weights, combine):
+    """The kernel's member split and summation order (a warp's rounds of
+    32, its lane groups, the splits) adds every member once and equals
+    the reference within 1e-5; on integer rows with 0/1 weights
+    exactly."""
+    rng = np.random.default_rng(splits * 100 + width)
+    b, l, e = 5, 75, 12
+    for table in (rng.normal(size=(300, e)).astype(np.float32),
+                  rng.integers(-8, 9, size=(300, e)).astype(np.float32)):
+        ids = rng.integers(0, 300, size=(b, l)).astype(np.int32)
+        w = None
+        if weights == "mask":
+            w = (np.arange(l)[None] < rng.integers(1, l + 1, size=(b, 1))
+                 ).astype(np.float32)
+        want = np.asarray(jref.embedding_bag_ref(
+            jnp.asarray(table), jnp.asarray(ids),
+            None if w is None else jnp.asarray(w), combine=combine))
+        got = mirror_embedding_bag(_t(table), _t(ids).long(),
+                                   None if w is None else _t(w), combine,
+                                   splits, width)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        if combine == "sum" and float(table[0, 0]).is_integer():
+            np.testing.assert_array_equal(got.numpy(), want)
