@@ -112,6 +112,29 @@ Phases (none catches an exception; any failure exits non-zero):
    warm: the warm run restores the index, inserts nothing (the epoch, the
    WAL and the snapshots stay as the cold run left them) and retrieves
    the cold run's keys.
+8. IVF and tiered. (a) The IVF served path, ``--rag --index ivf
+   --index-dtype int8``, with the same model shape, corpus and requests:
+   each retrieval search launches ``gather_distance`` twice (the fp32
+   instance on the centroids, K = nlist; the int8 one on the probed
+   lists, K = nprobe x cap) and ``flash_decode`` launches once per layer
+   per decode tick; the served keys must equal a CPU ``IVFVectorIndex``
+   restored from the card index's ``state_dict`` (the same centroids);
+   fp32 and bf16 IVF indexes of the corpus (each run counted) must
+   return the CPU's keys; then ``--rag --index tiered``, whose search is
+   host numpy through the two-tier store, must retrieve a CPU
+   ``TieredIndex``'s keys, and from cold tiers both must count the same
+   ``TierStats``. (b) IVF at the paper's scale: ``build_1m``'s 1M x 384
+   seeded cosine rows, int8, nlist 64 and nprobe 8 (RetrievalConfig),
+   attached to a store and snapshotted: k-means twice on the card, timed
+   and equal bit for bit (and to the index's own training at its first
+   search, which logs ``derived.centroids``); the pack's wall time and
+   list cap; the hop kernel's coarse and fine launches at B 8 against
+   their plain versions, with device time a launch, bound and plain
+   time; ``query_batch`` at B 8 and 128, k 10; a 16-query sample equal
+   to the CPU's keys; ``exact_query`` (nprobe = nlist) equal to a
+   ``FlatVectorIndex`` of the same int8 rows; and 32 logged mutations,
+   drop and warm restore, which must give the live keys, epoch and
+   centroids.
 
 Each phase's seconds are logged. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -163,12 +186,15 @@ TOPK_K, TOPK_BATCHES = 10, (1, 8, 128)
 TOPK_BIG_K, TOPK_BIG_B = 1000, 8
 CODECS = ("fp32", "bf16", "int8")
 DEC_H, DEC_KVH, DEC_DH = 32, 8, 128       # llama3-8b decode geometry
-# flash_decode cells: name -> (B, S, cur_len, caches cycled); "served" is
-# the served cache (4 slots x max_len 256), one cache per layer
+# flash_decode cells: name -> (B, S, cur_len, caches cycled, Dh); "served"
+# is the served cache (4 slots x max_len 256), one cache per layer; "wide"
+# the wide-head kernel (Dh past 1,024) at the llama3-8b head counts
 FLASH_CELLS = {
-    "ragged": (8, 8192, [1, 33, 1000, 4097, 5000, 6143, 8191, 8192], 1),
-    "full": (8, 8192, [8192] * 8, 1),
-    "served": (4, 256, [2, 86, 171, 256], 32),
+    "ragged": (8, 8192, [1, 33, 1000, 4097, 5000, 6143, 8191, 8192], 1,
+               DEC_DH),
+    "full": (8, 8192, [8192] * 8, 1, DEC_DH),
+    "served": (4, 256, [2, 86, 171, 256], 32, DEC_DH),
+    "wide": (8, 1024, [1024] * 8, 1, 2048),
 }
 SYNTHETIC_DOCS = 2000
 # bulk build: (a) integer-valued l2 rows, card == CPU bit for bit; (b)
@@ -191,25 +217,35 @@ BAG_ENTRY = "ops.embedding_bag (MIND serve_p99)"
 # compact + secure-delete prefix
 STORE_INSERTS, STORE_UPDATES, STORE_DELETES = 32, 32, 64
 COMPACT_ROWS, COMPACT_DELETES = 20_000, 200
+# IVF at the paper's scale (configs/mememo.py build_1m, int8; nlist and
+# nprobe from RetrievalConfig): the query batches timed, the sample held
+# against the CPU, and the store's logged mutations (inserts in one
+# bulk_insert, updates, deletes)
+IVF_BATCHES, IVF_SAMPLE, IVF_HOP_B = (8, 128), 16, 8
+IVF_INSERTS, IVF_UPDATES, IVF_DELETES = 16, 8, 8
 # the kernels each served path must launch
 HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
              "kernel.flash_decode")
 FLAT_PATH = ("kernel.distance_topk", "kernel.flash_decode")
+# an IVF search: one coarse launch on the fp32 centroids, one fine launch
+# on the codec's rows
+IVF_INT8_PATH = ("kernel.gather_distance.fp32", "kernel.gather_distance.int8",
+                 "kernel.flash_decode")
 HNSW_INT8_PATH = ("kernel.gather_distance.int8", "kernel.beam_search.int8",
                   "kernel.flash_decode")
 # kernel record -> the run of the main path whose launches it reports.
-# The served search descends in one gather_distance launch (the
-# greedy_descent records); the hop kernel runs on the per-hop beam's
-# route, where its launches are the codec's gather launches less the
-# descents (HOP_COUNTER).
+# The served HNSW search descends in one gather_distance launch (the
+# greedy_descent records); the hop kernel's served path is IVF (its fp32
+# instance scores the centroids, the codec's the probed lists), and it
+# also runs on HNSW's per-hop beam; its launches are the codec's gather
+# launches less the descents (HOP_COUNTER).
 MAIN_PATH = {
     "greedy_descent.fp32": "hnsw fp32", "beam_search.fp32": "hnsw fp32",
     "flash_decode": "hnsw fp32",
     "greedy_descent.bf16": "hnsw bf16", "beam_search.bf16": "hnsw bf16",
     "greedy_descent.int8": "hnsw int8", "beam_search.int8": "hnsw int8",
-    "gather_distance.fp32": "hnsw fp32 per-hop beam",
-    "gather_distance.bf16": "hnsw bf16 per-hop beam",
-    "gather_distance.int8": "hnsw int8 per-hop beam",
+    "gather_distance.fp32": "ivf int8", "gather_distance.bf16": "ivf bf16",
+    "gather_distance.int8": "ivf int8",
     "distance_topk.fp32": "flat fp32", "distance_topk.bf16": "flat bf16",
     "distance_topk.int8": "flat int8",
     "embedding_bag.fp32": BAG_ENTRY, "embedding_bag.bf16": BAG_ENTRY,
@@ -258,6 +294,25 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(torch, fn, reps: int) -> float:
+    """Device ms a call of ``fn``, its launches queued behind a spin kernel
+    so that they run back to back: the host's time between launches is
+    hidden, where ``time_ms`` of a short launch reads the wrapper's host
+    time. A fallback beside the profiler's time a launch, which can trace
+    none."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)            # ~50 ms: covers the enqueue
     start.record()
     for _ in range(reps):
         fn()
@@ -836,7 +891,8 @@ def check_flash_decode(torch, dev, gen) -> dict:
     every row at 8192, and the served cache (slots x max_len, each slot
     at its own depth) with one cache per layer, the timed calls cycling
     through the 32 as a decode tick does (one layer's cache fits L2,
-    the tick's do not). Each cell: the kernel against its plain version
+    the tick's do not); and the wide-head kernel at the same head counts,
+    B 8, S 1,024, Dh 2,048. Each cell: the kernel against its plain version
     (2e-5), CUDA-event times of the kernel, the plain version and SDPA,
     the bound, and a profiler split holding one launch a call and no
     other kernel. The record is the ragged cell's, with every cell
@@ -845,11 +901,11 @@ def check_flash_decode(torch, dev, gen) -> dict:
     from repro_torch.kernels import ops, ref
 
     cells = {}
-    for name, (b, s, lens, layers) in FLASH_CELLS.items():
+    for name, (b, s, lens, layers, dh) in FLASH_CELLS.items():
         cur = torch.tensor(lens, dtype=torch.int32, device=dev)
-        qd = torch.randn(b, DEC_H, DEC_DH, device=dev, generator=gen)
-        kv = [(torch.randn(b, s, DEC_KVH, DEC_DH, device=dev, generator=gen),
-               torch.randn(b, s, DEC_KVH, DEC_DH, device=dev, generator=gen))
+        qd = torch.randn(b, DEC_H, dh, device=dev, generator=gen)
+        kv = [(torch.randn(b, s, DEC_KVH, dh, device=dev, generator=gen),
+               torch.randn(b, s, DEC_KVH, dh, device=dev, generator=gen))
               for _ in range(layers)]
         mask = (torch.arange(s, device=dev)[None, :]
                 < cur[:, None])[:, None, None, :]          # [B,1,1,S]
@@ -877,7 +933,7 @@ def check_flash_decode(torch, dev, gen) -> dict:
                              reps=max(8, layers))
         assert split["kernel_launches_traced"] <= 1 and \
             split["other_device_ms"] == 0, f"flash_decode {name}: {split}"
-        b_ms, b_by = flash_bound(lens, b, DEC_H, DEC_KVH, DEC_DH)
+        b_ms, b_by = flash_bound(lens, b, DEC_H, DEC_KVH, dh)
         cells[name] = dict(
             max_abs_err=err,
             ms=time_ms(torch, kernel, max(50, layers)),
@@ -890,7 +946,7 @@ def check_flash_decode(torch, dev, gen) -> dict:
                     vd.transpose(1, 2), attn_mask=mask, enable_gqa=True)),
                 50),
             library_max_abs_err=lib_err, **split,
-            shapes=f"B {b}, H {DEC_H}, KVH {DEC_KVH}, Dh {DEC_DH}, S {s} "
+            shapes=f"B {b}, H {DEC_H}, KVH {DEC_KVH}, Dh {dh}, S {s} "
                    f"f32, cur_len {lens}, {layers} cache(s) cycled")
         log(f"flash_decode {name} " + json.dumps(cells[name]))
         del kv, qd
@@ -2083,6 +2139,303 @@ def phase_serve_store(torch) -> dict:
         shutil.rmtree(d, ignore_errors=True)
 
 
+def cpu_copy(idx):
+    """The same index (its ``state_dict``: rows, and IVF's centroids) on
+    the CPU, where the kernels' plain versions run."""
+    from repro_torch.core.index import make_index
+
+    cpu = make_index(idx.kind, device="cpu", **idx.config_dict())
+    cpu.restore_state(*idx.state_dict())
+    return cpu
+
+
+def phase_serve_ivf(torch) -> dict:
+    """The IVF served path over int8 rows at full width, its keys held
+    against the CPU on the same centroids; counted runs of fp32 and bf16
+    IVF indexes of the corpus against the CPU; then the tiered served
+    path, its keys and ``TierStats`` held against a CPU ``TieredIndex``
+    of the same corpus."""
+    from repro_torch.core import dispatch
+    from repro_torch.core.index import make_index
+
+    cfg, args, corpus, res, out = served_run(
+        torch, ["--index", "ivf", "--index-dtype", "int8"])
+    log("serve ivf int8 " + json.dumps(out))
+    counts, es, rs = out["counters"], out["engine"], out["retrieval"]
+    for c in IVF_INT8_PATH:
+        assert counts.get(c, 0) > 0, f"{c} never launched on the ivf path"
+    # every search: one coarse launch (fp32 centroids), one fine (int8)
+    assert counts["kernel.gather_distance.fp32"] == rs["searches"] \
+        == counts["kernel.gather_distance.int8"]
+    assert counts["kernel.gather_distance"] == 2 * rs["searches"]
+    assert counts["kernel.flash_decode"] == cfg.n_layers * es["decode_ticks"]
+    rag, reqs = res["rag"], res["reqs"]
+    got = [[d.key for d in r.docs] for r in reqs]
+    qv = rag.encoder.encode([r.query for r in reqs])
+    keys = [key for key, _ in corpus]
+    vecs = rag.encoder.encode([text for _, text in corpus])
+    conf = rag.index.config_dict()
+    out["probe"] = rag.index.probe_plan()
+    want = cpu_copy(rag.index).query_batch(qv, k=3)[0]
+    assert got == want, f"served ivf int8 keys {got} != CPU {want}"
+    out["keys"] = {"int8 served": got}
+    del res, rag
+    for dtype in ("fp32", "bf16"):
+        # each codec's own counted run: trains, packs, searches once
+        idx = make_index("ivf", device="cuda", **dict(conf, dtype=dtype))
+        idx.bulk_insert(keys, vecs)
+        dispatch.reset()
+        card = idx.query_batch(qv, k=3)[0]
+        counts = dispatch.snapshot()
+        assert counts["kernel.gather_distance"] == 2
+        assert counts[f"kernel.gather_distance.{dtype}"] >= 1
+        cpu = cpu_copy(idx).query_batch(qv, k=3)[0]
+        assert card == cpu, f"ivf {dtype}: card {card} != CPU {cpu}"
+        out[f"counters_{dtype}"] = counts
+        out["keys"][dtype] = card
+    log("ivf keys (int8 served == CPU; fp32, bf16 card == CPU) "
+        + json.dumps(out["keys"]))
+
+    _, _, _, res, tier = served_run(torch, ["--index", "tiered"])
+    log("serve tiered fp32 " + json.dumps(tier))
+    counts, es = tier["counters"], tier["engine"]
+    assert counts["kernel.flash_decode"] == cfg.n_layers * es["decode_ticks"]
+    idx, reqs = res["rag"].index, res["reqs"]
+    got = [[d.key for d in r.docs] for r in reqs]
+    cpu = make_index("tiered", device="cpu", **idx.config_dict())
+    cpu.bulk_insert(keys, vecs)
+    assert got == cpu.query_batch(qv, k=3)[0], "served tiered keys != CPU"
+    tier["served_stats"] = idx.stats.as_dict()
+    # both from cold tiers: the same queries, the same slow-tier traffic
+    idx._g = cpu._g = None
+    card_k, card_d = idx.query_batch(qv, k=3)
+    cpu_k, cpu_d = cpu.query_batch(qv, k=3)
+    assert card_k == cpu_k and card_d.tobytes() == cpu_d.tobytes()
+    assert idx.stats.as_dict() == cpu.stats.as_dict(), \
+        f"tiered stats {idx.stats} != CPU {cpu.stats}"
+    tier.update(keys=got, stats=idx.stats.as_dict())
+    log("tiered keys and TierStats == CPU " + json.dumps(
+        {"keys": got, "stats": tier["stats"]}))
+    out["tiered"] = tier
+    return out
+
+
+def ivf_hop_cells(torch, idx, qs) -> dict:
+    """The hop kernel at the 1M IVF index's two shapes, B 8: the coarse
+    launch (K = nlist on the fp32 centroids) and the fine one (K =
+    nprobe x cap on the int8 rows, ids clipped and pads masked after),
+    each against its plain version (1e-5), its device time a launch, the
+    call's and the plain version's time and the bound: the distinct rows
+    read (+ scales), q, ids and the output once, over the HBM rate."""
+    from repro_torch.kernels import ops, ref
+
+    packed = idx._pack()
+    nlist, cap = packed.lists.shape
+    b = IVF_HOP_B
+    q = torch.as_tensor(qs[:b], device="cuda")
+    q = (q / torch.clamp_min(torch.linalg.vector_norm(
+        q, dim=-1, keepdim=True), 1e-12)).contiguous()
+    coarse = torch.arange(nlist, dtype=torch.int32,
+                          device="cuda").expand(b, nlist).contiguous()
+    cd = ops.gather_distance(packed.centroids, q, coarse)
+    probe = ref.smallest_k(cd, coarse, idx.nprobe)[1]
+    cand = packed.lists[probe.long()].reshape(b, idx.nprobe * cap)
+    valid = cand >= 0
+    fine = torch.clamp(cand, 0, packed.n - 1)
+    cells = {}
+    for name, rows, scales, ids in (
+            ("coarse", packed.centroids, None, coarse),
+            ("fine", packed.vectors, packed.scales, fine)):
+        got = ops.gather_distance(rows, q, ids, scales=scales)
+        want = ref.gather_distance_ref(rows, q, ids, scales=scales)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5, f"gather_distance ivf {name}: err {err}"
+        distinct = torch.unique(ids if name == "coarse" else ids[valid])
+        b_ms, b_by = bound(distinct.numel() * row_bytes(rows, scales)
+                           + q.numel() * 4 + ids.numel() * 8,
+                           (2.0 if scales is None else 3.0) * ids.numel()
+                           * q.shape[1])
+        call = lambda: ops.gather_distance(rows, q, ids, scales=scales)
+        split = device_split(torch, call, "gather_distance_kernel", reps=64)
+        assert split["other_device_ms"] == 0, f"ivf {name}: {split}"
+        cells[name] = dict(
+            max_abs_err=err, B=b, K=ids.shape[1], distinct_rows=
+            distinct.numel(), valid_slots=int(valid.sum()) if name ==
+            "fine" else ids.numel(), **split,
+            queued_ms=queued_ms(torch, call, 64 if name == "coarse" else 16),
+            ms=time_ms(torch, call, 20),
+            plain_ms=time_ms(torch, lambda: ref.gather_distance_ref(
+                rows, q, ids, scales=scales), 3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by,
+            plan=ops._gather_plan(b, ids.shape[1], torch.cuda.
+                                  get_device_properties(0).
+                                  multi_processor_count),
+            shapes=f"vectors {rows.shape[0]}x{rows.shape[1]} "
+                   f"{ops.CODEC_OF[rows.dtype]}"
+                   + ("" if scales is None else " + scales")
+                   + f", q {b}x{q.shape[1]}, ids {b}x{ids.shape[1]}")
+        log(f"gather_distance ivf {name} " + json.dumps(cells[name]))
+    return cells
+
+
+def ivf_store_round_trip(torch, idx, keys, qs, d: Path) -> dict:
+    """The store on the 1M int8 IVF index (attached and snapshotted before
+    its first search, which trained it and logged ``derived.centroids``):
+    logged mutations, drop, warm restore; the restored index must answer
+    the live one's keys with its epoch and centroids."""
+    import numpy as np
+    from repro_torch.core.index import make_index
+    from repro_torch.store import IndexStore
+
+    store = idx._store
+    ops_logged = [h["op"] for h, _ in store.wal.records()]
+    assert ops_logged == ["derived.centroids"], ops_logged
+    rng = np.random.default_rng(19)
+    fresh = rng.normal(size=(IVF_INSERTS + IVF_UPDATES,
+                             qs.shape[1])).astype(np.float32)
+    t0 = time.perf_counter()
+    idx.bulk_insert([f"new{j}" for j in range(IVF_INSERTS)],
+                    fresh[:IVF_INSERTS])
+    picks = rng.choice(len(keys), IVF_UPDATES + IVF_DELETES, replace=False)
+    for j, r in enumerate(picks[:IVF_UPDATES]):
+        idx.update(keys[int(r)], fresh[IVF_INSERTS + j])
+    for r in picks[IVF_UPDATES:]:
+        idx.delete(keys[int(r)])
+    mutate_s = time.perf_counter() - t0
+    live = dict(keys=idx.query_batch(qs[:IVF_SAMPLE], k=10)[0],
+                epoch=idx.mutation_epoch, size=idx.size,
+                centroids=idx._centroids.tobytes())
+    wal_bytes = store.wal.size_bytes
+    t0 = time.perf_counter()
+    restored = make_index("ivf", store=IndexStore(str(d)), device="cuda")
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = restored.query_batch(qs[:IVF_SAMPLE], k=10)[0]
+    first_query_s = time.perf_counter() - t0
+    assert restored.mutation_epoch == live["epoch"]
+    assert restored.size == live["size"]
+    assert restored._centroids.tobytes() == live["centroids"]
+    assert got == live["keys"], "restored ivf: keys differ from the live"
+    return dict(inserts=IVF_INSERTS, updates=IVF_UPDATES,
+                deletes=IVF_DELETES, mutate_s=mutate_s, wal_bytes=wal_bytes,
+                restore_s=restore_s, first_query_s=first_query_s,
+                epoch=live["epoch"], keys_equal_live=True,
+                centroids_equal_live=True, disk_bytes=dir_bytes(d))
+
+
+def phase_ivf_1m(torch) -> dict:
+    """IVF at the paper's scale: ``build_1m``'s 1M x 384 seeded cosine
+    rows in an int8 ``IVFVectorIndex`` (nlist, nprobe from
+    RetrievalConfig), attached to a store and snapshotted; k-means twice on
+    the card (bit for bit, timed); the first search's pack (it trains
+    again, equal to both, and logs ``derived.centroids``); the hop
+    kernel's coarse and fine cells (device time a launch from the profiler
+    and queued behind a spin kernel); ``query_batch`` at B 8 and 128; a
+    16-query sample against the CPU; ``exact_query`` against a
+    ``FlatVectorIndex`` of the same int8 rows; the store round trip."""
+    import numpy as np
+    from repro_torch.configs.mememo import CONFIG
+    from repro_torch.core import dispatch
+    from repro_torch.core import ivf as tivf
+    from repro_torch.core.codec import device_rows
+    from repro_torch.core.flat import FlatVectorIndex
+    from repro_torch.core.index import make_index
+    from repro_torch.store import IndexStore
+
+    cfg = CONFIG.model
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn(BULK_ROWS, cfg.dim, device="cuda",
+                    generator=gen).cpu().numpy()
+    qs = torch.randn(max(IVF_BATCHES), cfg.dim, device="cuda",
+                     generator=gen).cpu().numpy()
+    keys = [f"v{i}" for i in range(BULK_ROWS)]
+    idx = make_index("ivf", dim=cfg.dim, metric=cfg.metric, nlist=cfg.nlist,
+                     nprobe=cfg.nprobe, dtype="int8", device="cuda")
+    t0 = time.perf_counter()
+    idx.bulk_insert(keys, x)
+    ingest_s = time.perf_counter() - t0
+    d = store_dir("ivf_store")
+    try:
+        store = IndexStore(str(d))
+        store.attach(idx)
+        t0 = time.perf_counter()
+        store.snapshot(idx)
+        snapshot_s = time.perf_counter() - t0
+        # k-means twice over the index's rows: the same centroids, bit for
+        # bit (the per-cluster sums are a product, not atomics)
+        rows = device_rows(idx._rows.vectors, "cuda")
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c, a = tivf.kmeans(rows, cfg.nlist, idx.iters, idx.seed)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0, c.cpu().numpy(),
+                         a.cpu().numpy()))
+        del rows, c, a
+        assert runs[0][1].tobytes() == runs[1][1].tobytes(), \
+            "k-means on the card: two runs trained different centroids"
+        assert np.array_equal(runs[0][2], runs[1][2])
+        t0 = time.perf_counter()
+        idx._pack()                    # trains again, logs, builds, uploads
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        assert idx._centroids.tobytes() == runs[0][1].tobytes()
+        plan = idx.probe_plan()
+        out = dict(rows=BULK_ROWS, dim=cfg.dim, dtype="int8", **plan,
+                   iters=idx.iters, ingest_s=ingest_s,
+                   snapshot_s=snapshot_s,
+                   kmeans_s=[r[0] for r in runs], pack_s=pack_s,
+                   list_sizes=np.bincount(runs[0][2],
+                                          minlength=cfg.nlist).tolist(),
+                   kmeans_deterministic=True)
+        log("ivf 1M int8 " + json.dumps(out))
+        out["hop"] = ivf_hop_cells(torch, idx, qs)
+        out["query_batch"] = {}
+        for b in IVF_BATCHES:
+            idx.query_batch(qs[:b], k=10)
+            torch.cuda.synchronize()
+            dispatch.reset()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                idx.query_batch(qs[:b], k=10)
+            torch.cuda.synchronize()
+            out["query_batch"][f"B{b}"] = dict(
+                wall_ms=(time.perf_counter() - t0) * 1e3 / 3,
+                counters=dispatch.snapshot())
+        log("ivf 1M query_batch k 10 " + json.dumps(out["query_batch"]))
+        # the sample against the plain versions on the CPU, 4 queries a
+        # call (a call gathers [4, K, 384] floats)
+        got = idx.query_batch(qs[:IVF_SAMPLE], k=10)[0]
+        cpu = cpu_copy(idx)
+        want = []
+        for i in range(0, IVF_SAMPLE, 4):
+            want += cpu.query_batch(qs[i:i + 4], k=10)[0]
+        del cpu
+        assert got == want, "ivf 1M: card keys differ from the CPU's"
+        # nprobe = nlist is exact: the flat index of the same int8 rows
+        arrays, meta = idx.state_dict()
+        flat = FlatVectorIndex(metric=cfg.metric, dim=cfg.dim, dtype="int8",
+                               device="cuda")
+        flat.restore_state({k: v for k, v in arrays.items()
+                            if k != "centroids"}, meta)
+        exact = idx.exact_query(qs[:IVF_SAMPLE], k=10)[0]
+        assert exact == flat.query_batch(qs[:IVF_SAMPLE], k=10)[0], \
+            "ivf 1M exact_query != flat int8"
+        recall = sum(len(set(g) & set(e)) for g, e in zip(got, exact)) / (
+            10 * IVF_SAMPLE)
+        del flat, arrays, meta
+        out.update(sample=IVF_SAMPLE, keys_equal_cpu=True,
+                   exact_equals_flat=True, recall_at_10_vs_exact=recall)
+        out["store"] = ivf_store_round_trip(torch, idx, keys, qs, d)
+        log("ivf 1M sample == CPU, exact_query == flat int8 (recall@10 "
+            f"{recall:.4f}); store " + json.dumps(out["store"]))
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def release(torch) -> float:
     """Drop what the last phase left on the card -> GB still allocated."""
     gc.collect()
@@ -2187,6 +2540,11 @@ def main() -> int:
     int8_out = phase("6 serve hnsw int8", phase_serve_int8, torch)
     store_out = phase("7 serve hnsw int8 with a store", phase_serve_store,
                       torch)
+    ivf_out = phase("8 serve ivf and tiered", phase_serve_ivf, torch)
+    ivf_1m = phase("8 ivf 1M int8", phase_ivf_1m, torch)
+    # the hop kernel at IVF's two shapes, beside its phase 2 cells
+    kern["gather_distance.fp32"]["ivf_1m_coarse"] = ivf_1m["hop"]["coarse"]
+    kern["gather_distance.int8"]["ivf_1m_fine"] = ivf_1m["hop"]["fine"]
     paths = {"hnsw fp32": serve_out["counters"],
              "flat int8": flat_out["counters"],
              "flat fp32": flat_out["counters_fp32"],
@@ -2199,6 +2557,10 @@ def main() -> int:
              "hnsw int8 store warm": store_out["warm"]["counters"],
              **{f"hnsw {c} per-hop beam": int8_out["per_hop_beam"][c]
                 for c in CODECS},
+             "ivf int8": ivf_out["counters"],
+             "ivf fp32": ivf_out["counters_fp32"],
+             "ivf bf16": ivf_out["counters_bf16"],
+             "tiered fp32": ivf_out["tiered"]["counters"],
              BAG_ENTRY: bag_counts}
     for counts in paths.values():
         for c in CODECS:

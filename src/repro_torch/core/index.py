@@ -25,9 +25,8 @@ the serialization triple (``config_dict``/``state_dict``/
 ``restore_state``) that snapshots, WAL replay and the one-file
 ``export``/``load`` are built on.
 
-The ``flat`` and ``hnsw`` backends are ported, on one device, with the
-store. ``ivf``/``tiered`` are queued in ROADMAP.md and raise
-``NotImplementedError``.
+All four backends (``flat``, ``ivf``, ``hnsw``, ``tiered``) are ported,
+on one device, with the store.
 """
 from __future__ import annotations
 
@@ -90,6 +89,12 @@ class VectorIndex(abc.ABC):
         policy."""
         if self._store is not None:
             self._store.notify_mutation(self)
+
+    def _apply_derived(self, op: str, meta: dict, arrays: dict) -> None:
+        """Replay hook for ``derived.*`` WAL records: state a backend
+        trains outside the mutation path that queries depend on (IVF's
+        centroids). Backends with such state override this."""
+        raise ValueError(f"{type(self).__name__} cannot replay {op!r}")
 
     # ------------------------------------------------------------ mutation
     # Public mutators are template methods: validate -> WAL -> _*_impl ->
@@ -255,21 +260,23 @@ class VectorIndex(abc.ABC):
 # ---------------------------------------------------------------------------
 INDEX_KINDS = ("flat", "ivf", "hnsw", "tiered")
 
-_KIND_ITEMS = {"ivf": "IVF/tiered", "tiered": "IVF/tiered"}
+_HNSW_KNOBS = ("M", "ef_construction", "ef_search", "beam_impl")
 
 
 def _construct(kind: str, cfg: dict, device) -> VectorIndex:
-    if kind in _KIND_ITEMS:
-        raise NotImplementedError(
-            f"index kind {kind!r} is not ported yet (ROADMAP.md §1: "
-            f"{_KIND_ITEMS[kind]})")
-    if kind == "flat":
-        from repro_torch.core.flat import FlatVectorIndex
-        for key in ("M", "ef_construction", "ef_search", "beam_impl"):
+    if kind in ("flat", "ivf"):
+        for key in _HNSW_KNOBS:
             cfg.pop(key, None)
-        return FlatVectorIndex(device=device, **cfg)
-    from repro_torch.core.interface import HNSW
+        if kind == "flat":
+            from repro_torch.core.flat import FlatVectorIndex
+            return FlatVectorIndex(device=device, **cfg)
+        from repro_torch.core.ivf import IVFVectorIndex
+        return IVFVectorIndex(device=device, **cfg)
     cfg.pop("dim", None)          # HNSW infers dim from the first insert
+    if kind == "tiered":
+        from repro_torch.core.tiered import TieredIndex
+        return TieredIndex(device=device, **cfg)
+    from repro_torch.core.interface import HNSW
     metric = cfg.pop("metric", "cosine")
     return HNSW(distance_function=metric, device=device, **cfg)
 
@@ -277,10 +284,10 @@ def _construct(kind: str, cfg: dict, device) -> VectorIndex:
 def make_index(kind: str, store=None, *, device=None, **cfg) -> VectorIndex:
     """Create a VectorIndex backend by name on ``device`` (default cuda).
 
-    ``flat`` and ``hnsw`` are ported; ``cfg`` passes through to the
-    backend constructor (common: metric, dim, n_shards, dtype,
-    rerank_factor; hnsw: M, ef_construction, ef_search, seed,
-    use_bulk_build, beam_impl).
+    ``cfg`` passes through to the backend constructor (common: metric,
+    dim, n_shards, dtype, rerank_factor; hnsw/tiered: M,
+    ef_construction, ef_search, seed, use_bulk_build, beam_impl; ivf:
+    nlist, nprobe, iters, seed; tiered: cache_rows, prefetch_p).
 
     store: optional durability home — an ``IndexStore`` or a directory
     path. If the store already holds an index, it is warm-restored onto
@@ -312,9 +319,14 @@ def make_index_from_config(cfg, kind: str | None = None, store=None,
                            **overrides) -> VectorIndex:
     """Build an index from a ``RetrievalConfig`` (configs/mememo.py)."""
     kind = kind or getattr(cfg, "index_kind", "hnsw")
-    params = dict(dim=cfg.dim, metric=cfg.metric, M=cfg.M,
-                  ef_construction=cfg.ef_construction,
-                  ef_search=cfg.ef_search)
+    if kind == "ivf":
+        params = dict(dim=cfg.dim, metric=cfg.metric,
+                      nlist=getattr(cfg, "nlist", 64),
+                      nprobe=getattr(cfg, "nprobe", 8))
+    else:
+        params = dict(dim=cfg.dim, metric=cfg.metric, M=cfg.M,
+                      ef_construction=cfg.ef_construction,
+                      ef_search=cfg.ef_search)
     for name, key in (("n_shards", "n_shards"), ("index_dtype", "dtype"),
                       ("beam_impl", "beam_impl")):
         val = getattr(cfg, name, None)

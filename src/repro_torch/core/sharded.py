@@ -45,7 +45,7 @@ class ShardedRows:
     search after a mutation."""
 
     def __init__(self, *, n_shards: int = 1, metric: str = "cosine",
-                 dim: int | None = None,
+                 dim: int | None = None, normalize_on_pack: bool = True,
                  codec: VectorCodec | str | None = None, device=None):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
@@ -55,6 +55,11 @@ class ShardedRows:
         self.n_shards = n_shards
         self.metric = metric
         self.dim = dim
+        # cosine normalization by the substrate (flat semantics): at pack
+        # time for fp32 rows, at ingest before the one encode for lossy
+        # ones. IVF normalizes at insert instead and passes False, so its
+        # rows are taken as they come.
+        self.normalize_on_pack = normalize_on_pack
         self.device = resolve_device(device)
         self.codec = (codec if isinstance(codec, VectorCodec)
                       else get_codec(codec or "fp32"))
@@ -140,12 +145,12 @@ class ShardedRows:
     def _ingest(self, vecs: np.ndarray
                 ) -> tuple[np.ndarray, np.ndarray | None, np.ndarray | None]:
         """Raw fp32 rows -> (canonical fp32, encoded, scales). Lossy
-        codecs quantize here, once, after cosine normalization; fp32 rows
-        pass through untouched and are normalized at pack time."""
+        codecs quantize here, once, after cosine normalization (when the
+        substrate normalizes); fp32 rows pass through untouched."""
         vecs = np.asarray(vecs, np.float32)
         if not self.codec.lossy:
             return vecs, None, None
-        if self.metric == "cosine":
+        if self.normalize_on_pack and self.metric == "cosine":
             vecs = normalize_rows(vecs)
         enc, scales = self.codec.encode(vecs)
         return self.codec.decode(enc, scales), enc, scales
@@ -282,8 +287,9 @@ class ShardedRows:
     # --------------------------------------------------------------- pack
     def pack(self):
         """(Re)build the device ``FlatIndex`` over the live rows: fp32
-        rows normalized for cosine (``FlatIndex.build``), lossy rows as
-        their encoded bytes + scale column."""
+        rows normalized for cosine (``FlatIndex.build``) unless the
+        substrate takes them as they come, lossy rows as their encoded
+        bytes + scale column."""
         live = np.flatnonzero(self._alive)
         if live.size == 0:
             raise ValueError("index is empty")
@@ -296,10 +302,14 @@ class ShardedRows:
                     metric=self.metric,
                     scales=(device_rows(self._scales[live], self.device)
                             if self._scales is not None else None))
-            else:
+            elif self.normalize_on_pack:
                 self._flat = FlatIndex.build(self._vecs[live],
                                              metric=self.metric,
                                              device=self.device)
+            else:
+                self._flat = FlatIndex(
+                    vectors=device_rows(self._vecs[live], self.device),
+                    metric=self.metric)
         return self._flat
 
     # -------------------------------------------------------------- search

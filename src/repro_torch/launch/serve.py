@@ -8,6 +8,10 @@ of ``repro/launch/serve.py`` on one device.
         --index-dtype int8 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --rag --index flat \
         --index-dtype int8 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --rag --index ivf \
+        --index-dtype int8 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --rag --index tiered \
+        [--device cpu]
 
 The command line runs the architecture's smoke config with random weights
 from ``--seed``. ``run(cfg, args)`` takes any ``LMConfig`` (``chip_smoke.py``
@@ -15,14 +19,17 @@ passes the full-width one). RAG requests arrive closed-loop (a bounded
 window of outstanding requests is kept topped up); the run reports req/s,
 tok/s, ``overlap_ratio`` and ``slot_occupancy``.
 
-``--index flat`` serves exact search and ``--index hnsw`` the graph
-search, each under the fp32, bf16 or int8 row codec (``--index-dtype``;
-int8 over-fetches and reranks in fp32). ``--store-dir`` makes the index
-durable: the first run embeds the corpus and snapshots the index on exit,
-a later run restores it warm (snapshot + WAL replay) and only registers
-the texts. Not ported yet (ROADMAP.md §0), and rejected with
-``NotImplementedError``: ``--tenants``, ``--shards`` > 1 and ``--index
-ivf|tiered``.
+``--index flat`` serves exact search, ``--index hnsw`` the graph search,
+``--index ivf`` the probed inverted lists (k-means trained at the first
+search; its nlist, list cap and the probe's K are logged) and ``--index
+tiered`` the host graph search through the two-tier store (its slow-tier
+transactions are logged), each under the fp32, bf16 or int8 row codec
+(``--index-dtype``; int8 over-fetches and reranks in fp32).
+``--store-dir`` makes the index durable: the first run embeds the corpus
+and snapshots the index on exit, a later run restores it warm (snapshot
++ WAL replay, IVF's trained centroids included) and only registers the
+texts. Not ported yet (ROADMAP.md §0), and rejected with
+``NotImplementedError``: ``--tenants`` and ``--shards`` > 1.
 """
 from __future__ import annotations
 
@@ -90,11 +97,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--rag", action="store_true")
     ap.add_argument("--index", default="hnsw",
                     choices=("flat", "ivf", "hnsw", "tiered"),
-                    help="VectorIndex backend for the RAG retriever "
-                         "(flat and hnsw are ported)")
+                    help="VectorIndex backend for the RAG retriever")
     ap.add_argument("--index-dtype", default=None,
                     choices=("fp32", "bf16", "int8"),
-                    help="row-storage codec of the flat or hnsw index")
+                    help="row-storage codec of the index")
     ap.add_argument("--beam-impl", default=None, choices=("fused", "jnp"),
                     help="HNSW layer-0 beam: 'fused' runs the whole "
                          "ef-beam as one kernel launch; 'jnp' is the "
@@ -196,6 +202,13 @@ def run(cfg, args: argparse.Namespace, corpus=BUILTIN_CORPUS) -> dict:
         f"retrieval: {rs['requests']} requests in {rs['searches']} searches "
         f"({rs['searched_queries']} searched + {rs['padded_queries']} "
         f"bucket pad, cache hit rate {rs['hit_rate']:.2f})")
+    if args.index == "ivf":
+        p = rag.index.probe_plan()
+        logger.info(f"ivf: nlist {p['nlist']}, list cap {p['cap']}, nprobe "
+                    f"{p['nprobe']}: a search scores K = {p['nlist']} "
+                    f"centroids, then K = {p['probe_k']} list slots a query")
+    elif args.index == "tiered":
+        logger.info(f"tiered: {rag.index.stats.as_dict()}")
     if store is not None:
         path = store.snapshot(rag.index)
         logger.info(f"store snapshot: {path} (epoch "

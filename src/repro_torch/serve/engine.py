@@ -39,6 +39,7 @@ import torch
 from repro_torch.configs.base import LMConfig
 from repro_torch.data.corpus import encode_ids
 from repro_torch.models import transformer as tf
+from repro_torch.serve.retrieval import reject_tenant
 from repro_torch.utils import resolve_device
 
 # RagRequest lifecycle states (the tick state machine)
@@ -82,6 +83,11 @@ class RagRequest:
     done: bool = False
     _handle: object = dataclasses.field(default=None, repr=False)
     _epoch: int | None = dataclasses.field(default=None, repr=False)
+
+    def result(self) -> dict:
+        """The row shape ``generate_rag`` returns."""
+        return {"query": self.query, "docs": self.docs,
+                "prompt": self.prompt, "response": self.response}
 
 
 @dataclasses.dataclass
@@ -396,3 +402,24 @@ class ServeEngine:
         reqs = [self.submit(p, max_new_tokens) for p in prompts]
         self.run_until_drained()
         return [r.out_tokens for r in reqs]
+
+    # ------------------------------------------------------------ RAG shim
+    def generate_rag(self, pipeline, queries: list[str], *, k: int = 3,
+                     max_new_tokens: int = 16,
+                     tenants: list[str] | None = None) -> list[dict]:
+        """Batch call over the request API: binds ``pipeline`` (if none is
+        bound yet), submits one ``RagRequest`` a query, drains, and
+        returns each request's ``result()``. ``tenants`` raises, as
+        ``submit_rag`` does for a tenant."""
+        reject_tenant(tenants)
+        if self.pipeline is None:
+            self.pipeline = pipeline
+        elif self.pipeline is not pipeline:
+            raise ValueError(
+                "engine is already bound to a different pipeline; "
+                "construct one ServeEngine(..., pipeline=...) per pipeline")
+        reqs = [self.submit_rag(q, k=k, max_new_tokens=max_new_tokens)
+                for q in queries]
+        self.run_until_drained()
+        self.poll()                      # batch callers never poll
+        return [r.result() for r in reqs]

@@ -15,15 +15,18 @@ durable: a warm store restores the previous session's index, its
 ``mutation_epoch`` included, instead of building a fresh one, and
 ``register_texts`` refills the text side-table without re-embedding.
 
-The multi-tenant pool mode waits for ROADMAP.md §1 ("tenancy") and raises
+``answer`` is the single-call surface (retrieve, fill, generate with a
+``generate_fn``; ``lm_generate_fn`` adapts a ``ServeEngine``). The
+multi-tenant pool mode waits for ROADMAP.md §1 ("tenancy") and raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 from repro_torch.core.index import VectorIndex, make_index
-from repro_torch.data.corpus import DocumentStore, HashingEncoder
+from repro_torch.data.corpus import DocumentStore, HashingEncoder, encode_ids
 from repro_torch.serve.retrieval import RetrievalEngine, reject_tenant
 
 DEFAULT_TEMPLATE = (
@@ -73,6 +76,7 @@ class RAGPipeline:
                  store: DocumentStore | None = None,
                  index_store=None,
                  template: str = DEFAULT_TEMPLATE,
+                 generate_fn: Callable[[str], str] | None = None,
                  M: int = 16, ef_construction: int = 100,
                  retrieval_batch: int = 128, retrieval_cache: int = 1024,
                  index_shards: int | None = None,
@@ -96,6 +100,7 @@ class RAGPipeline:
             device=device, **cfg)
         self.store = store or DocumentStore()
         self.template = template
+        self.generate_fn = generate_fn
         self.retriever = RetrievalEngine(self.index,
                                          max_batch=retrieval_batch,
                                          cache_size=retrieval_cache)
@@ -190,3 +195,27 @@ class RAGPipeline:
         return (self.template
                 .replace("{{context}}", ctx)
                 .replace("{{user}}", query))
+
+    # ------------------------------------------------------------ generate
+    def answer(self, query: str, k: int = 3,
+               tenant: str | None = None) -> dict:
+        """The single-call RAG surface: retrieve, fill the template and,
+        with a ``generate_fn``, generate."""
+        docs = self.retrieve(query, k, tenant=tenant)
+        prompt = self.build_prompt(query, docs)
+        out = self.generate_fn(prompt) if self.generate_fn else None
+        return {"query": query, "docs": docs, "prompt": prompt,
+                "response": out}
+
+
+def lm_generate_fn(engine, vocab: int, max_len: int, detokenize=None):
+    """Adapt a ``ServeEngine`` into ``RAGPipeline.generate_fn`` (hashed
+    tokenizer, 16 new tokens)."""
+    def fn(prompt: str) -> str:
+        ids = encode_ids(prompt, vocab, max_len)
+        ids = ids[ids > 0]
+        out = engine.generate([ids], max_new_tokens=16)[0]
+        if detokenize:
+            return detokenize(out)
+        return " ".join(f"<{t}>" for t in out)
+    return fn

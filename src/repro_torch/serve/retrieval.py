@@ -273,3 +273,10 @@ class RetrievalEngine:
         reqs = [self.submit(row, k=k, ef=ef) for row in q]
         self.run_until_drained()
         return reqs
+
+    def retrieve_one(self, query, k: int = 10, ef: int | None = None,
+                     tenant: str | None = None) -> RetrievalRequest:
+        """One query [D] through the engine (cache included): submit,
+        drain, return its resolved request."""
+        return self.retrieve(np.asarray(query, np.float32)[None], k, ef,
+                             tenants=tenant)[0]

@@ -272,6 +272,10 @@ class IndexStore:
             idx._update_impl(meta["key"], arrays["vec"])
         elif op == "delete":
             idx._delete_impl(meta["key"])
+        elif op.startswith("derived."):
+            # trained state logged at query time (IVF's centroids); it
+            # bumps no epoch
+            idx._apply_derived(op, meta, arrays)
         else:
             raise WalCorruption(f"unknown WAL op {op!r}")
 

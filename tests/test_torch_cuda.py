@@ -1034,3 +1034,95 @@ def test_embedding_bag_zero_weight_does_not_hide_nan(cuda_device, bad,
     assert bool(torch.isnan(want[0]).any())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
                                equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# IVF: the hop kernel at the probe's shapes, k-means on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("b,nlist,cap,nprobe", [
+    (8, 64, 300, 8), (3, 16, 8192, 16), (1, 7, 1 << 17, 1),
+    (2, 5, 40_000, 4)])                  # K = nprobe x cap up to 2^17+
+def test_gather_distance_at_ivf_shapes_matches_plain(cuda_device, codec, b,
+                                                     nlist, cap, nprobe):
+    """The coarse launch (K = nlist on fp32 centroids) and the fine one
+    (K = nprobe x cap on the codec's rows, -1 list pads clipped to row 0
+    and masked after the call), against the plain version."""
+    from repro_torch.core.ivf import INF
+    from repro_torch.kernels.ref import smallest_k
+    rng = np.random.default_rng(41 + cap)
+    n = 50_000
+    x = _unit(rng.normal(size=(n, 64)))
+    rows, scales = _codec_rows(x, codec, cuda_device)
+    cent = _t(_unit(rng.normal(size=(nlist, 64)))).to(cuda_device)
+    q = _t(_unit(rng.normal(size=(b, 64)))).to(cuda_device)
+    coarse = torch.arange(nlist, dtype=torch.int32,
+                          device=cuda_device).expand(b, nlist).contiguous()
+    got = tops.gather_distance(cent, q, coarse)
+    torch.testing.assert_close(got, tref.gather_distance_ref(cent, q, coarse),
+                               rtol=0, atol=1e-5)
+    lists = rng.integers(0, n, size=(nlist, cap)).astype(np.int32)
+    lists[rng.random((nlist, cap)) < 0.3] = -1           # list padding
+    lists = _t(lists).to(cuda_device)
+    probe = smallest_k(got, coarse, nprobe)[1]
+    cand = lists[probe.long()].reshape(b, nprobe * cap)
+    ids = torch.clamp(cand, 0, n - 1)
+    d = tops.gather_distance(rows, q, ids, scales=scales)
+    want = tref.gather_distance_ref(rows, q, ids, scales=scales)
+    torch.testing.assert_close(d, want, rtol=0, atol=1e-5)
+    valid = cand >= 0
+    torch.testing.assert_close(torch.where(valid, d, INF),
+                               torch.where(valid, want, INF), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_ivf_index_on_card_matches_cpu(cuda_device, codec, metric):
+    """An IVFVectorIndex on the card and its state on the CPU (the same
+    centroids): equal keys; the k clamp and missing slots as the CPU's."""
+    from repro_torch.core.index import make_index
+    rng = np.random.default_rng(43)
+    data = rng.normal(size=(6000, 48)).astype(np.float32)
+    q = rng.normal(size=(16, 48)).astype(np.float32)
+    card = make_index("ivf", metric=metric, dtype=codec, nlist=32, nprobe=4,
+                      device=cuda_device)
+    card.bulk_insert([f"d{i}" for i in range(6000)], data)
+    card.query(q[0], 3)
+    cpu = make_index("ivf", device="cpu", **card.config_dict())
+    cpu.restore_state(*card.state_dict())
+    for k, nprobe in ((10, None), (40, 32), (5000, 1)):
+        ck, cd = card.query_batch(q, k, nprobe=nprobe)
+        pk, pd = cpu.query_batch(q, k, nprobe=nprobe)
+        assert ck == pk
+        np.testing.assert_allclose(cd, pd, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kmeans_on_card_is_deterministic(cuda_device):
+    """Two trainings on the card give the same centroids and assignments
+    bit for bit (the per-cluster sums are a one-hot product, no float
+    atomics)."""
+    from repro_torch.core.ivf import kmeans
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(47)
+    x = _t(rng.normal(size=(200_000, 96)).astype(np.float32))
+    runs = [kmeans(x.to(cuda_device), 64, 8, seed=3) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    c, a = runs[0]
+    assert c.shape == (64, 96) and bool(torch.isfinite(c).all())
+    assert torch.bincount(a, minlength=64).sum().item() == 200_000
+
+
+@pytest.mark.cuda
+def test_kmeans_refuses_tf32(cuda_device):
+    from repro_torch.core.ivf import kmeans
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="full-fp32"):
+            kmeans(torch.ones(10, 4, device=cuda_device), 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -448,7 +448,7 @@ def test_launch_serve_flat_int8_runs_on_cpu():
     assert out["rag"].index.kind == "flat"
     assert out["rag"].index.storage_dtype == "int8"
     assert all(dispatch.get(c) == 0 for c in dispatch.KERNEL_COUNTERS)
-    for bad in (["--index", "ivf"], ["--shards", "2"]):
+    for bad in (["--tenants", "2"], ["--shards", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tserve.main(["--rag", "--device", "cpu", "--requests", "1",
                          *bad])

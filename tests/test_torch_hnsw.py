@@ -250,13 +250,16 @@ def test_hnsw_incremental_sync_matches_full_upload():
 
 def test_unported_surface_raises_not_implemented(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("ivf", device="cpu")
+        tmake_index("ivf", device="cpu", n_shards=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmake_index("tiered", device="cpu", n_shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmake_index("hnsw", device="cpu", n_shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmake_index("hnsw", device="cpu", dtype="int8", n_shards=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("ivf", device="cpu", store=str(tmp_path / "ivf"))
+        tmake_index("ivf", device="cpu", store=str(tmp_path / "ivf"),
+                    n_shards=2)
     sd = str(tmp_path / "s")
     idx = tmake_index("hnsw", device="cpu", store=sd)
     idx.insert("a", np.ones(4, np.float32))

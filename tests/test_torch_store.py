@@ -612,3 +612,122 @@ def test_replay_skips_a_live_type_error_as_the_reference(kind, tmp_path):
         assert got.size == 21
         _assert_same_answers(j_back, got, DATA[:5], exact=False)
     assert_bit_for_bit(tidx, t_back)
+
+
+# ---------------------------------------------------------------------------
+# IVF and tiered: trained centroids through the WAL, stores across packages
+# ---------------------------------------------------------------------------
+IVF_CFG = dict(dim=DIM, metric="cosine", nlist=8, nprobe=3)
+
+
+def _ops_trained(idx, store):
+    """A history whose restore needs both IVF centroid paths: trained
+    centroids inside a snapshot, then (after a compaction drops them) a
+    ``derived.centroids`` record in the WAL tail."""
+    seed_mutations(idx)
+    idx.query(DATA[0], 3)                  # trains IVF: a derived record
+    store.snapshot(idx)
+    tail_mutations(idx)
+    idx.compact()                          # snapshot; centroids dropped
+    idx.query(DATA[1], 3)                  # retrains: a record in the WAL
+    idx.insert("z", EXTRA[10])
+    idx.delete("d3")
+
+
+def _derived_records(root):
+    wal = WriteAheadLog(os.path.join(root, "wal.log"))
+    try:
+        return [(h, a) for h, a in wal.records()
+                if h["op"].startswith("derived.")]
+    finally:
+        wal.close()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ivf_warm_restore_replays_trained_centroids(dtype, tmp_path):
+    store = IndexStore(os.path.join(tmp_path, "store"))
+    idx = tmake_index("ivf", store=store, device="cpu", dtype=dtype,
+                      **IVF_CFG)
+    _ops_trained(idx, store)
+    (head, arrays), = _derived_records(store.root)
+    assert head["op"] == "derived.centroids"
+    assert head["epoch"] == idx.mutation_epoch - 2
+    np.testing.assert_array_equal(arrays["centroids"], idx._centroids)
+    back = load(store.root)
+    assert_bit_for_bit(idx, back)
+    assert back._centroids.tobytes() == idx._centroids.tobytes()
+
+
+def test_ivf_store_files_equal_to_reference(tmp_path, monkeypatch):
+    """The same history through both packages, the port's k-means started
+    from the reference's draw on integer-valued l2 rows (exact sums, so
+    equal centroids): WAL (its derived.centroids record included),
+    config.json and every manifest.json equal byte for byte, the pages
+    array for array."""
+    import jax
+
+    from repro_torch.core import ivf as tivf
+    monkeypatch.setattr(tivf, "init_rows", lambda n, k, seed: np.asarray(
+        jax.random.choice(jax.random.PRNGKey(seed), n, (k,), replace=False)))
+    rng = np.random.default_rng(8)
+    centers = rng.integers(-30, 31, size=(5, DIM)) * 4
+    rows = (centers[rng.integers(0, 5, 80)]
+            + rng.integers(-2, 3, size=(80, DIM))).astype(np.float32)
+    cfg = dict(IVF_CFG, metric="l2", nlist=5)
+    js = JIndexStore(os.path.join(tmp_path, "jax"))
+    ts = IndexStore(os.path.join(tmp_path, "torch"))
+    wal_mid = []
+    for idx, st in ((jmake_index("ivf", store=js, **cfg), js),
+                    (tmake_index("ivf", store=ts, device="cpu", **cfg), ts)):
+        idx.bulk_insert([f"r{i}" for i in range(70)], rows[:70])
+        st.snapshot(idx)
+        idx.query(rows[0], 3)                       # trains
+        idx.insert("r70", rows[70])
+        idx.delete("r4")
+        with open(os.path.join(st.root, "wal.log"), "rb") as f:
+            wal_mid.append(f.read())
+        st.snapshot(idx)
+        idx.update("r5", rows[71])
+        idx.insert("r72", rows[72])
+        st.wal.close()
+    assert b"derived.centroids" in wal_mid[1] and wal_mid[0] == wal_mid[1]
+    for name in ("wal.log", "config.json"):
+        with open(os.path.join(js.root, name), "rb") as a, \
+                open(os.path.join(ts.root, name), "rb") as b:
+            assert a.read() == b.read(), name
+    assert js.snapshots() == ts.snapshots() and len(ts.snapshots()) == 2
+    for snap in ts.snapshots():
+        jdir, tdir = (os.path.join(js.root, snap),
+                      os.path.join(ts.root, snap))
+        with open(os.path.join(jdir, "manifest.json"), "rb") as a, \
+                open(os.path.join(tdir, "manifest.json"), "rb") as b:
+            assert a.read() == b.read(), snap
+        (_, ja), (_, ta) = jread_snapshot(jdir), read_snapshot(tdir)
+        assert set(ja) == set(ta)
+        for name in ja:
+            assert ja[name].dtype == ta[name].dtype, name
+            np.testing.assert_array_equal(ta[name], ja[name], err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["ivf", "tiered"])
+def test_ivf_and_tiered_stores_cross_load(kind, dtype, tmp_path):
+    """A store written by repro restores in the port with the reference's
+    centroids (replayed from its WAL) and keys, and one written by the
+    port restores in repro with the port's."""
+    cfg = dict(IVF_CFG, dtype=dtype) if kind == "ivf" else dict(CFG,
+                                                              dtype=dtype)
+    js = JIndexStore(os.path.join(tmp_path, "jax"))
+    ts = IndexStore(os.path.join(tmp_path, "torch"))
+    jidx = jmake_index(kind, store=js, **cfg)
+    tidx = tmake_index(kind, store=ts, device="cpu", **cfg)
+    _ops_trained(jidx, js)
+    _ops_trained(tidx, ts)
+    t_from_j = IndexStore(js.root).load_index(device="cpu")
+    j_from_t = JIndexStore(ts.root).load_index()
+    if kind == "ivf":
+        assert len(_derived_records(js.root)) == 1
+        assert t_from_j._centroids.tobytes() == jidx._centroids.tobytes()
+        assert j_from_t._centroids.tobytes() == tidx._centroids.tobytes()
+    _assert_same_answers(jidx, t_from_j, DATA[:5], exact=False)
+    _assert_same_answers(j_from_t, tidx, DATA[:5], exact=False)
