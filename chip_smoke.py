@@ -135,6 +135,39 @@ Phases (none catches an exception; any failure exits non-zero):
    ``FlatVectorIndex`` of the same int8 rows; and 32 logged mutations,
    drop and warm restore, which must give the live keys, epoch and
    centroids.
+9. The sharded index, ``n_shards`` 4. On a one-card machine the shards
+   share cuda:0 through ``REPRO_TORCH_SHARD_DEVICES`` (their launches run
+   one after another); with two or more cards the 1M cells run again
+   with one shard a card, and otherwise the log says they did not. (a)
+   ``build_1m``'s 1M x 384 seeded cosine rows in int8 flat and IVF
+   indexes (nlist 64, nprobe 8) at 4 shards, made from the 1-shard
+   indexes' state (IVF on their trained centroids): a 16-query sample's
+   keys equal the 1-shard index's; one counted search launches
+   ``distance_topk`` ceil((k + slack_s) / 256) times a shard (flat: each
+   shard fetches k + its own free slots), the coarse hop once and the
+   fine hop once a shard (IVF); the wall of a search at B 8 and 128
+   against one shard; each shard's ``distance_topk`` call (k + slack_s
+   rows) held against its plain version, every column, and its fine hop
+   launch (K = nprobe x its cap) against its plain version, both timed
+   with their bound, and the tree merge's time against the all-gather
+   oracle; then 1,000 deletes leave free slots in each shard's block, so
+   a shard's ``distance_topk`` runs in several passes: keys against one
+   shard with the same deletes, each shard's call against its plain
+   version. (b) HNSW over 20,000 x 384 seeded rows at
+   4 shards (the paper's M 5, efConstruction 20; each child built by the
+   host builder): keys equal the loop oracle's (each child searched on
+   its own, a host merge), ``exact_query`` equals a 1-shard index's,
+   every child's descent (bit for bit against the per-hop loop) and beam
+   against their plain versions at B 8 and 128, one counted search
+   launches the beam once a shard and the descent once a child with
+   upper layers, the wall at B 8 and 128 against the 1-shard index, and
+   one child's descent and beam launches timed. (c) An int8
+   flat store of 100,000 of the rows written at 4 shards restores at 1
+   and one written at 1 restores at 4, with the writer's keys, epoch and
+   ``state_dict``. (d) The served path ``--rag --shards 4 --index hnsw
+   --index-dtype int8`` at full width: the int8 beam launches once a
+   shard a search, ``flash_decode`` once a layer a decode tick, and the
+   served keys equal a CPU copy of the index's.
 
 Each phase's seconds are logged. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -147,7 +180,9 @@ import gc
 import itertools
 import json
 import math
+import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -223,6 +258,15 @@ COMPACT_ROWS, COMPACT_DELETES = 20_000, 200
 # bulk_insert, updates, deletes)
 IVF_BATCHES, IVF_SAMPLE, IVF_HOP_B = (8, 128), 16, 8
 IVF_INSERTS, IVF_UPDATES, IVF_DELETES = 16, 8, 8
+# phase 9: the sharded index at 4 shards (on cuda:0 repeated when the
+# machine has one card); HNSW rows sized so that the four host builds (M
+# 5, efConstruction 20, configs/mememo.py) take well under a minute; the
+# store round trips on a prefix of the 1M int8 rows
+SHARDS, SHARD_BATCHES, SHARD_SAMPLE = 4, (8, 128), 16
+SHARD_HNSW_ROWS, SHARD_STORE_ROWS = 20_000, 100_000
+# phase 9 deletes every this many-th key of the 1M flat indexes: about
+# 250 free slots a shard, so the fan-out over-fetches in several passes
+SHARD_CHURN_EVERY = 1000
 # the kernels each served path must launch
 HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
              "kernel.flash_decode")
@@ -2436,6 +2480,542 @@ def phase_ivf_1m(torch) -> dict:
         shutil.rmtree(d, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the sharded index
+# ---------------------------------------------------------------------------
+def shard_env(devices: str | None):
+    """Set (a comma list) or clear ``REPRO_TORCH_SHARD_DEVICES`` -> the
+    value it had, for ``shard_env`` to put back."""
+    from repro_torch.core.sharded import SHARD_DEVICES_ENV
+    old = os.environ.get(SHARD_DEVICES_ENV)
+    if devices is None:
+        os.environ.pop(SHARD_DEVICES_ENV, None)
+    else:
+        os.environ[SHARD_DEVICES_ENV] = devices
+    return old
+
+
+def walls_ms(torch, idx, qs, reps: int = 10) -> dict:
+    """``query_batch`` wall (ms, host clock; the call ends in a read of
+    its merged result) at each of ``SHARD_BATCHES``: the median of
+    ``reps`` calls timed one by one, after two warm calls."""
+    out = {}
+    for b in SHARD_BATCHES:
+        for _ in range(2):
+            idx.query_batch(qs[:b], k=10)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            idx.query_batch(qs[:b], k=10)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[f"B{b}"] = statistics.median(ms)
+    return out
+
+
+def counted(torch, fn) -> dict:
+    """The counters of one call of ``fn``, zeroed just before."""
+    from repro_torch.core import dispatch
+    dispatch.reset()
+    fn()
+    torch.cuda.synchronize()
+    return dispatch.snapshot()
+
+
+def shard_topk_agree(torch, placed, q, k: int) -> list[dict]:
+    """Each shard's ``distance_topk`` call as the flat fan-out makes it
+    (its block, k + slack_s rows) against the plain version on the same
+    inputs, every column (``assert_topk_agree``: distances within 1e-5,
+    ids equal wherever the distances are not tied to 1e-6)."""
+    from repro_torch.kernels import ops, ref
+
+    out = []
+    scales = placed.scales or [None] * len(placed.blocks)
+    for s, (blk, scl) in enumerate(zip(placed.blocks, scales)):
+        kk = min(k + placed.slack[s], blk.shape[0])
+        qd = q.to(blk.device)
+        got = ops.flat_topk(blk, qd, kk, scales=scl)
+        want = ref.distance_topk_ref(blk, qd, kk, scales=scl)
+        frac = assert_topk_agree(torch, got, want,
+                                 f"shard {s} distance_topk k {kk}")
+        out.append(dict(shard=s, rows=blk.shape[0], k=kk,
+                        passes=-(-kk // ops.TOPK_PASS_K),
+                        max_abs_err=(got[0] - want[0]).abs().max().item(),
+                        ids_equal_frac=frac))
+    return out
+
+
+def shard_topk_cells(torch, placed, q, k: int) -> list[dict]:
+    """Each shard's ``distance_topk`` launch as the flat fan-out makes it
+    (its block, k + slack_s rows), held against the plain version
+    (``shard_topk_agree``), device ms a launch (profiler) and a call
+    (CUDA events), with the bound of its rows; the plain version's time
+    on shard 0."""
+    from repro_torch.kernels import ops, ref
+
+    cells = shard_topk_agree(torch, placed, q, k)
+    scales = placed.scales or [None] * len(placed.blocks)
+    for cell, blk, scl in zip(cells, placed.blocks, scales):
+        kk = cell["k"]
+        qd = q.to(blk.device)
+        call = lambda: ops.flat_topk(blk, qd, kk, scales=scl)
+        b_ms, b_by = topk_bound(blk, scl, q.shape[0], kk)
+        with torch.cuda.device(blk.device):   # events on the shard's card
+            split = device_split(torch, call, "distance_topk", reps=8)
+            ms = time_ms(torch, call, 10)
+        cell.update(**split, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                    device=str(blk.device))
+    cells[0]["plain_ms"] = time_ms(torch, lambda: ref.distance_topk_ref(
+        placed.blocks[0], q.to(placed.blocks[0].device), cells[0]["k"],
+        scales=scales[0]), 3, warmup=1)
+    return cells
+
+
+def shard_hop_cells(torch, sp, q, nprobe: int) -> list[dict]:
+    """Each shard's fine hop launch of the IVF fan-out (K = nprobe x its
+    cap), ids clipped as the search clips them, against its plain version
+    (1e-5 where valid); device ms a launch and a call, and the bound of
+    the distinct valid rows it reads."""
+    from repro_torch.kernels import ops, ref
+
+    b = q.shape[0]
+    cells = []
+    scales = sp.placed.scales or [None] * len(sp.lists)
+    for s, (blk, scl, lists) in enumerate(zip(sp.placed.blocks, scales,
+                                              sp.lists)):
+        q = q.to(blk.device)
+        coarse = torch.arange(sp.nlist, dtype=torch.int32, device=q.device
+                              ).expand(b, sp.nlist).contiguous()
+        cd = ops.gather_distance(sp.centroids[q.device], q, coarse)
+        probe = ref.smallest_k(cd, coarse, nprobe)[1].reshape(-1).long()
+        cand = lists[probe].reshape(b, nprobe * lists.shape[1])
+        valid = cand >= 0
+        ids = torch.clamp(cand, 0, blk.shape[0] - 1)
+        got = ops.gather_distance(blk, q, ids, scales=scl)
+        want = ref.gather_distance_ref(blk, q, ids, scales=scl)
+        err = (got - want)[valid].abs().max().item()
+        assert err <= 1e-5, f"shard {s} fine hop: err {err}"
+        distinct = torch.unique(ids[valid]).numel()
+        b_ms, b_by = bound(distinct * row_bytes(blk, scl) + q.numel() * 4
+                           + ids.numel() * 8, 3.0 * ids.numel() * q.shape[1])
+        call = lambda: ops.gather_distance(blk, q, ids, scales=scl)
+        with torch.cuda.device(blk.device):   # events on the shard's card
+            split = device_split(torch, call, "gather_distance_kernel",
+                                 reps=16)
+            ms = time_ms(torch, call, 10)
+        if s == 0:
+            plain_ms = time_ms(torch, lambda: ref.gather_distance_ref(
+                blk, q, ids, scales=scl), 5, warmup=1)
+        cells.append(dict(shard=s, K=ids.shape[1], cap=lists.shape[1],
+                          valid_slots=int(valid.sum()), distinct_rows=
+                          distinct, max_abs_err=err, **split, ms=ms,
+                          **({"plain_ms": plain_ms} if s == 0 else {}),
+                          bound_ms=b_ms, bound_by=b_by,
+                          device=str(blk.device)))
+    return cells
+
+
+def shard_merge_ms(torch, placed, q, k: int) -> dict:
+    """The tree merge of the flat fan-out's four [B, k] lists (CUDA
+    events a call; the lists built as the fan-out builds them)."""
+    from repro_torch.core.sharded import trim_merge_width
+    from repro_torch.distributed.collectives import hierarchical_topk
+    from repro_torch.kernels import ops
+
+    parts = []
+    scales = placed.scales or [None] * len(placed.blocks)
+    for blk, gid, scl, sl in zip(placed.blocks, placed.gids, scales,
+                                 placed.slack):
+        d, i = ops.flat_topk(blk, q.to(blk.device),
+                             min(k + sl, blk.shape[0]), scales=scl)
+        g = gid[i.long()]
+        parts.append(trim_merge_width(torch.where(g >= 0, d, 3e38), g, k))
+    merge = lambda: hierarchical_topk(parts, k, tie_break_ids=True)
+    oracle = hierarchical_topk(parts, k, tie_break_ids=True, tree=False)
+    got = merge()
+    assert torch.equal(got[1], oracle[1]) and torch.equal(got[0], oracle[0])
+    return dict(B=q.shape[0], k=k, shards=len(parts),
+                ms=time_ms(torch, merge, 20), equals_oracle=True)
+
+
+def sharded_1m(torch, x, qs, keys, shards: int) -> dict:
+    """Flat and IVF int8 over ``build_1m``'s rows at ``shards`` shards
+    against the 1-shard indexes of the same rows: keys on a sample, the
+    wall of a search at B 8 and 128, each shard's launches; the 4-shard
+    indexes come from the 1-shard state (the canonical arrays), IVF's on
+    the 1-shard index's centroids."""
+    import numpy as np
+    from repro_torch.configs.mememo import CONFIG
+    from repro_torch.core.index import make_index
+    from repro_torch.kernels import ops
+
+    cfg = CONFIG.model
+    common = dict(dim=cfg.dim, metric=cfg.metric, dtype="int8",
+                  device="cuda")
+    t0 = time.perf_counter()
+    flat1 = make_index("flat", **common)
+    flat1.bulk_insert(keys, x)
+    ingest_s = time.perf_counter() - t0
+    arrays, meta = flat1.state_dict()
+    ivf_cfg = dict(common, nlist=cfg.nlist, nprobe=cfg.nprobe)
+    t0 = time.perf_counter()
+    flat4 = make_index("flat", n_shards=shards, **common)
+    flat4.restore_state(arrays, meta)
+    ivf1 = make_index("ivf", **ivf_cfg)
+    ivf1.restore_state(dict(arrays, centroids=np.zeros((0, cfg.dim),
+                                                       np.float32)),
+                       dict(meta, has_centroids=False))
+    ivf1.query_batch(qs[:1], k=10)                   # trains
+    # both on the trained centroids, the rows assigned on the host alike
+    ivf1._invalidate()
+    ivf4 = make_index("ivf", n_shards=shards, **ivf_cfg)
+    ivf4.restore_state(*ivf1.state_dict())
+    adopt_s = time.perf_counter() - t0
+    out = dict(rows=len(keys), shards=shards, ingest_s=ingest_s,
+               adopt_s=adopt_s, arrays=arrays)
+    for name, one, four in (("flat", flat1, flat4), ("ivf", ivf1, ivf4)):
+        t0 = time.perf_counter()
+        got = four.query_batch(qs[:SHARD_SAMPLE], k=10)[0]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0           # packs the shards
+        assert got == one.query_batch(qs[:SHARD_SAMPLE], k=10)[0], \
+            f"{name} at {shards} shards: keys differ from one shard"
+        counts = counted(torch, lambda: four.query_batch(qs[:8], k=10))
+        if name == "flat":
+            # a shard's launch fetches k + slack_s rows: passes of 256
+            placed = four._rows.pack()
+            passes = sum(-(-min(10 + sl, b.shape[0]) // ops.TOPK_PASS_K)
+                         for b, sl in zip(placed.blocks, placed.slack))
+            assert counts["kernel.distance_topk.int8"] == passes, counts
+        else:
+            distinct = len(set(four._rows.devices))
+            assert counts["kernel.gather_distance.fp32"] == distinct
+            assert counts["kernel.gather_distance.int8"] == shards, counts
+        out[name] = dict(keys_equal_one_shard=True, first_search_s=first_s,
+                         wall_ms={"1 shard": walls_ms(torch, one, qs),
+                                  f"{shards} shards": walls_ms(torch, four,
+                                                               qs)},
+                         shard_stats=four.shard_stats(), counters=counts,
+                         device_block_bytes=four._rows.device_block_bytes())
+    q8 = torch.as_tensor(qs[:8], device="cuda")
+    q8 = (q8 / torch.clamp_min(torch.linalg.vector_norm(
+        q8, dim=-1, keepdim=True), 1e-12)).contiguous()
+    placed = flat4._rows.pack()
+    out["flat"]["slack"] = placed.slack
+    out["flat"]["shard_topk"] = shard_topk_cells(torch, placed, q8, 10)
+    out["flat"]["merge"] = shard_merge_ms(torch, placed, q8, 10)
+    out["ivf"]["probe"] = ivf4.probe_plan()
+    out["ivf"]["shard_hop"] = shard_hop_cells(torch, ivf4._pack_sharded(),
+                                              q8, cfg.nprobe)
+    out["flat"]["churned"] = churned_flat(torch, flat1, flat4, qs, keys, q8)
+    return out
+
+
+def churned_flat(torch, one, four, qs, keys, q8) -> dict:
+    """Deletes below the relayout fraction leave free slots in each
+    shard's block, so the fan-out over-fetches k + slack_s rows in
+    several ``distance_topk`` passes: keys against one shard with the
+    same deletes, and each shard's multi-pass call against the plain
+    version, every column."""
+    from repro_torch.core.sharded import REPACK_FREE_FRACTION
+
+    gone = keys[::SHARD_CHURN_EVERY]
+    for idx in (one, four):
+        for key in gone:
+            idx.delete(key)
+    got = four.query_batch(qs[:SHARD_SAMPLE], k=10)[0]
+    assert got == one.query_batch(qs[:SHARD_SAMPLE], k=10)[0], \
+        "churned flat: keys differ from one shard"
+    stats = four.shard_stats()
+    assert sum(x["free"] for x in stats) / sum(x["slots"] for x in stats) \
+        <= REPACK_FREE_FRACTION, stats
+    placed = four._rows.pack()
+    cells = shard_topk_agree(torch, placed, q8, 10)
+    assert all(c["passes"] > 1 for c in cells), cells
+    return dict(deleted=len(gone), slack=placed.slack,
+                keys_equal_one_shard=True, shard_topk=cells)
+
+
+def sharded_store(torch, x, keys, arrays, shards: int) -> dict:
+    """The first ``SHARD_STORE_ROWS`` rows (of the int8 flat index's
+    canonical ``arrays``) in an int8 flat store written at ``shards``
+    shards (snapshot + logged mutations) restored at 1, and one written at
+    1 restored at ``shards``: keys, epoch and ``state_dict`` equal the
+    writer's."""
+    import numpy as np
+    from repro_torch.core.index import make_index
+    from repro_torch.store import IndexStore
+
+    n = SHARD_STORE_ROWS
+    qs = x[:SHARD_SAMPLE] + 0.01
+    out = {}
+    for src, dst in ((shards, 1), (1, shards)):
+        d = store_dir(f"shard_store_{src}")
+        try:
+            idx = make_index("flat", store=IndexStore(str(d)), dim=x.shape[1],
+                             dtype="int8", n_shards=src, device="cuda")
+            # the prefix's canonical arrays, with no second ingest
+            idx.restore_state({"vectors_enc": arrays["vectors_enc"][:n],
+                               "scales": arrays["scales"][:n],
+                               "alive": arrays["alive"][:n]},
+                              {"keys": keys[:n], "epoch": 1})
+            idx._store.snapshot(idx)
+            idx.insert("late", x[n])
+            idx.delete(keys[3])
+            want = idx.query_batch(qs, k=10)[0]
+            t0 = time.perf_counter()
+            back = make_index("flat", store=IndexStore(str(d)),
+                              n_shards=dst, device="cuda")
+            got = back.query_batch(qs, k=10)[0]
+            restore_s = time.perf_counter() - t0
+            assert back.shard_count == dst and got == want
+            assert back.mutation_epoch == idx.mutation_epoch
+            (a1, m1), (a2, m2) = idx.state_dict(), back.state_dict()
+            assert m1 == m2 and all(np.array_equal(a1[k], a2[k]) for k in a1)
+            out[f"{src}->{dst}"] = dict(rows=n, restore_s=restore_s,
+                                        epoch=back.mutation_epoch,
+                                        keys_equal=True, state_equal=True,
+                                        disk_bytes=dir_bytes(d))
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def child_agree(torch, idx, qs) -> dict:
+    """Every child graph's descent and beam, as the sharded search
+    launches them at B 8 and 128, against their plain versions on the
+    same inputs: the descent bit for bit against the per-hop loop through
+    the hop kernel and, with the beam, against the plain version
+    (``beam_agree``'s bars: ids equal on >= 99 % of the queries, here
+    pooled over the children; distances within 1e-5 where equal)."""
+    from repro_torch.core import hnsw as thnsw
+    from repro_torch.kernels import ops, ref
+
+    got, want, moved, err = [], [], 0, 0.0
+    ep_same = ep_n = 0
+    for child in idx._shards:
+        if child._builder is None:
+            continue
+        dg = child._dg()
+        for b in SHARD_BATCHES:
+            q = thnsw._prep_queries(dg, qs[:b])
+            # the entry point and its distance as ``hnsw.search_core``
+            # makes them
+            ep = torch.full((b,), dg.entry, dtype=torch.int32,
+                            device=q.device)
+            x0 = dg.vectors[ep.long()].float()
+            if dg.scales is not None:
+                x0 = x0 * dg.scales[ep.long()][:, None]
+            ep_d = thnsw.batched_dist(dg.metric, q, x0[:, None])[:, 0]
+            ep_d = ep_d.contiguous()
+            dkw = dict(max_level=dg.max_level, metric=dg.metric,
+                       scales=dg.scales)
+            ge, gd = ops.greedy_descent(dg.vectors, dg.upper, q, ep, ep_d,
+                                        **dkw)
+            le, ld = ref.greedy_descent_ref(dg.vectors, dg.upper, q, ep,
+                                            ep_d, gather=ops.gather_distance,
+                                            **dkw)
+            we, wd = ref.greedy_descent_ref(dg.vectors, dg.upper, q, ep,
+                                            ep_d, **dkw)
+            assert torch.equal(ge, le) and torch.equal(gd, ld), \
+                "child descent differs from the per-hop loop"
+            same = ge == we
+            ep_same += int(same.sum())
+            ep_n += b
+            if bool(same.any()):
+                err = max(err, (gd[same] - wd[same]).abs().max().item())
+            moved += int((ge != ep).sum())
+            kw = dict(ef=max(idx.ef_search, 10), metric=dg.metric,
+                      scales=dg.scales, expand_t=thnsw.DEFAULT_EXPAND_T)
+            got.append(ops.beam_search(dg.vectors, dg.neighbors0, q, ge, gd,
+                                       **kw))
+            want.append(ref.beam_search_ref(dg.vectors, dg.neighbors0, q, ge,
+                                            gd, **kw))
+    assert ep_same >= 0.99 * ep_n, f"child descent: ep equal {ep_same}/{ep_n}"
+    assert err <= 1e-5, f"child descent: ep_dist err {err}"
+    ki, kd = (torch.cat(x) for x in zip(*got))
+    ri, rd = (torch.cat(x) for x in zip(*want))
+    rec = beam_agree(torch, ki, kd, ri, rd, "child beam_search")
+    return dict(descent_equals_per_hop_loop=True,
+                descent_ep_equal_plain_frac=ep_same / ep_n,
+                descent_max_abs_err=err, descent_queries_moved=moved,
+                beam=rec, queries=ep_n)
+
+
+def shard_child_cells(torch, idx, qs) -> dict:
+    """The descent and the beam of one child graph (shard 0) of the
+    sharded HNSW, as its search launches them at B 8: device ms a launch
+    and a call, the plain versions' ms, and each bound from the plain
+    version's traversal (the descent's as ``check_descent`` counts it);
+    every child held against the plain versions first (``child_agree``)."""
+    from repro_torch.core import hnsw as thnsw
+    from repro_torch.kernels import ops, ref
+
+    agree = child_agree(torch, idx, qs)
+
+    dg = idx._shards[0]._dg()
+    q = thnsw._prep_queries(dg, qs[:8])
+    ep = torch.full((8,), dg.entry, dtype=torch.int32, device=q.device)
+    ep_d = ref.gather_distance_ref(dg.vectors, q, ep[:, None],
+                                   scales=dg.scales)[:, 0].contiguous()
+    desc = lambda: ops.greedy_descent(dg.vectors, dg.upper, q, ep, ep_d,
+                                      max_level=dg.max_level,
+                                      scales=dg.scales)
+    ep2, ep2_d = desc()
+    kw = dict(ef=idx.ef_search, scales=dg.scales)
+    beam = lambda: ops.beam_search(dg.vectors, dg.neighbors0, q, ep2, ep2_d,
+                                   **kw)
+    seen = [ref.beam_search_ref(dg.vectors, dg.neighbors0, q, ep2, ep2_d,
+                                return_visited=True, **kw)[2]]
+    out = {"rows": idx._shards[0]._builder.n, "capacity": dg.n,
+           "max_level": dg.max_level, "agree": agree}
+    if dg.max_level > 0:
+        m = dg.upper.shape[2]
+        first = {}
+        ref.greedy_descent_ref(dg.vectors, dg.upper, q, ep, ep_d,
+                               max_level=dg.max_level, scales=dg.scales,
+                               stats=first)
+        nbytes = (first["lists"] * m * 4 + int(first["rows"].sum().item())
+                  * row_bytes(dg.vectors, dg.scales) + 8 * (q.shape[1] * 4
+                                                            + 16))
+        per_elem = 2.0 if dg.scales is None else 3.0
+        b_ms, b_by = bound(nbytes, per_elem * first["pairs"] * q.shape[1])
+        split = device_split(torch, desc, "greedy_descent_kernel", reps=16)
+        out["descent"] = dict(
+            **split, ms=time_ms(torch, desc, 20), B=8, M=m,
+            plain_ms=time_ms(torch, lambda: ref.greedy_descent_ref(
+                dg.vectors, dg.upper, q, ep, ep_d, max_level=dg.max_level,
+                scales=dg.scales), 5, warmup=1),
+            bound_ms=b_ms, bound_by=b_by,
+            hops_max=int(first["hops"].max().item()))
+    split = device_split(torch, beam, "beam_search", reps=16)
+    out["beam"] = dict(**split, ms=time_ms(torch, beam, 20), B=8,
+                       plain_ms=time_ms(torch, lambda: ref.beam_search_ref(
+                           dg.vectors, dg.neighbors0, q, ep2, ep2_d, **kw),
+                           5, warmup=1),
+                       ef=kw["ef"], m2=dg.neighbors0.shape[1],
+                       **beam_work(dg.vectors, dg.scales,
+                                   dg.neighbors0.shape[1], 8, kw["ef"],
+                                   seen))
+    return out
+
+
+def sharded_hnsw(torch, shards: int) -> dict:
+    """HNSW over ``SHARD_HNSW_ROWS`` x 384 rows at ``shards`` shards (the
+    paper's M 5, efConstruction 20; each child built by the host
+    builder, as the reference builds them): keys on a sample equal the
+    loop oracle's (each child searched on its own, a host merge),
+    ``exact_query`` equal a 1-shard index of the same rows (device bulk
+    build), the wall of a search at B 8 and 128 against it, and one
+    child's descent and beam launches."""
+    import numpy as np
+    from repro_torch.configs.mememo import CONFIG
+    from repro_torch.core.index import make_index
+
+    cfg = CONFIG.model
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((SHARD_HNSW_ROWS, cfg.dim)).astype(np.float32)
+    qs = rng.standard_normal((max(SHARD_BATCHES), cfg.dim)).astype(
+        np.float32)
+    keys = [f"h{i}" for i in range(SHARD_HNSW_ROWS)]
+    common = dict(metric=cfg.metric, M=cfg.M,
+                  ef_construction=cfg.ef_construction,
+                  ef_search=cfg.ef_search, device="cuda")
+    idx = make_index("hnsw", n_shards=shards, **common)
+    t0 = time.perf_counter()
+    idx.bulk_insert(keys, x)
+    build_s = time.perf_counter() - t0
+    one = make_index("hnsw", use_bulk_build=True, **common)
+    t0 = time.perf_counter()
+    one.bulk_insert(keys, x)
+    one_build_s = time.perf_counter() - t0
+    got = idx.query_batch(qs[:SHARD_SAMPLE], k=10)[0]
+    loop = idx._query_batch_sharded_loop(qs[:SHARD_SAMPLE], 10, None)[0]
+    assert got == loop, "sharded hnsw: keys differ from the loop oracle"
+    assert idx.exact_query(qs[:SHARD_SAMPLE], k=10)[0] == \
+        one.exact_query(qs[:SHARD_SAMPLE], k=10)[0]
+    counts = counted(torch, lambda: idx.query_batch(qs[:8], k=10))
+    assert counts["kernel.beam_search.fp32"] == shards, counts
+    deep = sum(c._builder.max_level > 0 for c in idx._shards)
+    assert counts.get("hnsw.descent_launches.fp32", 0) == deep, counts
+    return dict(rows=SHARD_HNSW_ROWS, shards=shards, M=cfg.M,
+                ef_construction=cfg.ef_construction,
+                host_build_s=build_s, one_shard_bulk_build_s=one_build_s,
+                shard_stats=idx.shard_stats(), keys_equal_loop=True,
+                exact_equal_one_shard=True, counters=counts,
+                wall_ms={"1 shard": walls_ms(torch, one, qs),
+                         f"{shards} shards": walls_ms(torch, idx, qs)},
+                child=shard_child_cells(torch, idx, qs))
+
+
+def phase_sharded(torch) -> dict:
+    """The sharded index (``n_shards`` 4). On a one-card machine the four
+    shards share cuda:0 (``REPRO_TORCH_SHARD_DEVICES``), so their launches
+    run one after another; with two or more cards the 1M cells run again
+    with one shard a card. (a) flat and IVF int8 over ``build_1m``'s rows
+    at 4 shards against 1 shard; (b) HNSW over 20,000 x 384 rows at 4
+    shards against the loop oracle; (c) int8 flat stores written at 4
+    shards restored at 1 and back; (d) the served path ``--rag --shards 4
+    --index hnsw --index-dtype int8``, its keys against a CPU copy."""
+    from repro_torch.configs.mememo import CONFIG
+
+    cfg = CONFIG.model
+    old = shard_env(",".join(["cuda:0"] * SHARDS))
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(29)
+        x = torch.randn(BULK_ROWS, cfg.dim, device="cuda",
+                        generator=gen).cpu().numpy()
+        qs = torch.randn(max(SHARD_BATCHES), cfg.dim, device="cuda",
+                         generator=gen).cpu().numpy()
+        keys = [f"v{i}" for i in range(BULK_ROWS)]
+        out = {"one_card": sharded_1m(torch, x, qs, keys, SHARDS)}
+        arrays = out["one_card"].pop("arrays")
+        log("sharded 1M int8, 4 shards on cuda:0 " + json.dumps(
+            out["one_card"]))
+        release(torch)
+        n_dev = torch.cuda.device_count()
+        if n_dev >= 2:
+            shard_env(None)
+            out["distinct_cards"] = sharded_1m(torch, x, qs, keys,
+                                               min(SHARDS, n_dev))
+            out["distinct_cards"].pop("arrays")
+            log("sharded 1M int8, one shard a card " + json.dumps(
+                out["distinct_cards"]))
+            shard_env(",".join(["cuda:0"] * SHARDS))
+            release(torch)
+        else:
+            out["distinct_cards"] = None
+            log(f"{n_dev} card: the one-shard-a-card cells did not run")
+        out["store"] = sharded_store(torch, x, keys, arrays, SHARDS)
+        log("sharded store round trips " + json.dumps(out["store"]))
+        del x, arrays
+        out["hnsw"] = sharded_hnsw(torch, SHARDS)
+        log("sharded hnsw " + json.dumps(out["hnsw"]))
+        release(torch)
+        cfg_lm, _, _, res, rec = served_run(
+            torch, ["--index", "hnsw", "--index-dtype", "int8", "--shards",
+                    str(SHARDS)])
+        log(f"serve hnsw int8 --shards {SHARDS} " + json.dumps(rec))
+        counts, es, rs = rec["counters"], rec["engine"], rec["retrieval"]
+        for c in HNSW_INT8_PATH:
+            assert counts.get(c, 0) > 0, f"{c} never launched, 4 shards"
+        assert counts["kernel.beam_search.int8"] == SHARDS * rs["searches"]
+        assert counts["kernel.flash_decode"] == \
+            cfg_lm.n_layers * es["decode_ticks"]
+        rag, reqs = res["rag"], res["reqs"]
+        assert rag.index.shard_count == SHARDS
+        got = [[d.key for d in r.docs] for r in reqs]
+        qv = rag.encoder.encode([r.query for r in reqs])
+        want = cpu_copy(rag.index).query_batch(qv, k=3)[0]
+        assert got == want, f"served 4-shard keys {got} != CPU {want}"
+        rec.update(keys=got, keys_equal_cpu=True,
+                   shard_stats=rag.index.shard_stats())
+        out["served"] = rec
+        return out
+    finally:
+        shard_env(old)
+
+
 def release(torch) -> float:
     """Drop what the last phase left on the card -> GB still allocated."""
     gc.collect()
@@ -2542,6 +3122,16 @@ def main() -> int:
                       torch)
     ivf_out = phase("8 serve ivf and tiered", phase_serve_ivf, torch)
     ivf_1m = phase("8 ivf 1M int8", phase_ivf_1m, torch)
+    shard_out = phase("9 sharded", phase_sharded, torch)
+    one_card = shard_out["one_card"]
+    kern["distance_topk.int8"]["sharded_4_per_shard"] = \
+        one_card["flat"]["shard_topk"]
+    kern["gather_distance.int8"]["sharded_4_per_shard_fine"] = \
+        one_card["ivf"]["shard_hop"]
+    child = shard_out["hnsw"]["child"]
+    kern["beam_search.fp32"]["sharded_child"] = child["beam"]
+    if "descent" in child:
+        kern["greedy_descent.fp32"]["sharded_child"] = child["descent"]
     # the hop kernel at IVF's two shapes, beside its phase 2 cells
     kern["gather_distance.fp32"]["ivf_1m_coarse"] = ivf_1m["hop"]["coarse"]
     kern["gather_distance.int8"]["ivf_1m_fine"] = ivf_1m["hop"]["fine"]
@@ -2561,6 +3151,10 @@ def main() -> int:
              "ivf fp32": ivf_out["counters_fp32"],
              "ivf bf16": ivf_out["counters_bf16"],
              "tiered fp32": ivf_out["tiered"]["counters"],
+             "flat int8 4 shards": one_card["flat"]["counters"],
+             "ivf int8 4 shards": one_card["ivf"]["counters"],
+             "hnsw fp32 4 shards": shard_out["hnsw"]["counters"],
+             "hnsw int8 4 shards served": shard_out["served"]["counters"],
              BAG_ENTRY: bag_counts}
     for counts in paths.values():
         for c in CODECS:

@@ -13,7 +13,9 @@ loops, and one counter per hand kernel (``kernel.gather_distance``,
 bumps where it launches the kernel and nowhere else — the CPU branch,
 which runs the plain PyTorch version, never counts. Beside each,
 ``kernel.<name>.<codec>`` (fp32, bf16, int8) counts the launches of the
-instance for that row (or table) codec.
+instance for that row (or table) codec. A sharded HNSW search counts
+``stacked.search_stacked`` once and ``stacked.beam_launches`` for each
+non-empty shard's layer-0 beam.
 
 Counters are bumped at the Python boundary. Not thread-safe by design:
 the serving layer serializes device work onto one dispatcher.

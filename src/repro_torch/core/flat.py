@@ -1,5 +1,5 @@
 """Exact flat index: brute-force top-k (the recall oracle and the flat
-backend), ported from ``repro/core/flat.py`` for one device.
+backend), ported from ``repro/core/flat.py``.
 
 Search goes through ``kernels.ops.flat_topk``: the ``distance_topk`` CUDA
 kernel for tensors on the card, its plain PyTorch version on the CPU.
@@ -8,7 +8,10 @@ kernel for tensors on the card, its plain PyTorch version on the CPU.
     ``HNSW.exact_query`` and ``FlatVectorIndex`` call into);
   * ``FlatVectorIndex`` — the keyed, mutable ``VectorIndex`` backend on
     the ``ShardedRows`` substrate: mutations mark the device rows stale
-    and the next query re-packs once.
+    and the next query re-packs once. At ``n_shards > 1`` every shard
+    scans its own block on its own device and the per-shard top-k merge
+    through the tree; the keys and ``state_dict`` do not depend on the
+    shard count.
 """
 from __future__ import annotations
 
@@ -80,7 +83,7 @@ def _pad_results(keys: list[list], d: np.ndarray, k: int
 
 
 class FlatVectorIndex(VectorIndex):
-    """Mutable keyed flat index on one device. Exact by construction, so
+    """Mutable keyed flat index. Exact by construction, so
     ``query`` and ``exact_query`` coincide.
 
     ``dtype`` picks the row codec (fp32 | bf16 | int8): the device holds

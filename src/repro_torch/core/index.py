@@ -26,7 +26,8 @@ the serialization triple (``config_dict``/``state_dict``/
 ``export``/``load`` are built on.
 
 All four backends (``flat``, ``ivf``, ``hnsw``, ``tiered``) are ported,
-on one device, with the store.
+with the store, at any ``n_shards`` (the shards on the devices of
+``core/sharded.py:shard_devices``).
 """
 from __future__ import annotations
 
@@ -51,8 +52,9 @@ class VectorIndex(abc.ABC):
 
     @property
     def shard_count(self) -> int:
-        """Number of shards the corpus is partitioned over (1: one
-        device)."""
+        """Number of shards the corpus is partitioned over (1: the
+        single-device layout); key -> shard routing is
+        ``core/sharded.py:shard_of_key`` everywhere."""
         return 1
 
     @property
@@ -292,8 +294,8 @@ def make_index(kind: str, store=None, *, device=None, **cfg) -> VectorIndex:
     store: optional durability home — an ``IndexStore`` or a directory
     path. If the store already holds an index, it is warm-restored onto
     ``device`` (snapshot + WAL replay; the stored construction params win
-    over ``cfg``, a ``kind`` or ``dtype`` mismatch raises, and an
-    ``n_shards`` other than 1 raises ``NotImplementedError``). Otherwise
+    over ``cfg``, except ``n_shards``, which reshards on restore; a
+    ``kind`` or ``dtype`` mismatch raises). Otherwise
     a fresh index is created and attached, so every mutation from here
     on is write-ahead logged."""
     kind = kind.lower()

@@ -1,5 +1,5 @@
 """MeMemo-parity public API (paper §2.1, Code 1) as a ``VectorIndex``
-backend on one device, ported from ``repro/core/interface.py``.
+backend, ported from ``repro/core/interface.py``.
 
     index = HNSW(distance_function="cosine", M=5, ef_construction=20,
                  device="cuda")
@@ -37,8 +37,18 @@ canonical encoded rows. After a restore the device graph is uploaded by
 the first query. ``compact`` rebuilds the graph over the live rows and
 carries their encoded rows through (secure delete).
 
-This slice serves ``n_shards=1``; sharding is queued in ROADMAP.md §0 and
-raises ``NotImplementedError``.
+Sharded operation (``n_shards > 1``): a navigable small-world graph
+cannot be row-partitioned without changing its search, so the sharded
+HNSW is a segment set: each shard owns an independent child ``HNSW``
+(host builder, ``seed + j``, on its shard's device, ``shard_devices``)
+over its hash-routed keys. CRUD routes to the owning shard and mirrors
+the child's epoch delta onto the outer index. ANN queries run every
+child's search on its own device and merge through the tree
+(``core/stacked.py``); the exact phase searches epoch-cached placed
+blocks (``build_exact_blocks``/``exact_topk_blocks``), so it does not
+depend on the shard count. A global insertion-sequence table rides in
+``state_dict``, so a snapshot restores at another shard count: the live
+rows replay into fresh builders in canonical order.
 """
 from __future__ import annotations
 
@@ -47,11 +57,14 @@ import torch
 
 from repro_torch.core import hnsw as thnsw
 from repro_torch.core import hnsw_build as build
+from repro_torch.core import stacked as tstacked
 from repro_torch.core.codec import (check_codec_arrays, effective_rerank,
                                     get_codec, rerank_exact)
 from repro_torch.core.flat import FlatIndex
 from repro_torch.core.hnsw_build import normalize_rows
 from repro_torch.core.index import VectorIndex
+from repro_torch.core.sharded import (build_exact_blocks, exact_topk_blocks,
+                                      shard_devices, shard_of_key)
 from repro_torch.utils import resolve_device
 
 
@@ -69,11 +82,7 @@ class HNSW(VectorIndex):
         if beam_impl not in ("fused", "jnp"):
             raise ValueError(f"unknown beam_impl {beam_impl!r}; "
                              "expected 'fused' or 'jnp'")
-        if int(n_shards) != 1:
-            raise NotImplementedError(
-                "n_shards > 1 is not ported yet (ROADMAP.md §0 queue: "
-                "multi-GPU)")
-        self.n_shards = 1
+        self.n_shards = int(n_shards)
         self.use_bulk_build = use_bulk_build
         # row-storage codec: a lossy codec quantizes each row once at
         # ingest; ANN queries over-fetch k·rerank_factor, rerank in fp32
@@ -98,6 +107,53 @@ class HNSW(VectorIndex):
         self._scales: np.ndarray | None = None
         self._device_graph: thnsw.DeviceGraph | None = None
         self._deleted_dirty = False
+        # sharded segment set (n_shards > 1): child graphs, routing and the
+        # canonical insertion-sequence table
+        self._shards: list["HNSW"] = []
+        self._key2shard: dict[str, int] = {}
+        self._seq: dict[str, int] = {}
+        self._next_seq = 0
+        # epoch-keyed derived device state (sharded only): the segment
+        # set, the gid-aligned fp32 rerank rows and the exact-phase
+        # blocks. Restores drop them explicitly (_drop_derived): a
+        # restore may land on the same epoch with other rows.
+        self._stacked_cache: tuple | None = None
+        self._rerank_rows_cache: tuple | None = None
+        self._exact_cache: tuple | None = None
+        self._devices = ([self.device] if self.n_shards == 1
+                         else shard_devices(self.n_shards, self.device))
+        if self.n_shards > 1:
+            self._shards = self._new_children()
+
+    # --------------------------------------------------- shard plumbing
+    def _new_children(self) -> list["HNSW"]:
+        """Empty 1-shard children, child j seeded ``seed + j`` on shard
+        j's device (always the host builder, as the reference)."""
+        return [HNSW(distance_function=self.metric, M=self.M,
+                     ef_construction=self.ef_construction,
+                     ef_search=self.ef_search, seed=self.seed + j,
+                     use_bulk_build=False, n_shards=1, dtype=self.dtype,
+                     rerank_factor=self.rerank_factor,
+                     beam_impl=self.beam_impl, device=self._devices[j])
+                for j in range(self.n_shards)]
+
+    @property
+    def shard_count(self) -> int:
+        return self.n_shards
+
+    def _mirror(self, child: "HNSW", fn, *args) -> None:
+        """Run a child's impl and mirror its epoch delta onto the outer
+        index, so the outer ``mutation_epoch`` advances exactly as the
+        1-shard index's would for the same op."""
+        before = child._epoch
+        fn(*args)
+        self._epoch += child._epoch - before
+
+    def _route(self, key: str, s: int) -> None:
+        """Record an insert routed to shard ``s`` and its sequence."""
+        self._key2shard[key] = s
+        self._seq[key] = self._next_seq
+        self._next_seq += 1
 
     # ------------------------------------------------------------ mutation
     def _quantize(self, v: np.ndarray
@@ -143,6 +199,12 @@ class HNSW(VectorIndex):
 
     def _insert_impl(self, key: str, value: np.ndarray) -> None:
         """Upsert one (key, vector); existing keys are updated in place."""
+        if self.n_shards > 1:
+            s = shard_of_key(key, self.n_shards)
+            self._mirror(self._shards[s], self._shards[s]._insert_impl,
+                         key, np.asarray(value, np.float32))
+            self._route(key, s)
+            return
         if key in self._key2id:
             self._delete_impl(key)
         v = np.asarray(value, np.float32)
@@ -152,6 +214,19 @@ class HNSW(VectorIndex):
             self._insert_node(key, v)
 
     def _bulk_insert_impl(self, keys: list[str], values: np.ndarray) -> None:
+        if self.n_shards > 1:
+            # routed inserts in global order: per-shard insertion
+            # sequences do not depend on batch boundaries
+            before = self._epoch
+            first_bulk = self.use_bulk_build and self._row_count() == 0
+            for k, v in zip(keys, values):
+                self._insert_impl(k, v)
+            if first_bulk:
+                # the 1-shard bulk build bumps ONCE for the whole first
+                # batch; the WAL's epoch chain needs the same delta at
+                # every shard count
+                self._epoch = before + 1
+            return
         if self.use_bulk_build and self._builder is None:
             values = np.asarray(values, np.float32)
             if self._codec.lossy:
@@ -195,6 +270,11 @@ class HNSW(VectorIndex):
     def _delete_impl(self, key: str) -> None:
         """Soft-delete: tombstone the row; it stays traversable but is
         never returned again."""
+        if self.n_shards > 1:
+            s = self._key2shard.pop(key)           # KeyError if absent
+            self._seq.pop(key, None)
+            self._mirror(self._shards[s], self._shards[s]._delete_impl, key)
+            return
         node = self._key2id.pop(key)               # KeyError if absent
         self._ensure_tombstones()
         self._deleted[node] = True
@@ -207,6 +287,14 @@ class HNSW(VectorIndex):
         encoded rows of the live rows ride through the rebuild, so a
         deleted row's encoded bytes and scale die with its fp32 bytes and
         no live row is re-quantized."""
+        if self.n_shards > 1:
+            # the outer delta matches the 1-shard path for the same live
+            # set: one bump per reinserted row, or one when nothing lives
+            live_total = self.size
+            for child in self._shards:
+                child._compact_impl()
+            self._epoch += live_total if live_total else 1
+            return
         if self._builder is None:
             self._bump_epoch()
             return
@@ -305,6 +393,8 @@ class HNSW(VectorIndex):
         q = np.asarray(queries, np.float32)
         if q.ndim != 2:
             raise ValueError(f"query_batch expects [B, D], got {q.shape}")
+        if self.n_shards > 1:
+            return self._query_batch_sharded(q, k, ef)
         rf = effective_rerank(self._codec, self.rerank_factor)
         ids, dists = thnsw.search_graph(self._dg(), q, k=k * rf,
                                         ef=ef or self.ef_search,
@@ -319,10 +409,84 @@ class HNSW(VectorIndex):
         keys = [[self._keys[i] if i >= 0 else None for i in row] for row in ids]
         return keys, dists
 
+    def _drop_derived(self) -> None:
+        """Drop the epoch-keyed derived device state (a restore can land
+        on the cached epoch with other rows)."""
+        self._stacked_cache = None
+        self._rerank_rows_cache = None
+        self._exact_cache = None
+
+    def _stacked(self) -> tstacked.StackedGraphs:
+        """Epoch-cached segment set: each child's resident device graph,
+        synced incrementally by its ``_dg()``."""
+        if (self._stacked_cache is not None
+                and self._stacked_cache[0] == self._epoch):
+            return self._stacked_cache[1]
+        st = tstacked.stack_device_graphs(
+            [child._dg() if child._builder is not None else None
+             for child in self._shards])
+        self._stacked_cache = (self._epoch, st)
+        return st
+
+    def _rerank_rows(self, st: tstacked.StackedGraphs) -> np.ndarray:
+        """Epoch-cached gid-aligned canonical fp32 rows [S·cap, D]: the
+        fan-out's global ids index it directly for the lossy rerank."""
+        if (self._rerank_rows_cache is not None
+                and self._rerank_rows_cache[0] == self._epoch):
+            return self._rerank_rows_cache[1]
+        dim = next(g for g in st.graphs if g is not None).vectors.shape[1]
+        rows = np.zeros((self.n_shards * st.cap, dim), np.float32)
+        for s, child in enumerate(self._shards):
+            if child._builder is not None:
+                n = child._builder.n
+                rows[s * st.cap:s * st.cap + n] = child._builder.vectors[:n]
+        self._rerank_rows_cache = (self._epoch, rows)
+        return rows
+
+    def _query_batch_sharded(self, q: np.ndarray, k: int, ef: int | None):
+        """Every child's search on its own device, the tree merge on the
+        first shard's; lossy codecs over-fetch ``k · rerank_factor`` a
+        shard, merge, and rerank the merged candidates exactly in fp32
+        against the gid-aligned canonical rows."""
+        st = self._stacked()
+        rf = effective_rerank(self._codec, self.rerank_factor)
+        kf = k * rf
+        d, gid = tstacked.search_stacked(st, q, kf,
+                                         max(ef or self.ef_search, kf),
+                                         beam_impl=self.beam_impl)
+        if rf > 1:
+            d, gid = rerank_exact(self._rerank_rows(st), q, gid, k,
+                                  metric=self.metric)
+        cap = st.cap
+        keys = [[self._shards[int(g) // cap]._keys[int(g) % cap]
+                 if g >= 0 else None for g in row] for row in gid]
+        return keys, d
+
+    def _query_batch_sharded_loop(self, q: np.ndarray, k: int,
+                                  ef: int | None):
+        """Per-child fan-out with a host merge (S searches, a stable sort
+        of their concatenation): the parity oracle of the fan-out."""
+        parts = [child.query_batch(q, k=k, ef=ef)
+                 for child in self._shards if child._builder is not None]
+        if not parts:
+            raise ValueError("index is empty")
+        d_cat = np.concatenate([d for _, d in parts], axis=1)     # [B, C*k]
+        k_cat = [sum((pk[b] for pk, _ in parts), [])
+                 for b in range(q.shape[0])]
+        order = np.argsort(d_cat, axis=1, kind="stable")[:, :k]
+        dists = np.take_along_axis(d_cat, order, axis=1)
+        keys = [[k_cat[b][j] for j in order[b]] for b in range(q.shape[0])]
+        return keys, dists
+
     def exact_query(self, query, k: int = 10):
         """Brute-force oracle over the same LIVE rows -> (keys, dists),
         ``min(k, live)`` columns: a ``FlatIndex`` over the builder's rows
-        (already normalized for cosine) on the index's device."""
+        (already normalized for cosine) on the index's device. Sharded:
+        the epoch-cached placed blocks, every shard scanning its own live
+        rows, merged by the tree — so exact results do not depend on the
+        shard count and steady-state calls upload nothing."""
+        if self.n_shards > 1:
+            return self._exact_query_sharded(query, k)
         if self._builder is None:
             raise ValueError("index is empty")
         self._ensure_tombstones()
@@ -344,6 +508,64 @@ class HNSW(VectorIndex):
             return keys[0], d[0]
         return keys, d
 
+    def _live_by_seq(self) -> list[tuple[int, str, int, int]]:
+        """Live rows in canonical (insertion-sequence) order:
+        [(seq, key, shard, node)]."""
+        items = []
+        for s, child in enumerate(self._shards):
+            for key, node in child._key2id.items():
+                items.append((self._seq[key], key, s, node))
+        items.sort()
+        return items
+
+    def _exact_placed(self):
+        """Epoch-cached exact-phase blocks: (items, placed). The host
+        repack and upload happen once a mutation epoch."""
+        if (self._exact_cache is not None
+                and self._exact_cache[0] == self._epoch):
+            return self._exact_cache[1], self._exact_cache[2]
+        items = self._live_by_seq()
+        # canonical gid = rank in insertion order, grouped a shard
+        ranks: list[list[int]] = [[] for _ in range(self.n_shards)]
+        nodes: list[list[int]] = [[] for _ in range(self.n_shards)]
+        for rank, (_, _, s, node) in enumerate(items):
+            ranks[s].append(rank)
+            nodes[s].append(node)
+        dim = 0
+        groups = []
+        for s, child in enumerate(self._shards):
+            if child._builder is not None:
+                dim = int(child._builder.vectors.shape[1])
+            if ranks[s] and child._builder is not None:
+                vecs = np.asarray(child._builder.vectors[nodes[s]],
+                                  np.float32)
+            else:
+                vecs = np.zeros((0, 0), np.float32)
+            groups.append((vecs, np.asarray(ranks[s], np.int32)))
+        # lossy rows are already in final stored form (normalized before
+        # quantization): re-normalizing them would score other values
+        placed = build_exact_blocks(
+            groups, dim, self._devices,
+            normalize=(self.metric == "cosine" and not self._codec.lossy))
+        self._exact_cache = (self._epoch, items, placed)
+        return items, placed
+
+    def _exact_query_sharded(self, query, k: int):
+        items, placed = self._exact_placed()
+        if not items:
+            raise ValueError("index is empty")
+        q = np.asarray(query, np.float32)
+        squeeze = q.ndim == 1
+        if squeeze:
+            q = q[None]
+        d, g = exact_topk_blocks(placed, q, min(k, len(items)),
+                                 metric=self.metric)
+        keys = [[items[int(j)][1] if j >= 0 else None for j in row]
+                for row in g]
+        if squeeze:
+            return keys[0], d[0]
+        return keys, d
+
     # ------------------------------------------------------- persistence
     def config_dict(self) -> dict:
         return {"metric": self.metric, "M": self.M,
@@ -361,7 +583,24 @@ class HNSW(VectorIndex):
         upload — no graph rebuild. The builder RNG state rides along so
         WAL replay of later inserts draws the same levels. An index with
         no builder (nothing inserted, or compacted down to zero live
-        rows) serializes as the empty state."""
+        rows) serializes as the empty state.
+
+        Sharded: one namespaced sub-state a shard plus the canonical
+        insertion-sequence table, which lets a snapshot restore at
+        another shard count."""
+        if self.n_shards > 1:
+            arrays: dict = {}
+            shard_meta = []
+            for j, child in enumerate(self._shards):
+                a, m = child.state_dict()
+                for name, v in a.items():
+                    arrays[f"s{j}__{name}"] = v
+                shard_meta.append(m)
+            meta = {"n_shards": self.n_shards, "epoch": self._epoch,
+                    "shards": shard_meta,
+                    "seq": sorted(self._seq.items(), key=lambda kv: kv[1]),
+                    "next_seq": self._next_seq}
+            return arrays, meta
         if self._builder is None:
             arrays = {"levels": np.zeros(0, np.int32),
                       "neighbors0": np.zeros((0, 2 * self.M), np.int32),
@@ -400,11 +639,24 @@ class HNSW(VectorIndex):
 
     def restore_state(self, arrays: dict, meta: dict) -> None:
         check_codec_arrays(self._codec, arrays, self.kind)
-        if int(meta.get("n_shards", 1)) != 1:
-            raise NotImplementedError(
-                "restoring a state recorded at n_shards="
-                f"{meta['n_shards']} needs resharding, which is not ported "
-                "yet (ROADMAP.md §0 queue: multi-GPU)")
+        rec_shards = int(meta.get("n_shards", 1))
+        if rec_shards != self.n_shards:
+            # the shard count changed between snapshot and restore: replay
+            # the canonical row sequence into the new layout
+            self._restore_resharded(arrays, meta, rec_shards)
+            return
+        if self.n_shards > 1:
+            for j, (child, m) in enumerate(zip(self._shards, meta["shards"])):
+                sub = {name[len(f"s{j}__"):]: v for name, v in arrays.items()
+                       if name.startswith(f"s{j}__")}
+                child.restore_state(sub, m)
+            self._key2shard = {k: s for s, c in enumerate(self._shards)
+                               for k in c._key2id}
+            self._seq = {k: int(v) for k, v in meta["seq"]}
+            self._next_seq = int(meta["next_seq"])
+            self._epoch = int(meta["epoch"])
+            self._drop_derived()
+            return
         self._clear()
         self._epoch = int(meta["epoch"])
         n = int(meta["n"])
@@ -441,18 +693,149 @@ class HNSW(VectorIndex):
         self._key2id = {k: i for i, k in enumerate(self._keys)
                         if not self._deleted[i]}
 
+    def _recorded_rows(self, arrays: dict, prefix: str = ""):
+        """Recorded rows -> (fp32 vectors, encoded rows | None, scales |
+        None), whatever codec wrote them."""
+        if f"{prefix}vectors" in arrays:
+            return (np.asarray(arrays[f"{prefix}vectors"], np.float32),
+                    None, None)
+        enc = self._codec.from_storage(arrays[f"{prefix}vectors_enc"])
+        scl = arrays.get(f"{prefix}scales")
+        return self._codec.decode(enc, scl), enc, scl
+
+    def _canonical_rows(self, arrays: dict, meta: dict, rec_shards: int
+                        ) -> list[tuple]:
+        """Live rows of a recorded state in canonical insertion order:
+        [(seq, key, vector, enc_row | None, scale | None)], encodings
+        included so that a reshard keeps the canonical bytes."""
+        def _row(vecs, enc, scl, node):
+            return (vecs[node],
+                    None if enc is None else enc[node],
+                    None if scl is None else scl[node])
+
+        rows: list[tuple] = []
+        if rec_shards == 1:
+            n = int(meta["n"])
+            deleted = np.asarray(arrays["deleted"], bool)
+            vecs, enc, scl = self._recorded_rows(arrays)
+            for node in range(n):
+                if not deleted[node]:
+                    rows.append((node, meta["keys"][node],
+                                 *_row(vecs, enc, scl, node)))
+            return rows
+        seqmap = {k: int(v) for k, v in meta["seq"]}
+        for j, m in enumerate(meta["shards"]):
+            n = int(m["n"])
+            if n == 0:
+                continue
+            deleted = np.asarray(arrays[f"s{j}__deleted"], bool)
+            vecs, enc, scl = self._recorded_rows(arrays, prefix=f"s{j}__")
+            for node in range(n):
+                key = m["keys"][node]
+                if not deleted[node]:
+                    rows.append((seqmap[key], key,
+                                 *_row(vecs, enc, scl, node)))
+        rows.sort(key=lambda r: r[0])
+        return rows
+
+    def _insert_canonical(self, key: str, vec: np.ndarray,
+                          enc_row: np.ndarray | None,
+                          scale: float | None) -> None:
+        """Reshard-replay insert of an already-final row: routes like
+        ``_insert_impl`` but adopts the recorded encoding instead of
+        re-quantizing; fp32 rows replay through ``_insert_impl``."""
+        if self.n_shards > 1:
+            s = shard_of_key(key, self.n_shards)
+            self._mirror(self._shards[s], self._shards[s]._insert_canonical,
+                         key, vec, enc_row, scale)
+            self._route(key, s)
+            return
+        if enc_row is None:
+            self._insert_impl(key, vec)
+            return
+        self._insert_node(key, vec, enc_row, scale)
+
+    def _restore_resharded(self, arrays: dict, meta: dict,
+                           rec_shards: int) -> None:
+        """Adopt a snapshot recorded at another shard count: a
+        deterministic rebuild — live rows replay into fresh builders in
+        canonical order (tombstoned rows do not survive). The epoch and
+        the sequence table are kept, so epoch-keyed consumers and the
+        order of ``keys()`` are unaffected."""
+        rows = self._canonical_rows(arrays, meta, rec_shards)
+        self._clear()
+        self._drop_derived()
+        self._key2shard = {}
+        self._seq = {}
+        self._next_seq = 0
+        if self.n_shards > 1:
+            self._shards = self._new_children()
+        if (self.use_bulk_build and rows
+                and all(r[3] is None for r in rows)):
+            # a reshard of fp32 rows is a from-scratch rebuild: each
+            # target builder adopts one bulk-built graph (lossy rows keep
+            # the replay path, which adopts their recorded encodings)
+            if self.n_shards == 1:
+                self._adopt_bulk_graph([r[1] for r in rows],
+                                       np.stack([r[2] for r in rows]),
+                                       prenormalized=True)
+            else:
+                per: list[list[tuple]] = [[] for _ in range(self.n_shards)]
+                for r in rows:
+                    s = shard_of_key(r[1], self.n_shards)
+                    per[s].append(r)
+                    self._route(r[1], s)
+                for s, child_rows in enumerate(per):
+                    if child_rows:
+                        self._shards[s]._adopt_bulk_graph(
+                            [r[1] for r in child_rows],
+                            np.stack([r[2] for r in child_rows]),
+                            prenormalized=True)
+        else:
+            for _, key, vec, enc_row, scale in rows:
+                self._insert_canonical(key, vec, enc_row, scale)
+        if self.n_shards > 1:
+            if rec_shards == 1:
+                self._seq = {key: seq for seq, key, *_ in rows}
+                self._next_seq = int(meta["n"])
+            else:
+                self._seq = {k: int(v) for k, v in meta["seq"]}
+                self._next_seq = int(meta["next_seq"])
+        self._epoch = int(meta["epoch"])
+
     @property
     def size(self) -> int:
+        if self.n_shards > 1:
+            return len(self._key2shard)
         return len(self._key2id)
 
     def _contains(self, key: str) -> bool:
+        if self.n_shards > 1:
+            return key in self._key2shard
         return key in self._key2id
 
     def _row_count(self) -> int:
+        if self.n_shards > 1:
+            return sum(c._row_count() for c in self._shards)
         return self._builder.n if self._builder is not None else 0
 
     def keys(self) -> list[str]:
+        if self.n_shards > 1:
+            return [k for _, k in sorted(
+                (self._seq[k], k) for k in self._key2shard)]
         n = self._row_count()
         self._ensure_tombstones()
         return [self._keys[i] for i in range(n) if not self._deleted[i]]
+
+    def shard_stats(self) -> list[dict]:
+        """Per-shard occupancy, the same convention at every shard count:
+        slots = rows ever held (tombstones included), free = tombstoned,
+        live = slots - free."""
+        if self.n_shards == 1:
+            return [{"shard": 0, "slots": self._row_count(),
+                     "free": self._row_count() - self.size,
+                     "live": self.size}]
+        return [{"shard": s, "slots": c._row_count(),
+                 "free": c._row_count() - c.size, "live": c.size}
+                for s, c in enumerate(self._shards)]
 

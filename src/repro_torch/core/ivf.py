@@ -1,4 +1,4 @@
-"""IVF-Flat index, ported from ``repro/core/ivf.py`` for one device.
+"""IVF-Flat index, ported from ``repro/core/ivf.py``.
 
 Build: a few Lloyd iterations of k-means -> ``nlist`` fp32 centroids;
 rows go into fixed-capacity inverted lists (padded, -1). Search: score the
@@ -16,9 +16,13 @@ for bit. Its initial rows are drawn by a seeded CPU ``torch.Generator``
 (``init_rows``; the reference draws with ``jax.random.choice``, and
 ``init`` lets a caller give both the same start).
 
-Several shards (the reference's per-shard lists over one global
-quantiser) are not ported yet and raise ``NotImplementedError`` from
-``ShardedRows``.
+At ``n_shards > 1`` the rows live in ``ShardedRows``' per-shard blocks and
+the centroids stay global (canonical state, so ``state_dict`` does not
+depend on the shard count). Each shard packs inverted lists over its own
+slots. A search scores the centroids once a distinct shard device (every
+shard probes the same lists), gathers each shard's own members with the
+hop kernel (K = nprobe · that shard's cap), masks and trims to k, and
+merges the shards through the tree (``distributed/collectives.py``).
 """
 from __future__ import annotations
 
@@ -32,7 +36,10 @@ from repro_torch.core.codec import (check_codec_arrays, device_rows,
 from repro_torch.core.flat import _pad_results
 from repro_torch.core.hnsw_build import normalize_rows
 from repro_torch.core.index import VectorIndex
-from repro_torch.core.sharded import ShardedRows
+from repro_torch.core.sharded import (ExactBlocks, ShardedRows, normalized,
+                                      per_device, resolve_wire_bf16,
+                                      trim_merge_width)
+from repro_torch.distributed.collectives import hierarchical_topk
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import smallest_k
 from repro_torch.utils import resolve_device
@@ -98,9 +105,11 @@ def kmeans(x: torch.Tensor, k: int, iters: int = 8, seed: int = 0,
     return cent, _assign(x, xx, cent)
 
 
-def _lists(assign: np.ndarray, nlist: int) -> np.ndarray:
-    """Inverted lists [nlist, cap] int32, -1 padded: each cluster's rows in
-    ascending row order (a stable sort of the assignment)."""
+def _lists(assign: np.ndarray, nlist: int,
+           values: np.ndarray | None = None) -> np.ndarray:
+    """Inverted lists [nlist, cap] int32, -1 padded: each cluster's
+    members in ascending member order (a stable sort of the assignment),
+    a member ``j`` stored as ``values[j]`` (default: ``j``)."""
     assign = np.asarray(assign, np.int64)
     counts = np.bincount(assign, minlength=nlist)
     cap = max(int(counts.max()), 1)
@@ -108,7 +117,7 @@ def _lists(assign: np.ndarray, nlist: int) -> np.ndarray:
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     slot = np.arange(order.size) - starts[assign[order]]
     lists = np.full((nlist, cap), -1, np.int32)
-    lists[assign[order], slot] = order
+    lists[assign[order], slot] = order if values is None else values[order]
     return lists
 
 
@@ -173,8 +182,59 @@ def search_ivf(idx: IVFIndex, queries, k: int = 10, nprobe: int = 8
     return ids, dists
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedIVF:
+    """The per-shard packed state of a sharded IVF index: the rows
+    (``ShardedRows.pack()``), each shard's lists [nlist, cap_s] of its
+    own slots on its device, and the fp32 centroids on every distinct
+    shard device."""
+    placed: ExactBlocks        # the rows, a block a shard
+    lists: list                # [nlist, cap_s] int32 a shard, -1 padded
+    centroids: dict            # device -> [nlist, D] f32
+    nlist: int
+    cap_global: int            # the 1-shard index's cap: the same k clamp
+    n_live: int
+
+
+def ivf_fanout(sp: ShardedIVF, q: torch.Tensor, k: int, nprobe: int, *,
+               metric: str, wire_bf16: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Prepared queries [B, D] -> (dists [B, k], gids [B, k]) on the first
+    shard's device, missing slots (INF, -1). The coarse launch (K =
+    nlist) runs once a distinct shard device, and every shard probes the
+    lists it picks; each shard's fine launch (K = nprobe · cap_s) scores
+    its own members, which are masked, trimmed to k and merged. No host
+    read until the merge's result is read."""
+    devices = sp.placed.devices
+    qs = per_device(q, devices)
+    probes = {}
+    for dev, qd in qs.items():
+        b = qd.shape[0]
+        coarse = torch.arange(sp.nlist, dtype=torch.int32,
+                              device=dev).expand(b, sp.nlist).contiguous()
+        cd = ops.gather_distance(sp.centroids[dev], qd, coarse,
+                                 metric=metric)
+        probes[dev] = smallest_k(cd, coarse, nprobe)[1].reshape(-1).long()
+    parts = []
+    for s, (blk, gid, lists) in enumerate(zip(sp.placed.blocks,
+                                              sp.placed.gids, sp.lists)):
+        qd = qs[blk.device]
+        b = qd.shape[0]
+        cand = torch.index_select(lists, 0, probes[blk.device]).reshape(
+            b, nprobe * lists.shape[1])
+        slots = torch.clamp(cand, 0, blk.shape[0] - 1)
+        d = ops.gather_distance(blk, qd, slots, metric=metric,
+                                scales=None if sp.placed.scales is None
+                                else sp.placed.scales[s])
+        d = torch.where(cand >= 0, d, INF)
+        d, g = trim_merge_width(d, gid[slots.long()], k)
+        parts.append((d, torch.where(d >= INF, -1, g)))
+    return hierarchical_topk(parts, k, wire_bf16=wire_bf16,
+                             tie_break_ids=True)
+
+
 class IVFVectorIndex(VectorIndex):
-    """Keyed mutable IVF backend on one device.
+    """Keyed mutable IVF backend.
 
     Centroids are trained once (k-means over the rows present at the first
     query); later inserts are assigned to their nearest existing centroid
@@ -185,6 +245,10 @@ class IVFVectorIndex(VectorIndex):
     Training happens at query time, outside the mutation history, so with
     a store attached it logs a ``derived.centroids`` WAL record; replay
     lands on the same centroids, keeping a warm restore bit for bit.
+
+    With ``n_shards > 1`` storage and routing live in ``ShardedRows``; the
+    centroids stay global while each shard packs inverted lists over its
+    own rows and searches them on its own device.
     """
 
     kind = "ivf"
@@ -212,13 +276,15 @@ class IVFVectorIndex(VectorIndex):
                                  dim=dim, normalize_on_pack=False,
                                  codec=self._codec, device=self.device)
         self._centroids: np.ndarray | None = None   # trained lazily
-        self._idx: IVFIndex | None = None           # packed device index
-        self._live_rows: np.ndarray | None = None   # pack order
+        self._idx: IVFIndex | None = None           # S == 1 packed index
+        self._live_rows: np.ndarray | None = None   # S == 1 pack order
+        self._spack: ShardedIVF | None = None       # S > 1 packed shards
 
     # ------------------------------------------------------------ mutation
     def _invalidate(self) -> None:
         self._idx = None
         self._live_rows = None
+        self._spack = None
 
     def _insert_impl(self, key: str, value: np.ndarray) -> None:
         v = np.asarray(value, np.float32).reshape(-1)
@@ -301,9 +367,43 @@ class IVFVectorIndex(VectorIndex):
                              metric=self.metric, scales=scl)
         return self._idx
 
+    def _pack_sharded(self) -> ShardedIVF:
+        """(Re)build the per-shard inverted lists: every live row's slot
+        joins its cluster's list on its owning shard, in row order (the
+        reference's loop)."""
+        if self._spack is not None:
+            return self._spack
+        live = np.flatnonzero(self._rows.alive)
+        if live.size == 0:
+            raise ValueError("index is empty")
+        placed = self._rows.pack()
+        cent, assign, nlist = self._coarse(live)
+        assign = np.asarray(assign, np.int64)
+        shard = self._rows._row_shard[live]
+        slot = self._rows._row_slot[live]
+        lists = []
+        for s, dev in enumerate(placed.devices):
+            mine = np.flatnonzero(shard == s)
+            lists.append(torch.from_numpy(
+                _lists(assign[mine], nlist, values=slot[mine])).to(dev))
+        cap_global = max(int(np.bincount(assign, minlength=nlist).max()), 1)
+        self._spack = ShardedIVF(
+            placed=placed, lists=lists,
+            centroids={dev: device_rows(cent, dev)
+                       for dev in dict.fromkeys(placed.devices)},
+            nlist=nlist, cap_global=cap_global, n_live=int(live.size))
+        return self._spack
+
     def probe_plan(self, nprobe: int | None = None) -> dict:
         """The packed index's shape: nlist, list cap, nprobe and the fine
-        launch's K (nprobe · cap candidates a query)."""
+        launch's K (nprobe · cap candidates a query); sharded, the largest
+        shard's cap and K, with each shard's caps."""
+        if self.n_shards > 1:
+            sp = self._pack_sharded()
+            caps = [int(li.shape[1]) for li in sp.lists]
+            npr = min(nprobe or self.nprobe, sp.nlist)
+            return {"nlist": sp.nlist, "cap": max(caps), "nprobe": npr,
+                    "probe_k": npr * max(caps), "shard_caps": caps}
         nlist, cap = self._pack().lists.shape
         npr = min(nprobe or self.nprobe, nlist)
         return {"nlist": nlist, "cap": cap, "nprobe": npr,
@@ -319,6 +419,8 @@ class IVFVectorIndex(VectorIndex):
         if q.ndim != 2:
             raise ValueError(f"query_batch expects [B, D], got {q.shape}")
         rf = effective_rerank(self._codec, self.rerank_factor)
+        if self.n_shards > 1:
+            return self._query_batch_sharded(q, k, rf, nprobe)
         idx = self._pack()
         ids, d = search_ivf(idx, q, k=min(k * rf, idx.n),
                             nprobe=nprobe or self.nprobe)
@@ -333,10 +435,30 @@ class IVFVectorIndex(VectorIndex):
             [[self._rows.key_of_row(int(self._live_rows[j]))
               if j >= 0 else None for j in row] for row in ids], d, k)
 
+    def _query_batch_sharded(self, q: np.ndarray, k: int, rf: int,
+                             nprobe: int | None):
+        sp = self._pack_sharded()
+        qt = torch.as_tensor(q, device=sp.placed.devices[0])
+        if self.metric == "cosine":
+            qt = normalized(qt)
+        npr = min(nprobe or self.nprobe, sp.nlist)
+        # the candidate-capacity clamp of the 1-shard path
+        k_eff = min(min(k * rf, sp.n_live), npr * sp.cap_global)
+        d, g = ivf_fanout(sp, qt.contiguous(), k_eff, npr,
+                          metric=self.metric,
+                          wire_bf16=resolve_wire_bf16(None))
+        d, g = d.cpu().numpy(), g.cpu().numpy()
+        if rf > 1:
+            d, g = self._rows.rerank_topk(q, g, k)
+        return _pad_results(
+            [[self._rows.key_of_row(int(r)) if r >= 0 else None
+              for r in row] for row in g], d, k)
+
     def exact_query(self, query, k: int = 10):
         # nprobe = nlist probes every list -> exact over the live set
-        idx = self._pack()
-        return self.query(query, k, nprobe=idx.centroids.shape[0])
+        nlist = (self._pack_sharded().nlist if self.n_shards > 1
+                 else self._pack().centroids.shape[0])
+        return self.query(query, k, nprobe=nlist)
 
     # --------------------------------------------------------- persistence
     # Canonical state only: rows + tombstones + keys + the centroids; the

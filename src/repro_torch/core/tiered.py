@@ -13,8 +13,13 @@ vector dimension (a byte budget a transaction).
 ``HNSW`` on the index's device, and its searches run the host beam through
 the two-tier store, counting slow-tier transactions, hits and misses
 (``TierStats``). ``exact_query`` is the inner index's (``distance_topk``
-on the card). Several shards are not ported yet and raise
-``NotImplementedError`` from the inner index.
+on the card).
+
+At ``n_shards > 1`` the inner index is the sharded HNSW: ``query_batch``
+is its device fan-out over the children's graphs (``core/stacked.py``),
+and the host loop over per-shard tiers, one ``TieredVectorStore`` a
+shard, stays as ``_query_batch_sharded_loop``: the accounting model of
+sharded traffic and the fan-out's parity oracle.
 """
 from __future__ import annotations
 
@@ -193,11 +198,14 @@ class TieredIndex(VectorIndex):
         # the fast-tier cache; not the durability IndexStore (``_store``)
         self._tier_store: TieredVectorStore | None = None
         self._g: HNSWGraph | None = None
+        # sharded: one (graph, tier store, child) triple a shard
+        self._tier_shards: list | None = None
 
     # ------------------------------------------------------------ mutation
     def _invalidate(self):
         self._tier_store = None
         self._g = None
+        self._tier_shards = None
         self._bump_epoch()
 
     def _insert_impl(self, key: str, value: np.ndarray) -> None:
@@ -234,9 +242,34 @@ class TieredIndex(VectorIndex):
                                                  codec=self._codec)
         return self._g, self._tier_store
 
+    def _tiers_sharded(self) -> list:
+        """Per-shard (graph, tier store, child) triples: every shard's
+        payload is its own slow tier with its own fast-tier cache. Empty
+        shards are skipped."""
+        if self._tier_shards is None:
+            out = []
+            for child in self.inner._shards:
+                if child._builder is None:
+                    continue
+                g = child._builder.graph()
+                out.append((g, TieredVectorStore(
+                    g.vectors, cache_rows=self.cache_rows,
+                    prefetch_p=self.prefetch_p, codec=self._codec), child))
+            if not out:
+                raise ValueError("index is empty")
+            self._tier_shards = out
+        return self._tier_shards
+
     @property
     def stats(self) -> TierStats:
-        return self._tiers()[1].stats
+        if self.n_shards == 1:
+            return self._tiers()[1].stats
+        total = TierStats()
+        for _, store, _ in self._tiers_sharded():
+            for f in dataclasses.fields(TierStats):
+                setattr(total, f.name, getattr(total, f.name)
+                        + getattr(store.stats, f.name))
+        return total
 
     def query_batch(self, queries, k: int = 10, ef: int | None = None):
         """Batched search through the two-tier store, a query at a time
@@ -246,6 +279,9 @@ class TieredIndex(VectorIndex):
         q = np.asarray(queries, np.float32)
         if q.ndim != 2:
             raise ValueError(f"query_batch expects [B, D], got {q.shape}")
+        if self.n_shards > 1:
+            # the inner index's device fan-out over the same segment set
+            return self.inner._query_batch_sharded(q, k, ef)
         g, store = self._tiers()
         self.inner._ensure_tombstones()
         deleted = self.inner._deleted
@@ -255,6 +291,27 @@ class TieredIndex(VectorIndex):
             out_keys.append([self.inner._keys[i] if i >= 0 else None
                              for i in ids])
             out_d.append(dists)
+        return out_keys, np.asarray(out_d, np.float32)
+
+    def _query_batch_sharded_loop(self, q: np.ndarray, k: int, ef: int):
+        """Each shard's host beam over its own graph and tier store, the
+        candidates merged by distance (a stable sort in shard order)."""
+        tiers = self._tiers_sharded()
+        out_keys, out_d = [], []
+        for qv in q:
+            cand: list[tuple[float, str]] = []
+            for g, store, child in tiers:
+                child._ensure_tombstones()
+                ids, dists = _tiered_beam_search(g, child._deleted, store,
+                                                 qv, k, ef)
+                cand.extend((d, child._keys[i])
+                            for d, i in zip(dists, ids) if i >= 0)
+            cand.sort(key=lambda c: c[0])
+            cand = cand[:k]
+            out_keys.append([key for _, key in cand]
+                            + [None] * (k - len(cand)))
+            out_d.append([d for d, _ in cand]
+                         + [float(np.float32(3e38))] * (k - len(cand)))
         return out_keys, np.asarray(out_d, np.float32)
 
     def exact_query(self, query, k: int = 10):
@@ -285,6 +342,7 @@ class TieredIndex(VectorIndex):
         self._epoch = int(meta["outer_epoch"])
         self._tier_store = None
         self._g = None
+        self._tier_shards = None
 
     def _row_count(self) -> int:
         return self.inner._row_count()
@@ -302,6 +360,9 @@ class TieredIndex(VectorIndex):
     @property
     def shard_count(self) -> int:
         return self.n_shards
+
+    def shard_stats(self) -> list[dict]:
+        return self.inner.shard_stats()
 
 
 def _tiered_beam_search(g: HNSWGraph, deleted: np.ndarray,

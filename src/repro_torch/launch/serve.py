@@ -1,6 +1,6 @@
 """End-to-end serving driver: continuous-batching LM serving, optionally
 with RAG augmentation whose retrieval overlaps the decode loop — the port
-of ``repro/launch/serve.py`` on one device.
+of ``repro/launch/serve.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --requests 12 --max-new 16 --rag --index hnsw [--device cpu]
@@ -12,6 +12,9 @@ of ``repro/launch/serve.py`` on one device.
         --index-dtype int8 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --rag --index tiered \
         [--device cpu]
+    REPRO_TORCH_SHARD_DEVICES=cuda:0,cuda:0,cuda:0,cuda:0 PYTHONPATH=src \
+        python -m repro_torch.launch.serve --rag --shards 4 --index hnsw \
+        --index-dtype int8
 
 The command line runs the architecture's smoke config with random weights
 from ``--seed``. ``run(cfg, args)`` takes any ``LMConfig`` (``chip_smoke.py``
@@ -28,8 +31,12 @@ transactions are logged), each under the fp32, bf16 or int8 row codec
 ``--store-dir`` makes the index durable: the first run embeds the corpus
 and snapshots the index on exit, a later run restores it warm (snapshot
 + WAL replay, IVF's trained centroids included) and only registers the
-texts. Not ported yet (ROADMAP.md §0), and rejected with
-``NotImplementedError``: ``--tenants`` and ``--shards`` > 1.
+texts. ``--shards N`` partitions the index over N shards (key-hash
+routing, a per-shard search on each shard's device, the tree merge); on
+the card shard s goes on ``cuda:s``, and ``REPRO_TORCH_SHARD_DEVICES``
+places the shards on fewer cards (``core/sharded.py:shard_devices``). Not
+ported yet, and rejected with ``NotImplementedError``: ``--tenants``
+(ROADMAP.md §1 item 2).
 """
 from __future__ import annotations
 
@@ -110,7 +117,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--retrieval-cache", type=int, default=1024,
                     help="RetrievalEngine LRU entries (0 disables)")
     ap.add_argument("--shards", type=int, default=None,
-                    help="index shards (only 1 is ported)")
+                    help="partition the index over N shards: CRUD routes "
+                         "by key hash, queries fan out and merge. Default: "
+                         "one device (or the stored shard count on a warm "
+                         "restore). On the card shard s is cuda:s; "
+                         "REPRO_TORCH_SHARD_DEVICES=cuda:0,cuda:0,... "
+                         "places N shards on fewer cards")
     ap.add_argument("--store-dir", default=None,
                     help="durable IndexStore directory: restarts restore "
                          "the index warm (snapshot + WAL replay) instead "
@@ -141,7 +153,7 @@ def run(cfg, args: argparse.Namespace, corpus=BUILTIN_CORPUS) -> dict:
     serving loop and the tokens generated."""
     if args.tenants:
         raise NotImplementedError(
-            "--tenants is not ported yet (ROADMAP.md §1: tenancy)")
+            "--tenants is not ported yet (ROADMAP.md §1 item 2: tenancy)")
     device = resolve_device(args.device)
     model = tf.init_lm(cfg, seed=args.seed, device=device)
 
@@ -177,6 +189,9 @@ def run(cfg, args: argparse.Namespace, corpus=BUILTIN_CORPUS) -> dict:
                       index_shards=args.shards,
                       index_dtype=args.index_dtype,
                       index_beam_impl=args.beam_impl, device=device)
+    if rag.index.shard_count > 1:
+        logger.info(f"index sharded over {rag.index.shard_count} devices "
+                    f"(key-hash routing + fan-out search)")
     if rag.index.size:
         # warm restore: the embeddings came back from the store, epoch
         # included (the retrieval cache keys on it); only the text

@@ -18,7 +18,7 @@
     assuming 0), so cache validity survives restarts; ``compact()`` bumps
     the epoch, so it flushes the cache like any other mutation.
 
-The multi-tenant ``IndexPool`` front end waits for ROADMAP.md §1
+The multi-tenant ``IndexPool`` front end waits for ROADMAP.md §1 item 2
 ("tenancy"): a ``tenant`` argument raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -47,8 +47,8 @@ def bucket_size(n: int, max_batch: int) -> int:
 def reject_tenant(tenant) -> None:
     if tenant is not None:
         raise NotImplementedError(
-            "multi-tenant retrieval is not ported yet (ROADMAP.md §1: "
-            "tenancy)")
+            "multi-tenant retrieval is not ported yet (ROADMAP.md §1 item "
+            "2: tenancy)")
 
 
 @dataclasses.dataclass
@@ -101,6 +101,9 @@ class RetrievalEngine:
         if max_batch < 1 or max_batch & (max_batch - 1):
             raise ValueError(f"max_batch must be a power of two, got {max_batch}")
         self.index = index
+        # a sharded index's one search IS its fan-out over the shards, and
+        # a mutation routed to one shard still bumps the global epoch
+        self.shards = getattr(index, "shard_count", 1)
         self.max_batch = max_batch
         self.cache_size = cache_size
         self.queue: collections.deque[RetrievalRequest] = collections.deque()

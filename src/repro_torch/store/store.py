@@ -30,10 +30,9 @@ Invariants:
     bytes appear in NO file under the directory — deletion is physical,
     not a tombstone bit (the privacy property).
 
-The port restores onto one device: a store written with ``n_shards > 1``
-(or an ``n_shards`` override other than 1) raises ``NotImplementedError``
-until the multi-GPU item of ROADMAP.md is ported; the reference reshards
-such a store on restore.
+Backends serialize canonical state, independent of placement, so a store
+written at one shard count restores at another (``load_index(n_shards=)``
+reshards on restore).
 """
 from __future__ import annotations
 
@@ -180,12 +179,18 @@ class IndexStore:
         invalidation semantics across restarts. The stored construction
         params win over the caller's.
 
-        ``n_shards``: only 1 is ported; a store written at more shards,
-        or an override other than 1, raises ``NotImplementedError``.
+        ``n_shards`` overrides the stored shard count: resharding on
+        restore. Without an override, a stored count above the shards
+        ``device`` can place (``sharded.max_shards``: the CUDA cards, or
+        the length of ``REPRO_TORCH_SHARD_DEVICES``) is clamped to it,
+        with a log line, as the reference clamps to its device count —
+        the shard count is an execution resource, not data.
         ``expect_dtype``: the storage dtype determines the stored bytes
         themselves (encoded pages cannot be transcoded), so a mismatch
         with the stored codec is rejected."""
         from repro_torch.core.index import make_index
+        from repro_torch.core.sharded import max_shards
+        from repro_torch.utils import logger
 
         cfgp = self._config_path()
         if not os.path.exists(cfgp):
@@ -208,13 +213,15 @@ class IndexStore:
                 "snapshot pages cannot be transcoded). Omit dtype= to "
                 f"keep {stored_dtype!r}, or re-ingest the corpus into a "
                 "fresh store.")
-        stored_shards = int(params.get("n_shards", 1))
-        if stored_shards != 1 or (n_shards is not None and n_shards != 1):
-            raise NotImplementedError(
-                f"store at {self.root}: restoring a store written at "
-                f"n_shards={stored_shards} onto n_shards={n_shards or 1} "
-                "needs resharding, which is not ported yet (ROADMAP.md §0 "
-                "queue: multi-GPU)")
+        cap = max_shards(device)
+        if n_shards is not None:
+            params["n_shards"] = int(n_shards)
+        elif cap is not None and params.get("n_shards", 1) > cap:
+            logger.info(
+                f"store at {self.root}: stored n_shards="
+                f"{params['n_shards']} exceeds the {cap} shard device(s); "
+                "resharding on restore")
+            params["n_shards"] = cap
         idx = make_index(cfg["kind"], device=device, **params)
 
         snaps = self.snapshots()

@@ -1126,3 +1126,157 @@ def test_kmeans_refuses_tf32(cuda_device):
             kmeans(torch.ones(10, 4, device=cuda_device), 2)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ---------------------------------------------------------------------------
+# the sharded index (n_shards > 1): shards on cuda:0 repeated, or on
+# distinct cards, against the same index on the CPU
+# ---------------------------------------------------------------------------
+SHARD_KINDS = ["flat", "ivf", "hnsw", "tiered"]
+
+
+def _sharded_rows(integer: bool):
+    """Integer-valued l2 rows (each holding a 127, so the int8 scale is 1.0
+    and bf16 holds them exactly: every distance is exact on both devices)
+    or random cosine rows."""
+    rng = np.random.default_rng(51)
+    if integer:
+        data = rng.integers(-127, 128, size=(3000, 64)).astype(np.float32)
+        data[:, 0] = 127
+        q = rng.integers(-127, 128, size=(8, 64)).astype(np.float32)
+        return data, q, "l2"
+    data = rng.normal(size=(3000, 64)).astype(np.float32)
+    return data, rng.normal(size=(8, 64)).astype(np.float32), "cosine"
+
+
+def _sharded_card_and_cpu(kind, codec, n_shards, device, integer):
+    """An index of ``kind`` at ``n_shards`` on the card after inserts,
+    deletes and an update, and the same state restored on the CPU."""
+    from repro_torch.core.index import make_index
+    data, q, metric = _sharded_rows(integer)
+    cfg = dict(nlist=16, nprobe=4) if kind == "ivf" else dict(
+        M=8, ef_construction=40)
+    card = make_index(kind, dim=64, metric=metric, dtype=codec,
+                      n_shards=n_shards, device=device, **cfg)
+    card.bulk_insert([f"d{i}" for i in range(2990)], data[:2990])
+    for i in range(2990, 3000):
+        card.insert(f"d{i}", data[i])
+    card.update("d5", data[6])
+    for i in range(0, 300, 7):
+        card.delete(f"d{i}")
+    card.query(q[0], 3)                            # trains IVF
+    cpu = make_index(kind, device="cpu", **card.config_dict())
+    cpu.restore_state(*card.state_dict())
+    return card, cpu, q
+
+
+def _assert_sharded_answers(card, cpu, q, exact: bool):
+    from repro_torch.core import dispatch
+    for fn, k in (("query_batch", 10), ("exact_query", 12)):
+        dispatch.reset()
+        ck, cd = getattr(card, fn)(q, k)
+        counts = dispatch.snapshot()
+        pk, pd = getattr(cpu, fn)(q, k)
+        assert ck == pk, fn
+        if exact:
+            np.testing.assert_array_equal(np.asarray(cd), np.asarray(pd))
+        else:
+            np.testing.assert_allclose(np.asarray(cd), np.asarray(pd),
+                                       rtol=1e-5, atol=1e-5)
+        assert sum(counts.get(c, 0) for c in dispatch.KERNEL_COUNTERS) > 0
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("kind", SHARD_KINDS)
+def test_sharded_index_on_one_card_matches_cpu(cuda_device, kind, codec,
+                                               monkeypatch):
+    """4 shards on cuda:0 (``REPRO_TORCH_SHARD_DEVICES``): each shard's
+    kernels launch on the card; keys and distances equal the CPU's on
+    integer rows; on float rows flat and IVF keys equal, distances within
+    1e-5."""
+    from repro_torch.core import dispatch
+    monkeypatch.setenv("REPRO_TORCH_SHARD_DEVICES", ",".join(["cuda:0"] * 4))
+    card, cpu, q = _sharded_card_and_cpu(kind, codec, 4, cuda_device, True)
+    assert card.shard_count == 4
+    _assert_sharded_answers(card, cpu, q, exact=True)
+    dispatch.reset()
+    card.query_batch(q, 10)
+    counts = dispatch.snapshot()
+    if kind == "flat":
+        assert counts["kernel.distance_topk"] == 4
+    elif kind == "ivf":          # one coarse launch (one device), 4 fine
+        assert counts["kernel.gather_distance"] == 5
+    else:
+        assert counts["kernel.beam_search"] == 4
+    if kind in ("flat", "ivf"):
+        card, cpu, q = _sharded_card_and_cpu(kind, codec, 4, cuda_device,
+                                             False)
+        _assert_sharded_answers(card, cpu, q, exact=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", SHARD_KINDS)
+def test_sharded_index_on_distinct_cards_matches_cpu(cuda_device, kind,
+                                                     monkeypatch):
+    """One shard a card (shard s on cuda:s), against the CPU: the shards'
+    tensors live on their own cards and the merge meets on cuda:0."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    monkeypatch.delenv("REPRO_TORCH_SHARD_DEVICES", raising=False)
+    s = min(n, 4)
+    card, cpu, q = _sharded_card_and_cpu(kind, "int8", s, cuda_device, True)
+    if kind in ("flat", "ivf"):
+        placed = card._rows.pack()
+        assert [b.device.index for b in placed.blocks] == list(range(s))
+    else:
+        inner = card.inner if kind == "tiered" else card
+        assert [c.device.index for c in inner._shards] == list(range(s))
+    _assert_sharded_answers(card, cpu, q, exact=True)
+
+
+@pytest.mark.cuda
+def test_shard_devices_raises_without_the_recipe(cuda_device, monkeypatch):
+    """More shards than cards raises, naming ``REPRO_TORCH_SHARD_DEVICES``;
+    never a quiet fallback to repeated or CPU devices."""
+    from repro_torch.core.index import make_index
+    from repro_torch.core.sharded import max_shards, shard_devices
+    monkeypatch.delenv("REPRO_TORCH_SHARD_DEVICES", raising=False)
+    n = torch.cuda.device_count()
+    assert max_shards("cuda") == n
+    with pytest.raises(ValueError, match="REPRO_TORCH_SHARD_DEVICES"):
+        shard_devices(n + 1, "cuda")
+    for kind in SHARD_KINDS:
+        with pytest.raises(ValueError, match="REPRO_TORCH_SHARD_DEVICES"):
+            make_index(kind, n_shards=n + 1, device="cuda")
+    monkeypatch.setenv("REPRO_TORCH_SHARD_DEVICES",
+                       ",".join(["cuda:0"] * (n + 1)))
+    assert shard_devices(n + 1, "cuda") == [torch.device("cuda", 0)] * (n + 1)
+    assert max_shards("cuda") == n + 1
+    with pytest.raises(ValueError, match="lists"):
+        shard_devices(n + 2, "cuda")
+    monkeypatch.setenv("REPRO_TORCH_SHARD_DEVICES", f"cuda:0,cuda:{n}")
+    with pytest.raises(ValueError, match="not one of"):
+        shard_devices(2, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2, 3, 4, 8])
+def test_tree_merge_on_card_matches_cpu(cuda_device, s):
+    """The tree's stable sorts on the card give the CPU oracle's (d, id)
+    order bit for bit, ties included."""
+    from repro_torch.distributed.collectives import (topk_merge_axis,
+                                                     tree_merge)
+    rng = np.random.default_rng(60 + s)
+    parts = []
+    for j in range(s):
+        d = np.sort(rng.integers(0, 5, size=(64, 40)) / 4, axis=1)
+        ids = rng.permutation(10_000)[:64 * 40].reshape(64, 40) + j * 10_000
+        parts.append((_t(d.astype(np.float32)), _t(ids.astype(np.int32))))
+    want = topk_merge_axis(parts, 40, tie_break_ids=True, tree=False)
+    for gd, gi in tree_merge([(d.to(cuda_device), i.to(cuda_device))
+                              for d, i in parts], 40, tie_break_ids=True):
+        assert torch.equal(gd.cpu(), want[0])
+        assert torch.equal(gi.cpu(), want[1])

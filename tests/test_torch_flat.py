@@ -358,15 +358,20 @@ def test_flat_index_int8_rerank_matches_reference(metric):
 
 
 def test_flat_unported_surface_raises_not_implemented(tmp_path):
-    """Several shards stay unported, for a fresh index and for a restore
-    (the store, compact and export/load are ported)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("flat", device="cpu", n_shards=2)
+    """Several shards are ported now (the name is kept from when they
+    raised): a fresh 2-shard index and a 1-shard store restored at 2
+    shards answer as the 1-shard index."""
+    two = tmake_index("flat", device="cpu", n_shards=2)
     sd = str(tmp_path / "s")
     idx = tmake_index("flat", device="cpu", store=sd)
-    idx.insert("a", np.ones(4, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("flat", device="cpu", store=sd, n_shards=2)
+    for t in (two, idx):
+        t.insert("a", np.ones(4, np.float32))
+        t.insert("b", -np.ones(4, np.float32))
+    back = tmake_index("flat", device="cpu", store=sd, n_shards=2)
+    assert back.shard_count == two.shard_count == 2
+    q = np.ones((1, 4), np.float32)
+    assert back.query_batch(q, 3)[0] == two.query_batch(q, 3)[0] == \
+        idx.query_batch(q, 3)[0] == [["a", "b", None]]
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +453,11 @@ def test_launch_serve_flat_int8_runs_on_cpu():
     assert out["rag"].index.kind == "flat"
     assert out["rag"].index.storage_dtype == "int8"
     assert all(dispatch.get(c) == 0 for c in dispatch.KERNEL_COUNTERS)
-    for bad in (["--tenants", "2"], ["--shards", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.main(["--rag", "--device", "cpu", "--requests", "1",
-                         *bad])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserve.main(["--rag", "--device", "cpu", "--requests", "1",
+                     "--tenants", "2"])
+    # --shards is ported: the flat int8 index over 2 shards
+    out = tserve.main(["--rag", "--index", "flat", "--index-dtype", "int8",
+                       "--device", "cpu", "--requests", "1", "--max-new",
+                       "2", "--max-len", "96", "--shards", "2"])
+    assert out["rag"].index.shard_count == 2 and out["reqs"][0].done

@@ -249,22 +249,20 @@ def test_hnsw_incremental_sync_matches_full_upload():
 
 
 def test_unported_surface_raises_not_implemented(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("ivf", device="cpu", n_shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("tiered", device="cpu", n_shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("hnsw", device="cpu", n_shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("hnsw", device="cpu", dtype="int8", n_shards=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("ivf", device="cpu", store=str(tmp_path / "ivf"),
-                    n_shards=2)
+    """Several shards are ported now (the name is kept from when they
+    raised): every kind constructs at 2 shards, a stored 1-shard HNSW
+    restores at 2, and a state recorded at 2 shards restores at 1."""
+    for kind in ("ivf", "tiered", "hnsw"):
+        assert tmake_index(kind, device="cpu", n_shards=2).shard_count == 2
+    assert tmake_index("hnsw", device="cpu", dtype="int8",
+                       n_shards=2).shard_count == 2
+    assert tmake_index("ivf", device="cpu", store=str(tmp_path / "ivf"),
+                       n_shards=2).shard_count == 2
     sd = str(tmp_path / "s")
     idx = tmake_index("hnsw", device="cpu", store=sd)
     idx.insert("a", np.ones(4, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("hnsw", device="cpu", store=sd, n_shards=2)
-    state = idx.state_dict()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.restore_state(state[0], dict(state[1], n_shards=2))
+    two = tmake_index("hnsw", device="cpu", store=sd, n_shards=2)
+    assert two.shard_count == 2 and two.keys() == ["a"]
+    one = tmake_index("hnsw", device="cpu")
+    one.restore_state(*two.state_dict())
+    assert one.keys() == ["a"] and one.mutation_epoch == idx.mutation_epoch

@@ -261,16 +261,20 @@ def test_lossy_hnsw_search_graph_decodes_the_entry_row():
 
 
 def test_lossy_hnsw_keeps_unported_surface_raising(tmp_path):
-    """Under a lossy codec several shards stay unported, for a fresh index
-    and for a restore of a stored one (compact and the store are
-    ported)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("hnsw", device="cpu", dtype="int8", n_shards=2)
+    """Under a lossy codec several shards are ported now (the name is kept
+    from when they raised): a fresh 2-shard index, and a stored one
+    restored at 2 shards with its encoded row carried over, not
+    re-quantized."""
+    assert tmake_index("hnsw", device="cpu", dtype="int8",
+                       n_shards=2).shard_count == 2
     sd = str(tmp_path / "s")
     idx = tmake_index("hnsw", device="cpu", dtype="int8", store=sd)
     idx.insert("a", np.ones(4, np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake_index("hnsw", device="cpu", dtype="int8", store=sd, n_shards=2)
+    two = tmake_index("hnsw", device="cpu", dtype="int8", store=sd,
+                      n_shards=2)
+    child = two._shards[two._key2shard["a"]]
+    assert child._enc.tobytes() == idx._enc.tobytes()
+    assert child._scales.tobytes() == idx._scales.tobytes()
 
 
 # ---------------------------------------------------------------------------

@@ -346,5 +346,10 @@ def test_make_index_from_config():
 
 
 def test_sharded_ivf_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tmake_index("ivf", device="cpu", n_shards=2)
+    """Sharded IVF is ported now (the name is kept from when it raised):
+    2 shards return the 1-shard index's keys on the same rows."""
+    one, two = (tmake_index("ivf", device="cpu", nlist=4, n_shards=s)
+                for s in (1, 2))
+    for t in (one, two):
+        t.bulk_insert([f"d{i}" for i in range(60)], DATA[:60])
+    assert two.query_batch(DATA[:3], 5)[0] == one.query_batch(DATA[:3], 5)[0]

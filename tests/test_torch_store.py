@@ -541,7 +541,7 @@ def test_cross_load_exact_on_integer_l2_rows(kind, tmp_path):
 
 def test_sharded_store_raises_not_implemented(tmp_path):
     """A store whose config records n_shards 2 (as the reference writes
-    one) needs the resharding path, which the port does not have yet."""
+    one) restores at 2 shards; the name is kept from when it raised."""
     sd = os.path.join(tmp_path, "s")
     idx = tmake_index("flat", store=sd, device="cpu", **CFG)
     idx.insert("a", EXTRA[0])
@@ -551,18 +551,23 @@ def test_sharded_store_raises_not_implemented(tmp_path):
     cfg["params"]["n_shards"] = 2
     with open(cfgp, "w") as f:
         json.dump(cfg, f)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        IndexStore(sd).load_index(device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tmake_index("flat", store=sd, device="cpu", **CFG)
+    back = IndexStore(sd).load_index(device="cpu")
+    assert back.shard_count == 2 and back.keys() == ["a"]
+    again = tmake_index("flat", store=sd, device="cpu", **CFG)
+    assert again.shard_count == 2 and again.keys() == ["a"]
 
 
 def test_n_shards_override_raises_not_implemented(tmp_path):
+    """The ``n_shards`` override reshards on restore (the name is kept
+    from when it raised)."""
     sd = os.path.join(tmp_path, "s")
     idx = tmake_index("hnsw", store=sd, device="cpu", **CFG)
     seed_mutations(idx)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        IndexStore(sd).load_index(n_shards=2, device="cpu")
+    two = IndexStore(sd).load_index(n_shards=2, device="cpu")
+    assert two.shard_count == 2 and two.size == idx.size
+    assert two.keys() == idx.keys()
+    assert two.mutation_epoch == idx.mutation_epoch
+    assert two.exact_query(DATA[:3], 5)[0] == idx.exact_query(DATA[:3], 5)[0]
     assert IndexStore(sd).load_index(n_shards=1, device="cpu").size == \
         idx.size
 
