@@ -168,6 +168,32 @@ Phases (none catches an exception; any failure exits non-zero):
    --index-dtype int8`` at full width: the int8 beam launches once a
    shard a search, ``flash_decode`` once a layer a decode tick, and the
    served keys equal a CPU copy of the index's.
+10. The multi-tenant ``IndexPool``. (a) 256 tenants x 1,024 seeded cosine
+   rows x D 384 in one arena of 64-row slabs, every tenant resident, fp32
+   and int8, filled tenant by tenant (the fill's wall logged): for 16
+   sampled tenants ``query_batch`` at B 8, k 10 returns the keys of a
+   dedicated ``FlatVectorIndex`` on the card over the same rows and of a
+   CPU pool of those tenants, each search launches ``distance_topk`` once
+   (``kernel.distance_topk.<codec>``), and each tenant's slab scan (its
+   slabs gathered out of the shared block) equals the plain version on
+   the same gathered rows (``assert_topk_agree``); ``query_batch_multi``
+   at B 128 over 128 tenants returns the keys of the 128 single-tenant
+   calls; the walls against the dedicated index and the single calls,
+   ``arena_device_bytes`` and tenants a GB; and one tenant's slab scan
+   timed beside its bound, plain version and ``torch.mm`` +
+   ``torch.topk``. (b) 64 int8 tenants x 256 rows with 32 resident slots
+   over per-tenant stores under ``build/scratch/``: evict and admit
+   cycles (each timed) with logged mutations between them leave every
+   tenant's state arrays, epoch and keys bit for bit those of a pool
+   that never evicts. (c) ``compact`` on one of those tenants after 32
+   deletes: the deleted rows' fp32, normalized and int8 bytes are in no
+   host array of the arena, no packed block read back from the card and
+   no store file; the other tenants' epochs stay. (d) ``--rag --tenants
+   4 --max-resident 2 --index-dtype int8 --store-dir`` at full width,
+   cold then warm: the warm run inserts nothing, and the keys equal a CPU
+   pool's restored from the served pool's stores. (e) (a)'s int8 pool at
+   4 shards on cuda:0 repeated: the sampled keys equal one shard's, and
+   each shard's slab scan equals its plain version.
 
 Each phase's seconds are logged. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -267,6 +293,13 @@ SHARD_HNSW_ROWS, SHARD_STORE_ROWS = 20_000, 100_000
 # phase 9 deletes every this many-th key of the 1M flat indexes: about
 # 250 free slots a shard, so the fan-out over-fetches in several passes
 SHARD_CHURN_EVERY = 1000
+# phase 10: the multi-tenant pool. (a) 256 tenants x 1,024 rows x D 384
+# (configs/mememo.py's dim) in one arena of 64-row slabs, every tenant
+# resident, 16 of them sampled, B 8 a search and B 128 across 128
+# tenants; (b) 64 tenants x 256 rows paged through 32 resident slots
+POOL_TENANTS, POOL_ROWS, POOL_SLAB = 256, 1024, 64
+POOL_SAMPLE, POOL_B, POOL_MULTI_B = 16, 8, 128
+PAGE_TENANTS, PAGE_ROWS, PAGE_RESIDENT = 64, 256, 32
 # the kernels each served path must launch
 HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
              "kernel.flash_decode")
@@ -2565,10 +2598,30 @@ def shard_topk_cells(torch, placed, q, k: int) -> list[dict]:
             ms = time_ms(torch, call, 10)
         cell.update(**split, ms=ms, bound_ms=b_ms, bound_by=b_by,
                     device=str(blk.device))
+    blk0, q0, kk0 = placed.blocks[0], q.to(placed.blocks[0].device), \
+        cells[0]["k"]
     cells[0]["plain_ms"] = time_ms(torch, lambda: ref.distance_topk_ref(
-        placed.blocks[0], q.to(placed.blocks[0].device), cells[0]["k"],
-        scales=scales[0]), 3, warmup=1)
+        blk0, q0, kk0, scales=scales[0]), 3, warmup=1)
+    cells[0]["library_ms"] = library_topk_ms(torch, blk0, scales[0], q0, kk0)
     return cells
+
+
+def library_topk_ms(torch, db, scales, q, k: int, metric: str = "cosine"
+                    ) -> float:
+    """The library call of ``distance_topk``'s rows: ``torch.mm`` (TF32
+    off) and ``torch.topk`` on the decoded fp32 rows, CUDA events a
+    call (the decode is done once, outside the timed call)."""
+    xf = db.float() if scales is None else db.float() * scales[:, None]
+    if metric == "l2":
+        xx = (xf * xf).sum(dim=1)
+        fn = lambda: torch.topk((q * q).sum(dim=1, keepdim=True)
+                                - 2.0 * torch.mm(q, xf.T) + xx, k, dim=1,
+                                largest=False)
+    else:
+        fn = lambda: torch.topk(1.0 - torch.mm(q, xf.T), k, dim=1,
+                                largest=False)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    return time_ms(torch, fn, 10)
 
 
 def shard_hop_cells(torch, sp, q, nprobe: int) -> list[dict]:
@@ -3016,6 +3069,393 @@ def phase_sharded(torch) -> dict:
         shard_env(old)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the multi-tenant pool
+# ---------------------------------------------------------------------------
+def pool_rows(torch, n_tenants: int, rows: int, seed: int):
+    """Seeded cosine rows for ``n_tenants`` tenants of ``rows`` rows
+    (tenant j holds rows [j * rows, (j + 1) * rows)) and 128 queries."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n_tenants * rows, DIM, device="cuda", generator=gen)
+    qs = torch.randn(POOL_MULTI_B, DIM, device="cuda", generator=gen)
+    return x.cpu().numpy(), qs.cpu().numpy()
+
+
+def fill_pool(torch, pool, x, n_tenants: int, rows: int,
+              prefix: str = "u") -> float:
+    """Tenant by tenant ``bulk_insert`` of ``rows`` keys each (the same
+    key names in every tenant's namespace) -> the fill's wall seconds,
+    the first pack of the arena included."""
+    keys = [f"d{i}" for i in range(rows)]
+    t0 = time.perf_counter()
+    for j in range(n_tenants):
+        pool.bulk_insert(f"{prefix}{j}", keys, x[j * rows:(j + 1) * rows])
+    pool._arena.pack_arena()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def median_wall_ms(torch, fn, reps: int = 10) -> float:
+    """The median host wall (ms) of ``reps`` calls timed one by one (each
+    ends in a read of its result), after two warm calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
+def slab_scan_inputs(torch, pool, tid: str, q, k: int) -> list[tuple]:
+    """Each shard's ``distance_topk`` call of ``tid``'s search as
+    ``tenant_topk`` makes it -> [(gathered rows, their gids, scales,
+    prepared queries, k + slack)], a shard each."""
+    from repro_torch.core import tenancy as tten
+    from repro_torch.core.sharded import normalized
+
+    arena = pool._arena
+    _, bl, gi, sc = arena.pack_arena()
+    slack = arena.tenant_table(tid)[2]
+    out = []
+    for s, tbl in enumerate(arena._device_tables(tid)):
+        db, g, sg = tten._slab_gather(bl[s], gi[s], None if sc is None
+                                      else sc[s], tbl, arena.slab_rows)
+        qd = normalized(torch.as_tensor(q, device=db.device)).contiguous()
+        out.append((db, g, sg, qd, min(k + slack, db.shape[0])))
+    return out
+
+
+def slab_scan_agree(torch, pool, tid: str, q, k: int) -> list[dict]:
+    """Each shard's slab scan of ``tid`` (the tenant's slabs gathered out
+    of the shard's block, k + slack rows) through the kernel against the
+    plain version on the same gathered rows (``assert_topk_agree``)."""
+    from repro_torch.kernels import ops, ref
+
+    l_pad = pool._arena.tenant_table(tid)[1]
+    out = []
+    for s, (db, g, sg, qd, kk) in enumerate(slab_scan_inputs(
+            torch, pool, tid, q, k)):
+        got = ops.flat_topk(db, qd, kk, scales=sg)
+        want = ref.distance_topk_ref(db, qd, kk, scales=sg)
+        frac = assert_topk_agree(torch, got, want,
+                                 f"{tid} shard {s} slab scan k {kk}")
+        out.append(dict(shard=s, slab_table=l_pad,
+                        gathered_rows=db.shape[0],
+                        live=int((g >= 0).sum()), k=kk,
+                        max_abs_err=(got[0] - want[0]).abs().max().item(),
+                        ids_equal_frac=frac))
+    return out
+
+
+def slab_scan_cell(torch, pool, tid: str, q, k: int) -> dict:
+    """The slab scan of one tenant at B ``len(q)``: the kernel's device
+    ms a launch (profiler) and a call (CUDA events) on the gathered rows,
+    the gather + scan + mask of ``tenant_topk`` a call, its bound (the
+    gathered rows read once), the plain version's and the library's
+    time."""
+    from repro_torch.core import tenancy as tten
+    from repro_torch.kernels import ops, ref
+
+    cell = slab_scan_agree(torch, pool, tid, q, k)[0]
+    db, _, sg, qd, kk = slab_scan_inputs(torch, pool, tid, q, k)[0]
+    arena = pool._arena
+    _, bl, gi, sc = arena.pack_arena()
+    tbl = arena._device_tables(tid)[0]
+    slack = arena.tenant_table(tid)[2]
+    call = lambda: ops.flat_topk(db, qd, kk, scales=sg)
+    b_ms, b_by = topk_bound(db, sg, qd.shape[0], kk)
+    cell.update(
+        B=qd.shape[0], codec=pool.dtype,
+        **device_split(torch, call, "distance_topk", reps=10),
+        ms=time_ms(torch, call, 20),
+        gather_scan_mask_ms=time_ms(torch, lambda: tten._slab_local_topk(
+            bl[0], gi[0], None if sc is None else sc[0], tbl, qd, k=k,
+            slack=slack, metric=pool.metric, slab_rows=arena.slab_rows),
+            20),
+        bound_ms=b_ms, bound_by=b_by,
+        plain_ms=time_ms(torch, lambda: ref.distance_topk_ref(
+            db, qd, kk, scales=sg), 5, warmup=1),
+        library_ms=library_topk_ms(torch, db, sg, qd, kk))
+    return cell
+
+
+def pool_arena(torch, codec: str, x, qs, shards: int = 1) -> dict:
+    """(a) / (e): ``POOL_TENANTS`` tenants of ``POOL_ROWS`` rows in one
+    pool at ``shards`` shards, every tenant resident: the fill's wall;
+    ``POOL_SAMPLE`` sampled tenants' ``query_batch`` (B 8, k 10) against a
+    dedicated ``FlatVectorIndex`` on the card and a CPU pool of the
+    sampled tenants, each shard's slab scan against its plain version, one
+    launch a shard a search; ``query_batch_multi`` at B 128 over 128
+    tenants against the per-tenant calls; walls, device bytes, tenants a
+    GB."""
+    import numpy as np
+    from repro_torch.core import IndexPool
+    from repro_torch.core.flat import FlatVectorIndex
+
+    cfg = dict(dim=DIM, metric="cosine", dtype=codec,
+               slab_rows=POOL_SLAB, max_resident=POOL_TENANTS)
+    pool = IndexPool(n_shards=shards, device="cuda", **cfg)
+    fill_s = fill_pool(torch, pool, x, POOL_TENANTS, POOL_ROWS)
+    sample = list(range(0, POOL_TENANTS, POOL_TENANTS // POOL_SAMPLE))
+    cpu = IndexPool(device="cpu", **cfg)
+    for j in sample:
+        cpu.bulk_insert(f"u{j}", [f"d{i}" for i in range(POOL_ROWS)],
+                        x[j * POOL_ROWS:(j + 1) * POOL_ROWS])
+    keys = [f"d{i}" for i in range(POOL_ROWS)]
+    walls = {"pool": [], "dedicated": []}
+    scans = []
+    for n, j in enumerate(sample):
+        tid = f"u{j}"
+        q = qs[(n * POOL_B) % POOL_MULTI_B:][:POOL_B]
+        # one launch a shard and pass of 256 (k·rf + the tenant's slack)
+        _, l_pad, slack, _ = pool._arena.tenant_table(tid)
+        kk = min(10 * (4 if codec == "int8" else 1) + slack,
+                 l_pad * POOL_SLAB)
+        launches = shards * -(-kk // 256)
+        counts = counted(torch, lambda: pool.query_batch(tid, q, k=10))
+        assert counts.get(f"kernel.distance_topk.{codec}") == launches, \
+            counts
+        assert counts.get("kernel.distance_topk") == launches, counts
+        got = pool.query_batch(tid, q, k=10)[0]
+        ded = FlatVectorIndex(dim=DIM, metric="cosine", dtype=codec,
+                              device="cuda")
+        ded.bulk_insert(keys, x[j * POOL_ROWS:(j + 1) * POOL_ROWS])
+        assert got == ded.query_batch(q, k=10)[0], f"{tid}: != dedicated"
+        assert got == cpu.query_batch(tid, q, k=10)[0], f"{tid}: != CPU"
+        scans += [dict(cell, tenant=tid) for cell in slab_scan_agree(
+            torch, pool, tid, q, 10 * (4 if codec == "int8" else 1))]
+        if n < 4:
+            walls["pool"].append(median_wall_ms(
+                torch, lambda: pool.query_batch(tid, q, k=10)))
+            walls["dedicated"].append(median_wall_ms(
+                torch, lambda: ded.query_batch(q, k=10)))
+        del ded
+    # one cross-tenant search over 128 tenants against 128 single calls
+    tids = [f"u{j}" for j in range(0, POOL_TENANTS,
+                                   POOL_TENANTS // POOL_MULTI_B)]
+    counts = counted(torch, lambda: pool.query_batch_multi(qs, tids, k=10))
+    mk, md = pool.query_batch_multi(qs, tids, k=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = [pool.query_batch(t, qs[i:i + 1], k=10) for i, t in
+              enumerate(tids)]
+    single_s = time.perf_counter() - t0
+    for i, (sk, sd) in enumerate(single):
+        assert mk[i] == sk[0], f"multi row {i} ({tids[i]}) != single"
+        assert np.abs(md[i] - sd[0]).max() <= 1e-5
+    multi_ms = median_wall_ms(torch, lambda: pool.query_batch_multi(
+        qs, tids, k=10), reps=5)
+    stats = pool.pool_stats()
+    out = dict(
+        codec=codec, shards=shards, tenants=POOL_TENANTS,
+        rows_a_tenant=POOL_ROWS, dim=DIM, slab_rows=POOL_SLAB,
+        fill_s=fill_s, sampled=len(sample),
+        keys_equal_dedicated_and_cpu=True, launches_a_search=launches,
+        slab_scans_equal_plain=len(scans),
+        slab_scan_max_abs_err=max(c["max_abs_err"] for c in scans),
+        query_batch_wall_ms={k: statistics.median(v)
+                             for k, v in walls.items()},
+        multi_B128_wall_ms=multi_ms, multi_counters=counts,
+        single_128_calls_wall_ms=single_s * 1e3, multi_keys_equal=True,
+        arena_device_bytes=stats["arena_bytes"],
+        tenants_a_gb=POOL_TENANTS / (stats["arena_bytes"] / 1e9),
+        pool_stats=stats)
+    return out, pool
+
+
+def pool_paging(torch, d: Path) -> tuple[dict, object]:
+    """(b): ``PAGE_TENANTS`` int8 tenants of ``PAGE_ROWS`` rows in a pool
+    of ``PAGE_RESIDENT`` resident slots over per-tenant stores under
+    ``d``, against a pool that never evicts: evict and admit cycles (each
+    timed), a mutation a tenant between them, then every tenant's state
+    arrays, epoch and keys bit for bit the never-evicted pool's."""
+    import numpy as np
+    from repro_torch.core import IndexPool
+
+    x, qs = pool_rows(torch, PAGE_TENANTS + 1, PAGE_ROWS, 41)
+    extra = x[PAGE_TENANTS * PAGE_ROWS:]
+    cfg = dict(dim=DIM, metric="cosine", dtype="int8", slab_rows=POOL_SLAB,
+               device="cuda")
+    paged = IndexPool(str(d), max_resident=PAGE_RESIDENT, **cfg)
+    never = IndexPool(max_resident=PAGE_TENANTS, **cfg)
+    fill_s = fill_pool(torch, paged, x, PAGE_TENANTS, PAGE_ROWS, "p")
+    fill_pool(torch, never, x, PAGE_TENANTS, PAGE_ROWS, "p")
+    tids = [f"p{j}" for j in range(PAGE_TENANTS)]
+    evict_ms, admit_ms = [], []
+    for cycle in range(2):
+        for j, tid in enumerate(tids):
+            if tid not in paged.resident_tenants():
+                victim = paged.resident_tenants()[0]        # the LRU
+                t0 = time.perf_counter()
+                paged.evict(victim)
+                evict_ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                paged.admit(tid)
+                admit_ms.append((time.perf_counter() - t0) * 1e3)
+            for p in (paged, never):                  # a logged mutation
+                p.insert(tid, f"x{cycle}", extra[(j + cycle) % PAGE_ROWS])
+                p.delete(tid, f"d{cycle * 7 + j % 5}")
+        q = qs[:POOL_B]
+        for tid in tids[::8]:
+            assert paged.query_batch(tid, q, k=10)[0] == \
+                never.query_batch(tid, q, k=10)[0], f"{tid}: paged keys"
+    for tid in tids:
+        paged.admit(tid)
+        a, b = paged._arena.tenant_rows(tid), never._arena.tenant_rows(tid)
+        assert a[0] == b[0] and paged.epoch(tid) == never.epoch(tid)
+        for u, v in zip(a[1:], b[1:]):
+            same = (u is None and v is None) or u.tobytes() == v.tobytes()
+            assert same, f"{tid}: paged state differs"
+    out = dict(tenants=PAGE_TENANTS, rows_a_tenant=PAGE_ROWS,
+               max_resident=PAGE_RESIDENT, fill_s=fill_s,
+               cycles=len(evict_ms), bit_for_bit=True,
+               evict_ms_median=statistics.median(evict_ms),
+               admit_ms_median=statistics.median(admit_ms),
+               evict_ms_max=max(evict_ms), admit_ms_max=max(admit_ms),
+               stats=dict(paged.stats), store_bytes=dir_bytes(d))
+    del never
+    return out, (paged, x)
+
+
+def pool_secure_delete(torch, paged, x, d: Path) -> dict:
+    """(c): ``compact`` on one tenant of the paging pool after deleting 32
+    of its rows: their fp32, normalized and int8 bytes are in no host
+    array of the arena, in no packed block read back from the card and in
+    no file of the pool's stores; the other tenants' epochs stay."""
+    import numpy as np
+    from repro_torch.core.hnsw_build import normalize_rows
+
+    tid = "p1"
+    paged.admit(tid)
+    keys, _, alive, enc, _ = paged._arena.tenant_rows(tid)
+    rows = [r for r, k in enumerate(keys)
+            if alive[r] and k.startswith("d")][-32:]
+    dead = [keys[r] for r in rows]
+    base = x[PAGE_ROWS:2 * PAGE_ROWS]
+    needles = []
+    for k, r in zip(dead, rows):
+        v = base[int(k[1:])]
+        needles += [np.ascontiguousarray(v).tobytes(),
+                    np.ascontiguousarray(normalize_rows(v[None])[0])
+                    .tobytes(), np.ascontiguousarray(enc[r]).tobytes()]
+    paged.flush()                              # the rows reach the disk
+    for k in dead:
+        paged.delete(tid, k)
+    others = {t: paged.epoch(t) for t in paged.tenants() if t != tid}
+    t0 = time.perf_counter()
+    paged.compact(tid)
+    compact_s = time.perf_counter() - t0
+    arena = paged._arena
+    hay = [arena._vecs.tobytes(), arena._enc.tobytes()]
+    _, bl, gi, sc = arena.pack_arena()
+    hay += [t.cpu().numpy().tobytes() for t in bl]
+    files = [p for p in d.rglob("*") if p.is_file()]
+    hay += [p.read_bytes() for p in files]
+    for n in needles:
+        assert all(n not in h for h in hay), "a deleted row's bytes remain"
+    assert {t: paged.epoch(t) for t in others} == others
+    return dict(tenant=tid, deleted=len(dead), needles=len(needles),
+                files_searched=len(files), compact_s=compact_s,
+                bytes_absent=True, other_epochs_unchanged=len(others))
+
+
+def pool_served(torch) -> dict:
+    """(d): ``--rag --tenants 4 --max-resident 2 --index-dtype int8
+    --store-dir`` at full width, cold and then warm: the warm run restores
+    every tenant, inserts nothing and retrieves the cold run's keys, and
+    the per-request keys equal a CPU pool's, restored from the stores the
+    served pool flushed, on the same queries and tenants."""
+    from repro_torch.core import IndexPool
+
+    d = store_dir("pool_serve")
+    try:
+        argv = ["--tenants", "4", "--max-resident", "2", "--index-dtype",
+                "int8", "--store-dir", str(d)]
+        runs = {}
+        for name in ("cold", "warm"):
+            cfg, _, _, res, rec = served_run(torch, argv)
+            pool = res["rag"].index
+            rec.update(keys=[[doc.key for doc in r.docs]
+                             for r in res["reqs"]],
+                       tenants=[r.tenant for r in res["reqs"]],
+                       epochs={t: pool.epoch(t) for t in pool.tenants()},
+                       fill_s=res["fill_seconds"], pool=pool.pool_stats())
+            counts = rec["counters"]
+            assert counts["kernel.flash_decode"] == \
+                cfg.n_layers * rec["engine"]["decode_ticks"]
+            log(f"serve --tenants 4 int8 --store-dir, {name} "
+                + json.dumps(rec))
+            runs[name] = rec
+            encoder, queries = res["rag"].encoder, [r.query
+                                                    for r in res["reqs"]]
+            del res, pool
+            release(torch)
+        cold, warm = runs["cold"], runs["warm"]
+        for what in ("keys", "tenants", "epochs"):
+            assert warm[what] == cold[what], f"warm {what} != cold"
+        cpu = IndexPool(str(d), dim=encoder.dim, dtype="int8",
+                        max_resident=2, device="cpu")
+        want = cpu.query_batch_multi(encoder.encode(queries),
+                                     cold["tenants"], k=3)[0]
+        assert cold["keys"] == want, f"served {cold['keys']} != CPU {want}"
+        return {"cold": cold, "warm": warm, "keys_equal_cpu": True}
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_tenancy(torch) -> dict:
+    """The multi-tenant ``IndexPool``: (a) the arena (fp32 and int8), (b)
+    paging, (c) secure delete, (d) the served path, (e) the int8 arena
+    at 4 shards on cuda:0 repeated."""
+    out = {}
+    x, qs = pool_rows(torch, POOL_TENANTS, POOL_ROWS, 37)
+    one = {}
+    for codec in ("fp32", "int8"):
+        out[f"arena_{codec}"], pool = pool_arena(torch, codec, x, qs)
+        out[f"arena_{codec}"]["slab_scan"] = slab_scan_cell(
+            torch, pool, "u0", qs[:POOL_B], 10 * (4 if codec == "int8"
+                                                  else 1))
+        log(f"pool arena {codec} " + json.dumps(out[f"arena_{codec}"]))
+        if codec == "int8":
+            sample = [f"u{j}" for j in range(0, POOL_TENANTS,
+                                             POOL_TENANTS // POOL_SAMPLE)]
+            one = {t: pool.query_batch(t, qs[:POOL_B], k=10)[0]
+                   for t in sample}
+        del pool
+        release(torch)
+    d = store_dir("pool_paging")
+    try:
+        out["paging"], (paged, xp) = pool_paging(torch, d)
+        log("pool paging " + json.dumps(out["paging"]))
+        out["secure_delete"] = pool_secure_delete(torch, paged, xp, d)
+        log("pool secure delete " + json.dumps(out["secure_delete"]))
+        del paged, xp
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    release(torch)
+    old = shard_env(",".join(["cuda:0"] * SHARDS))
+    try:
+        rec, pool = pool_arena(torch, "int8", x, qs, shards=SHARDS)
+        for t, keys in one.items():
+            assert pool.query_batch(t, qs[:POOL_B], k=10)[0] == keys, \
+                f"{t} at {SHARDS} shards: keys differ from one shard"
+        rec["keys_equal_one_shard"] = True
+        rec["slab_scan_per_shard"] = slab_scan_agree(torch, pool, "u0",
+                                                     qs[:POOL_B], 40)
+        out["sharded"] = rec
+        log(f"pool arena int8 {SHARDS} shards " + json.dumps(rec))
+        del pool
+    finally:
+        shard_env(old)
+    del x
+    release(torch)
+    out["served"] = pool_served(torch)
+    return out
+
+
 def release(torch) -> float:
     """Drop what the last phase left on the card -> GB still allocated."""
     gc.collect()
@@ -3123,6 +3563,12 @@ def main() -> int:
     ivf_out = phase("8 serve ivf and tiered", phase_serve_ivf, torch)
     ivf_1m = phase("8 ivf 1M int8", phase_ivf_1m, torch)
     shard_out = phase("9 sharded", phase_sharded, torch)
+    pool_out = phase("10 tenancy", phase_tenancy, torch)
+    for c in ("fp32", "int8"):
+        kern[f"distance_topk.{c}"]["tenant_slab_scan"] = \
+            pool_out[f"arena_{c}"]["slab_scan"]
+    kern["distance_topk.int8"]["tenant_slab_scan_4_shards"] = \
+        pool_out["sharded"]["slab_scan_per_shard"]
     one_card = shard_out["one_card"]
     kern["distance_topk.int8"]["sharded_4_per_shard"] = \
         one_card["flat"]["shard_topk"]
@@ -3155,6 +3601,14 @@ def main() -> int:
              "ivf int8 4 shards": one_card["ivf"]["counters"],
              "hnsw fp32 4 shards": shard_out["hnsw"]["counters"],
              "hnsw int8 4 shards served": shard_out["served"]["counters"],
+             "pool fp32 B128 across 128 tenants":
+                 pool_out["arena_fp32"]["multi_counters"],
+             "pool int8 B128 across 128 tenants":
+                 pool_out["arena_int8"]["multi_counters"],
+             "pool int8 --tenants 4 served cold":
+                 pool_out["served"]["cold"]["counters"],
+             "pool int8 --tenants 4 served warm":
+                 pool_out["served"]["warm"]["counters"],
              BAG_ENTRY: bag_counts}
     for counts in paths.values():
         for c in CODECS:

@@ -15,6 +15,8 @@ of ``repro/launch/serve.py``.
     REPRO_TORCH_SHARD_DEVICES=cuda:0,cuda:0,cuda:0,cuda:0 PYTHONPATH=src \
         python -m repro_torch.launch.serve --rag --shards 4 --index hnsw \
         --index-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --rag --tenants 4 \
+        --max-resident 2 --index-dtype int8 [--store-dir DIR] [--device cpu]
 
 The command line runs the architecture's smoke config with random weights
 from ``--seed``. ``run(cfg, args)`` takes any ``LMConfig`` (``chip_smoke.py``
@@ -34,9 +36,13 @@ and snapshots the index on exit, a later run restores it warm (snapshot
 texts. ``--shards N`` partitions the index over N shards (key-hash
 routing, a per-shard search on each shard's device, the tree merge); on
 the card shard s goes on ``cuda:s``, and ``REPRO_TORCH_SHARD_DEVICES``
-places the shards on fewer cards (``core/sharded.py:shard_devices``). Not
-ported yet, and rejected with ``NotImplementedError``: ``--tenants``
-(ROADMAP.md §1 item 2).
+places the shards on fewer cards (``core/sharded.py:shard_devices``).
+``--tenants N`` fronts the retriever with an ``IndexPool`` of N private
+copies of the corpus over one shared device arena (a flat index a tenant;
+``--max-resident`` caps the tenants resident in the arena, the rest page
+to their stores); requests round-robin over the tenants and still
+coalesce into one search a tick, and ``--store-dir`` becomes the pool's
+root (a store a tenant), restored warm on the next start.
 """
 from __future__ import annotations
 
@@ -46,7 +52,8 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.data.corpus import BUILTIN_CORPUS
+from repro_torch.core import IndexPool
+from repro_torch.data.corpus import BUILTIN_CORPUS, HashingEncoder
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.rag import RAGPipeline
@@ -65,17 +72,18 @@ def _power_of_two(v: str) -> int:
     return n
 
 
-def _serve_closed_loop(engine, queries, *, k, max_new):
+def _serve_closed_loop(engine, queries, tenants, *, k, max_new):
     """Drive the engine closed-loop: keep up to 2*slots requests
     outstanding so retrieval for late arrivals overlaps decode ticks
     already running."""
     window = 2 * engine.slots
-    pend = list(queries)
+    pend = list(zip(queries, tenants))
     reqs = []
     t0 = time.perf_counter()
     while pend or engine._work_pending():
         while pend and sum(not r.done for r in reqs) < window:
-            reqs.append(engine.submit_rag(pend.pop(0), k=k,
+            q, t = pend.pop(0)
+            reqs.append(engine.submit_rag(q, k=k, tenant=t,
                                           max_new_tokens=max_new))
         engine.step()
     dt = time.perf_counter() - t0
@@ -131,8 +139,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="auto-snapshot the store every N mutations "
                          "(0: only the final snapshot on exit)")
     ap.add_argument("--tenants", type=int, default=0,
-                    help="multi-tenant serving (not ported)")
-    ap.add_argument("--max-resident", type=int, default=64)
+                    help="multi-tenant serving: front the retriever with an "
+                         "IndexPool of N private copies of the corpus over "
+                         "one shared device arena; requests round-robin "
+                         "over the tenants and coalesce into one search a "
+                         "tick. A flat index a tenant; --store-dir becomes "
+                         "the pool root (a store a tenant)")
+    ap.add_argument("--max-resident", type=int, default=64,
+                    help="with --tenants: LRU cap on the tenants resident "
+                         "in the arena; the rest page to their stores")
     ap.add_argument("--sampler", default="greedy",
                     choices=("greedy", "temperature"),
                     help="token sampler; temperature draws are seeded from "
@@ -151,9 +166,6 @@ def run(cfg, args: argparse.Namespace, corpus=BUILTIN_CORPUS) -> dict:
     ``--rag``, an index over ``corpus`` ([(key, text)]). Returns the
     engine, the pipeline (or None), the requests, the wall seconds of the
     serving loop and the tokens generated."""
-    if args.tenants:
-        raise NotImplementedError(
-            "--tenants is not ported yet (ROADMAP.md §1 item 2: tenancy)")
     device = resolve_device(args.device)
     model = tf.init_lm(cfg, seed=args.seed, device=device)
 
@@ -179,6 +191,8 @@ def run(cfg, args: argparse.Namespace, corpus=BUILTIN_CORPUS) -> dict:
         return {"engine": engine, "rag": None, "reqs": outs, "seconds": dt,
                 "tokens": engine.tokens_out}
 
+    if args.tenants > 0:
+        return _run_pool(args, corpus, device, build_engine)
     store = None
     if args.store_dir:
         store = IndexStore(args.store_dir,
@@ -203,7 +217,8 @@ def run(cfg, args: argparse.Namespace, corpus=BUILTIN_CORPUS) -> dict:
         rag.add_documents(list(corpus))
     engine = build_engine(rag)
     queries = [QUERIES[i % len(QUERIES)] for i in range(args.requests)]
-    reqs, dt = _serve_closed_loop(engine, queries, k=3, max_new=args.max_new)
+    reqs, dt = _serve_closed_loop(engine, queries, [None] * len(queries),
+                                  k=3, max_new=args.max_new)
     for i, r in enumerate(reqs):
         logger.info(f"req {i}: retrieved {[d.key for d in r.docs]}")
     logger.info(f"RAG[{args.index}]: {args.requests} requests, "
@@ -230,6 +245,69 @@ def run(cfg, args: argparse.Namespace, corpus=BUILTIN_CORPUS) -> dict:
                     f"{rag.index.mutation_epoch}; next start restores warm)")
     return {"engine": engine, "rag": rag, "reqs": reqs, "seconds": dt,
             "tokens": engine.tokens_out}
+
+
+def _run_pool(args, corpus, device, build_engine) -> dict:
+    """``--rag --tenants N``: N tenants, each with a private copy of
+    ``corpus`` in one ``IndexPool`` (a durable tenant found under
+    ``--store-dir`` restores warm and only registers its texts), served
+    with requests round-robin over the tenants."""
+    encoder = HashingEncoder()
+    pool = IndexPool(args.store_dir, dim=encoder.dim,
+                     n_shards=args.shards or 1,
+                     dtype=args.index_dtype or "fp32",
+                     max_resident=args.max_resident,
+                     snapshot_every=args.snapshot_every or None,
+                     device=device)
+    rag = RAGPipeline(encoder=encoder, index=pool,
+                      retrieval_batch=args.retrieval_batch,
+                      retrieval_cache=args.retrieval_cache)
+    tids = [f"tenant{i}" for i in range(args.tenants)]
+    t0 = time.perf_counter()
+    for tid in tids:
+        # each tenant holds a PRIVATE copy of the corpus: keys and
+        # embeddings are namespaced, so identical texts never collide
+        try:
+            known = pool.size(tid)          # pages a durable tenant in
+        except KeyError:
+            known = 0
+        if known:
+            logger.info(f"{tid}: warm restore, {known} docs @ epoch "
+                        f"{pool.epoch(tid)}")
+            rag.register_texts(list(corpus), tenant=tid)
+        else:
+            rag.add_documents(list(corpus), tenant=tid)
+    fill_s = time.perf_counter() - t0
+    engine = build_engine(rag)
+    queries = [QUERIES[i % len(QUERIES)] for i in range(args.requests)]
+    tenants = [tids[i % len(tids)] for i in range(args.requests)]
+    reqs, dt = _serve_closed_loop(engine, queries, tenants, k=3,
+                                  max_new=args.max_new)
+    for i, r in enumerate(reqs):
+        logger.info(f"req {i} [{r.tenant}]: retrieved "
+                    f"{[d.key for d in r.docs]}")
+    logger.info(f"RAG[pool x{args.tenants}]: {args.requests} requests, "
+                f"{engine.tokens_out} tokens in {dt:.2f}s "
+                f"({args.requests / dt:.3f} req/s, "
+                f"{engine.tokens_out / dt:.2f} tok/s, overlapped continuous "
+                f"batching on {device}; tenants filled in {fill_s:.2f}s)")
+    _log_engine_stats(engine)
+    rs = rag.retriever.stats.as_dict()
+    logger.info(
+        f"retrieval: {rs['requests']} requests in {rs['searches']} searches "
+        f"across {len(set(tenants))} tenants (cache hit rate "
+        f"{rs['hit_rate']:.2f})")
+    ps = pool.pool_stats()
+    logger.info(f"pool: {ps['tenants']} tenants, {ps['resident']} resident, "
+                f"{ps['arena_rows']} arena rows in {ps['slabs']} slabs "
+                f"({ps['arena_bytes']} device bytes), {ps['evictions']} "
+                f"evictions, {ps['admissions']} admissions")
+    if args.store_dir:
+        pool.flush()
+        logger.info(f"pool flushed to {args.store_dir} (a snapshot a "
+                    f"resident tenant; next start restores warm)")
+    return {"engine": engine, "rag": rag, "reqs": reqs, "seconds": dt,
+            "tokens": engine.tokens_out, "fill_seconds": fill_s}
 
 
 def main(argv=None) -> dict:

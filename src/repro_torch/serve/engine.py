@@ -39,7 +39,6 @@ import torch
 from repro_torch.configs.base import LMConfig
 from repro_torch.data.corpus import encode_ids
 from repro_torch.models import transformer as tf
-from repro_torch.serve.retrieval import reject_tenant
 from repro_torch.utils import resolve_device
 
 # RagRequest lifecycle states (the tick state machine)
@@ -65,9 +64,9 @@ class Request:
 @dataclasses.dataclass
 class RagRequest:
     """First-class RAG serving request (one per user query): query, ``k``,
-    ``tenant`` (None = single index, the only mode ported), generation
-    budget and the lifecycle ``state``, driven by ``submit_rag()`` /
-    ``poll()`` / ``run_until_drained()``."""
+    ``tenant`` (None on a single index; the namespace on an
+    ``IndexPool``), generation budget and the lifecycle ``state``, driven
+    by ``submit_rag()`` / ``poll()`` / ``run_until_drained()``."""
     query: str
     k: int = 3
     tenant: str | None = None
@@ -409,17 +408,20 @@ class ServeEngine:
                      tenants: list[str] | None = None) -> list[dict]:
         """Batch call over the request API: binds ``pipeline`` (if none is
         bound yet), submits one ``RagRequest`` a query, drains, and
-        returns each request's ``result()``. ``tenants`` raises, as
-        ``submit_rag`` does for a tenant."""
-        reject_tenant(tenants)
+        returns each request's ``result()``. ``tenants`` maps onto each
+        request's ``tenant``."""
         if self.pipeline is None:
             self.pipeline = pipeline
         elif self.pipeline is not pipeline:
             raise ValueError(
                 "engine is already bound to a different pipeline; "
                 "construct one ServeEngine(..., pipeline=...) per pipeline")
-        reqs = [self.submit_rag(q, k=k, max_new_tokens=max_new_tokens)
-                for q in queries]
+        ts = tenants if tenants is not None else [None] * len(queries)
+        if len(ts) != len(queries):
+            raise ValueError("queries/tenants length mismatch")
+        reqs = [self.submit_rag(q, k=k, tenant=t,
+                                max_new_tokens=max_new_tokens)
+                for q, t in zip(queries, ts)]
         self.run_until_drained()
         self.poll()                      # batch callers never poll
         return [r.result() for r in reqs]

@@ -1,6 +1,6 @@
 """Batched retrieval serving layer — the retrieval-side twin of
 ``ServeEngine``'s continuous batching, ported from
-``repro/serve/retrieval.py`` for a single index.
+``repro/serve/retrieval.py``.
 
   * requests are **submitted asynchronously** (``submit`` returns a
     ``RetrievalRequest`` handle resolved by a later tick);
@@ -9,17 +9,23 @@
     sees a handful of batch shapes however traffic arrives;
   * each group runs as ONE ``index.query_batch`` search, and identical
     queries pending in the same tick share one row (``dedup_hits``);
-  * an **LRU result cache** keyed on (query-vector hash, k, ef) serves
-    repeats without a search. It is validated against the index's
-    ``mutation_epoch``: every insert/update/delete bumps the epoch and
-    drops the cache, so a retracted document is never served from a stale
-    entry. The epoch is durable: a store-backed index restores at the
-    epoch it died at and the engine adopts it at construction (never
-    assuming 0), so cache validity survives restarts; ``compact()`` bumps
-    the epoch, so it flushes the cache like any other mutation.
+  * an **LRU result cache** keyed on (tenant, query-vector hash, k, ef)
+    serves repeats without a search. The tenant is the isolation
+    boundary: two tenants submitting the same query vector never share a
+    cached result (their corpora differ); it is None on a single index.
+    The cache is validated against the index's ``mutation_epoch``: every
+    insert/update/delete bumps the epoch and drops the cache, so a
+    retracted document is never served from a stale entry. Fronting an
+    ``IndexPool`` the check is per tenant (``pool.epoch(tid)``): one
+    user's delete drops only their entries. The epoch is durable: a
+    store-backed index restores at the epoch it died at and the engine
+    adopts it at construction (never assuming 0), so cache validity
+    survives restarts; ``compact()`` bumps the epoch, so it flushes the
+    cache like any other mutation.
 
-The multi-tenant ``IndexPool`` front end waits for ROADMAP.md §1 item 2
-("tenancy"): a ``tenant`` argument raises ``NotImplementedError``.
+Fronting a ``core/tenancy.py:IndexPool`` (detected by its
+``query_batch_multi``), every ``submit`` carries a ``tenant`` and each
+per-(k, ef) tick group runs as ONE cross-tenant ``query_batch_multi``.
 """
 from __future__ import annotations
 
@@ -44,13 +50,6 @@ def bucket_size(n: int, max_batch: int) -> int:
     return min(b, max_batch)
 
 
-def reject_tenant(tenant) -> None:
-    if tenant is not None:
-        raise NotImplementedError(
-            "multi-tenant retrieval is not ported yet (ROADMAP.md §1 item "
-            "2: tenancy)")
-
-
 @dataclasses.dataclass
 class RetrievalRequest:
     """Handle returned by ``submit``; filled in when its tick executes."""
@@ -58,6 +57,7 @@ class RetrievalRequest:
     query: np.ndarray                 # [D] f32 (contiguous; hashed for cache)
     k: int
     ef: int | None = None
+    tenant: str | None = None         # IndexPool namespace (None: single)
     keys: list | None = None          # k entries, None-padded
     dists: np.ndarray | None = None   # [k] f32, INF-padded
     done: bool = False
@@ -86,11 +86,12 @@ class RetrievalStats:
 
 
 class RetrievalEngine:
-    """Continuous-batching front end over one ``VectorIndex``.
+    """Continuous-batching front end over a ``VectorIndex`` or an
+    ``IndexPool``.
 
     Parameters
     ----------
-    index:      the VectorIndex to search.
+    index:      the VectorIndex (or IndexPool) to search.
     max_batch:  bucket ladder cap; also the most queries one search
                 carries (bigger pending groups run in chunks).
     cache_size: LRU capacity in (query, k, ef) entries; 0 disables caching.
@@ -101,6 +102,9 @@ class RetrievalEngine:
         if max_batch < 1 or max_batch & (max_batch - 1):
             raise ValueError(f"max_batch must be a power of two, got {max_batch}")
         self.index = index
+        # IndexPool front end: requests carry a tenant, searches go through
+        # query_batch_multi, and cache validity is tracked per tenant
+        self._multi = hasattr(index, "query_batch_multi")
         # a sharded index's one search IS its fan-out over the shards, and
         # a mutation routed to one shard still bumps the global epoch
         self.shards = getattr(index, "shard_count", 1)
@@ -109,20 +113,30 @@ class RetrievalEngine:
         self.queue: collections.deque[RetrievalRequest] = collections.deque()
         self.stats = RetrievalStats()
         self._next_rid = 0
-        # LRU: (qhash, dim, k, ef) -> (keys, dists), valid only for the
-        # epoch the index was at when the entry was stored; a restored
-        # index starts at its restored epoch
+        # LRU: (tenant, qhash, dim, k, ef) -> (keys, dists), valid only
+        # for the epoch its tenant (or the whole index, when tenant is
+        # None) was at when the entry was stored; a restored index starts
+        # at its restored epoch
         self._cache: "collections.OrderedDict[tuple, tuple]" = \
             collections.OrderedDict()
         self._cache_epoch = index.mutation_epoch
+        self._tenant_epochs: dict[str, int] = {}
 
     # ------------------------------------------------------------- intake
     def submit(self, query, k: int = 10, ef: int | None = None,
                tenant: str | None = None) -> RetrievalRequest:
-        """Enqueue one query vector; returns a handle resolved by ``step``."""
-        reject_tenant(tenant)
+        """Enqueue one query vector; returns a handle resolved by ``step``.
+        Fronting an ``IndexPool``, ``tenant`` is required (there is no
+        un-namespaced corpus to search); on a single index it is rejected
+        (the backend cannot route it)."""
+        if self._multi and tenant is None:
+            raise ValueError("this engine fronts an IndexPool: "
+                             "submit(..., tenant=...) is required")
+        if not self._multi and tenant is not None:
+            raise ValueError(f"tenant={tenant!r} needs an IndexPool index; "
+                             f"{type(self.index).__name__} is single-tenant")
         q = np.ascontiguousarray(np.asarray(query, np.float32).reshape(-1))
-        r = RetrievalRequest(self._next_rid, q, int(k), ef)
+        r = RetrievalRequest(self._next_rid, q, int(k), ef, tenant)
         self._next_rid += 1
         self.stats.requests += 1
         self.queue.append(r)
@@ -131,12 +145,30 @@ class RetrievalEngine:
     # -------------------------------------------------------------- cache
     @staticmethod
     def _cache_key(r: RetrievalRequest) -> tuple:
+        """Cache identity of one request; the leading tenant is the
+        isolation boundary (identical query bytes under two tenants are
+        two entries), and per-tenant invalidation drops exactly the keys
+        it leads."""
         h = hashlib.blake2b(r.query.tobytes(), digest_size=16)
-        return (h.digest(), r.query.shape[0], r.k, r.ef)
+        return (r.tenant, h.digest(), r.query.shape[0], r.k, r.ef)
 
     def _check_epoch(self) -> None:
         """Drop cached results whose index state mutated since they were
-        stored: delete() bumping the epoch is the privacy guarantee."""
+        stored: delete() bumping the epoch is the privacy guarantee. On an
+        ``IndexPool`` the check is per tenant: tenant A's delete drops A's
+        entries and only A's."""
+        if self._multi:
+            for tid, known in list(self._tenant_epochs.items()):
+                cur = self.index.epoch(tid)
+                if cur != known:
+                    dropped = [ck for ck in self._cache if ck[0] == tid]
+                    for ck in dropped:
+                        del self._cache[ck]
+                    if dropped:
+                        self.stats.invalidations += 1
+                    self._tenant_epochs[tid] = cur
+            self._cache_epoch = self.index.mutation_epoch
+            return
         ep = self.index.mutation_epoch
         if ep != self._cache_epoch:
             if self._cache:
@@ -235,7 +267,15 @@ class RetrievalEngine:
             # pad by repeating row 0: result rows are sliced off below
             q = np.concatenate([q, np.repeat(q[:1], bucket - n, axis=0)])
         kw = {} if ef is None else {"ef": ef}
-        keys, dists = self.index.query_batch(q, k=k, **kw)
+        if self._multi:
+            # the whole group, rows of different tenants, is one search;
+            # padding rows take row 0's tenant along with its query
+            tenants = [r.tenant for r in reqs] \
+                + [reqs[0].tenant] * (bucket - n)
+            keys, dists = self.index.query_batch_multi(q, tenants, k=k,
+                                                       **kw)
+        else:
+            keys, dists = self.index.query_batch(q, k=k, **kw)
         dists = np.asarray(dists)
         self.stats.searches += 1
         self.stats.searched_queries += n
@@ -243,6 +283,11 @@ class RetrievalEngine:
         for r, row_keys, row_d in zip(reqs, keys, dists):
             r.keys, r.dists = list(row_keys), np.asarray(row_d)
             r.done = True
+            if self._multi:
+                # host code is single-threaded, so the tenant's current
+                # epoch IS the epoch the search ran at
+                self._tenant_epochs.setdefault(r.tenant,
+                                               self.index.epoch(r.tenant))
             self._cache_put(r._ck, r.keys, r.dists)
         return n
 
@@ -268,12 +313,17 @@ class RetrievalEngine:
     def retrieve(self, queries, k: int = 10, ef: int | None = None,
                  tenants=None) -> list[RetrievalRequest]:
         """Batch convenience: submit all rows of [B, D], drain, return the
-        resolved requests in submission order."""
-        reject_tenant(tenants)
+        resolved requests in submission order. ``tenants`` is one tenant
+        for the whole batch or a list a row (IndexPool only)."""
         q = np.asarray(queries, np.float32)
         if q.ndim == 1:
             q = q[None]
-        reqs = [self.submit(row, k=k, ef=ef) for row in q]
+        if tenants is None or isinstance(tenants, str):
+            tenants = [tenants] * q.shape[0]
+        if len(tenants) != q.shape[0]:
+            raise ValueError("queries/tenants length mismatch")
+        reqs = [self.submit(row, k=k, ef=ef, tenant=t)
+                for row, t in zip(q, tenants)]
         self.run_until_drained()
         return reqs
 

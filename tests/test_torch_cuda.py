@@ -1280,3 +1280,105 @@ def test_tree_merge_on_card_matches_cpu(cuda_device, s):
                               for d, i in parts], 40, tie_break_ids=True):
         assert torch.equal(gd.cpu(), want[0])
         assert torch.equal(gi.cpu(), want[1])
+
+
+def _pool_card_and_cpu(codec, n_shards, device, integer):
+    """An ``IndexPool`` on the card and one on the CPU after the same
+    mutations: twelve tenants of 40-183 rows (padded slab widths 4, 8 and
+    16 at R 16), deletes, updates, an evict and admit, a compact."""
+    from repro_torch.core import IndexPool
+    data, q, metric = _sharded_rows(integer)
+    pools = [IndexPool(dim=64, metric=metric, dtype=codec, n_shards=n_shards,
+                       slab_rows=16, max_resident=12, device=d)
+             for d in (device, "cpu")]
+    for p in pools:
+        for j in range(12):
+            lo = j * 240
+            p.bulk_insert(f"t{j}", [f"d{i}" for i in range(lo, lo + 40 + 13
+                                                           * j)],
+                          data[lo:lo + 40 + 13 * j])
+        for j in range(0, 12, 3):
+            p.delete(f"t{j}", f"d{j * 240 + 1}")
+            p.update(f"t{j}", f"d{j * 240 + 2}", data[2999])
+        p.evict("t4")
+        p.admit("t4")
+        p.compact("t3")
+    return pools, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("integer", [True, False])
+def test_pool_slab_scan_kernel_matches_plain(cuda_device, codec, integer):
+    """A tenant's slab scan as ``tenant_topk`` makes it (its slabs
+    gathered out of the shared block, k + slack rows) through the
+    ``distance_topk`` kernel against the plain version on the same
+    gathered rows, at B 8 and B 128; and one single-tenant search is one
+    launch of the codec's instance."""
+    from repro_torch.core import dispatch
+    from repro_torch.core import tenancy as tten
+    (card, _), q = _pool_card_and_cpu(codec, 1, cuda_device, integer)
+    _, bl, gi, sc = card._arena.pack_arena()
+    rng = np.random.default_rng(52)
+    for tid in ("t0", "t5", "t11"):
+        tbl = card._arena._device_tables(tid)[0]
+        _, _, slack, live = card._arena.tenant_table(tid)
+        db, g, s = tten._slab_gather(bl[0], gi[0], None if sc is None
+                                     else sc[0], tbl, 16)
+        for b in (8, 128):
+            qq = _t(q[rng.integers(0, 8, b)] + (0 if integer else rng.normal(
+                size=(b, 64)).astype(np.float32))).to(cuda_device)
+            kk = min(40 + slack, db.shape[0])
+            got = tops.flat_topk(db, qq, kk, metric="l2" if integer
+                                 else "cosine", scales=s)
+            want = tref.distance_topk_ref(db, qq, kk, metric="l2" if integer
+                                          else "cosine", scales=s)
+            if integer:
+                assert torch.equal(got[0], want[0])
+                assert torch.equal(got[1], want[1])
+            else:
+                err = (got[0] - want[0]).abs()
+                assert err.max().item() <= 1e-5
+                assert bool(((got[1] == want[1]) | (err <= 1e-6)).all())
+        dispatch.reset()
+        card.query_batch(tid, q, k=10)
+        assert dispatch.get(f"kernel.distance_topk.{codec}") == 1
+        assert dispatch.get("kernel.distance_topk") == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("shards", [1, 4])
+def test_pool_on_card_matches_cpu(cuda_device, codec, shards, monkeypatch):
+    """The card pool (4 shards on cuda:0 through
+    ``REPRO_TORCH_SHARD_DEVICES``) against the CPU pool: keys and
+    distances equal on integer rows (single-tenant and cross-tenant
+    searches), epochs and canonical state equal; on float rows keys
+    equal, distances within 1e-5."""
+    from repro_torch.core import dispatch
+    monkeypatch.setenv("REPRO_TORCH_SHARD_DEVICES",
+                       ",".join(["cuda:0"] * shards))
+    for integer in (True, False):
+        (card, cpu), q = _pool_card_and_cpu(codec, shards, cuda_device,
+                                            integer)
+        tids = [f"t{j}" for j in range(12)]
+        for tid in tids:
+            dispatch.reset()
+            ck, cd = card.query_batch(tid, q, k=10)
+            assert dispatch.get(f"kernel.distance_topk.{codec}") == shards
+            pk, pd = cpu.query_batch(tid, q, k=10)
+            assert ck == pk and card.epoch(tid) == cpu.epoch(tid)
+            if integer:
+                np.testing.assert_array_equal(cd, pd)
+            else:
+                np.testing.assert_allclose(cd, pd, rtol=1e-5, atol=1e-5)
+            a, b = card._arena.tenant_rows(tid), cpu._arena.tenant_rows(tid)
+            assert a[0] == b[0]
+            assert all(x is None and y is None or x.tobytes() == y.tobytes()
+                       for x, y in zip(a[1:], b[1:]))
+        mixed = [tids[j % 12] for j in range(0, 96, 5)][:16]
+        qm = np.concatenate([q, q])
+        ck, cd = card.query_batch_multi(qm, mixed, k=10)
+        pk, pd = cpu.query_batch_multi(qm, mixed, k=10)
+        assert ck == pk
+        np.testing.assert_allclose(cd, pd, rtol=1e-5, atol=1e-5)

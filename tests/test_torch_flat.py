@@ -453,9 +453,14 @@ def test_launch_serve_flat_int8_runs_on_cpu():
     assert out["rag"].index.kind == "flat"
     assert out["rag"].index.storage_dtype == "int8"
     assert all(dispatch.get(c) == 0 for c in dispatch.KERNEL_COUNTERS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--rag", "--device", "cpu", "--requests", "1",
-                     "--tenants", "2"])
+    # --tenants serves an int8 IndexPool on the CPU, through the plain
+    # version of the slab scan
+    out = tserve.main(["--rag", "--index-dtype", "int8", "--device", "cpu",
+                       "--requests", "1", "--max-new", "2", "--max-len",
+                       "96", "--tenants", "2"])
+    assert out["rag"].index.storage_dtype == "int8"
+    assert out["reqs"][0].done and len(out["reqs"][0].docs) == 3
+    assert all(dispatch.get(c) == 0 for c in dispatch.KERNEL_COUNTERS)
     # --shards is ported: the flat int8 index over 2 shards
     out = tserve.main(["--rag", "--index", "flat", "--index-dtype", "int8",
                        "--device", "cpu", "--requests", "1", "--max-new",

@@ -151,7 +151,8 @@ def test_rag_request_result_and_generate_rag_guards(lm):
     rag = RAGPipeline(index_kind="flat", device="cpu")
     rag.add_documents(tcorpus.BUILTIN_CORPUS)
     eng = ServeEngine(model, cfg, slots=2, max_len=96, device="cpu")
-    with pytest.raises(NotImplementedError, match="tenancy"):
+    # a tenant on a single index raises as the reference's pipeline does
+    with pytest.raises(ValueError, match="tenant= requires an IndexPool"):
         eng.generate_rag(rag, QUERIES[:1], tenants=["a"])
     rows = eng.generate_rag(rag, QUERIES[:2], k=1, max_new_tokens=2)
     assert eng.pipeline is rag and not eng.poll()
@@ -230,7 +231,8 @@ def test_retrieve_one_lru_and_bypass():
     for _ in range(2):
         assert not off.retrieve_one(data[0], k=3).from_cache
     assert calls["n"] == 2 and off.stats.cache_hits == 0
-    with pytest.raises(NotImplementedError, match="tenancy"):
+    # a tenant on a single index raises as the reference's engine does
+    with pytest.raises(ValueError, match="is single-tenant"):
         eng.retrieve_one(data[0], k=3, tenant="a")
 
 

@@ -197,5 +197,11 @@ def test_launch_serve_main_runs_on_cpu():
     assert len(out["reqs"]) == 3 and all(r.done for r in out["reqs"])
     assert all(len(r.docs) == 3 for r in out["reqs"])
     assert out["tokens"] == 3 * 2       # the first token comes from prefill
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.main(["--rag", "--device", "cpu", "--tenants", "2"])
+    # --tenants serves an IndexPool of two private corpora on the CPU
+    out = tserve.main(["--rag", "--device", "cpu", "--tenants", "2",
+                       "--requests", "3", "--max-new", "2", "--max-len",
+                       "96", "--slots", "2"])
+    assert [r.tenant for r in out["reqs"]] == ["tenant0", "tenant1",
+                                               "tenant0"]
+    assert all(r.done and len(r.docs) == 3 for r in out["reqs"])
+    assert out["rag"].index.tenants() == ["tenant0", "tenant1"]
