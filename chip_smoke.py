@@ -195,6 +195,35 @@ Phases (none catches an exception; any failure exits non-zero):
    4 shards on cuda:0 repeated: the sampled keys equal one shard's, and
    each shard's slab scan equals its plain version.
 
+11. The other LMs of ``launch.serve --arch``, each at its published
+   config (every layer, full widths, fp32 random weights from a seeded
+   ``torch.Generator``), one resident at a time: h2o-danube-3-4b
+   (sliding window 4,096, Dh 120, G 4), minitron-8b (the llama geometry,
+   a 256,000-token vocab), olmoe-1b-7b (64 experts top 8, G 1) and
+   granite-moe-3b-a800m (40 experts top 8, Dh 64, G 3). (a) Phase 4's
+   served path, ``--rag --index flat --index-dtype int8``: ``flash_decode``
+   once a layer a decode tick, ``distance_topk`` (int8) once a search,
+   the keys phase 4 served; req/s, tok/s, peak memory and one decode
+   tick's wall and device ms. (b) ``flash_decode`` at the model's served
+   cache (4 slots x 256, live 2-256, one cache a layer, cycled) against
+   its plain version (2e-5) on every layer, timed beside its bound and
+   SDPA. (c) One full-width ``decode_step``, flash against dense. (d)
+   MoE models: layer 0's MoE on 256 tokens on the card and on the CPU
+   with the same weights: router ids and the keep mask equal wherever
+   the k-th probability clears the (k+1)-th by 1e-5 (at least 99 % of
+   tokens), outputs within 1e-4 there, two card runs equal bit for bit.
+   (e) danube: B 2, a 4,608-token prompt (the prefill rolls the ring),
+   64 teacher-forced decode ticks that wrap it, flash and dense agreeing
+   at every tick (rtol, atol 1e-3), the last tick against a prefill of
+   all 4,672 tokens (rtol, atol 1e-3; argmax equal). (f) danube under
+   ``kv_quant`` (the reference's ``decode_32k`` preset): the served run
+   as (a); one layer's int8 payload and scales equal the CPU's
+   quantization of the same fp32 K/V, exactly; 16 teacher-forced decode
+   ticks on the int8 cache, flash against dense (rtol, atol 1e-3), with
+   their gap to the fp32 cache's decode logged beside the reference's
+   smoke-test bound (0.02 max|logit| + 0.01), which the reference's own
+   int8 scheme leaves at this width.
+
 Each phase's seconds are logged. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 repository around it, the script exits non-zero and prints no result.
@@ -202,6 +231,7 @@ repository around it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import itertools
 import json
@@ -300,6 +330,15 @@ SHARD_CHURN_EVERY = 1000
 POOL_TENANTS, POOL_ROWS, POOL_SLAB = 256, 1024, 64
 POOL_SAMPLE, POOL_B, POOL_MULTI_B = 16, 8, 128
 PAGE_TENANTS, PAGE_ROWS, PAGE_RESIDENT = 64, 256, 32
+# phase 11: the other LMs of launch.serve --arch at their published
+# configs; (d) an MoE layer on 256 tokens; (e) danube's ring: B 2, a
+# prompt past the 4,096 window, then ticks that wrap it; (f) the int8
+# cache against the fp32 one
+OTHER_LMS = ("h2o-danube-3-4b", "minitron-8b", "olmoe-1b-7b",
+             "granite-moe-3b-a800m")
+MOE_TOKENS = 256
+RING_B, RING_PROMPT, RING_STEPS = 2, 4608, 64
+KVQ_PROMPT, KVQ_STEPS = 64, 16
 # the kernels each served path must launch
 HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
              "kernel.flash_decode")
@@ -326,13 +365,16 @@ MAIN_PATH = {
     "distance_topk.fp32": "flat fp32", "distance_topk.bf16": "flat bf16",
     "distance_topk.int8": "flat int8",
     "embedding_bag.fp32": BAG_ENTRY, "embedding_bag.bf16": BAG_ENTRY,
+    **{f"flash_decode.{a}": f"{a} flat int8" for a in OTHER_LMS},
 }
 HOP_COUNTER = "kernel.gather_distance.hop"
 # record -> the counter its launches are read from (default kernel.<name>)
 COUNTER_OF = {**{f"greedy_descent.{c}": f"hnsw.descent_launches.{c}"
                  for c in ("fp32", "bf16", "int8")},
               **{f"gather_distance.{c}": f"{HOP_COUNTER}.{c}"
-                 for c in ("fp32", "bf16", "int8")}}
+                 for c in ("fp32", "bf16", "int8")},
+              **{f"flash_decode.{a}": "kernel.flash_decode"
+                 for a in OTHER_LMS}}
 # the descent is an entry point of gather_distance.cu
 SOURCE_OF = {"greedy_descent": "gather_distance"}
 REPLACES = {
@@ -1490,16 +1532,17 @@ def check_distance_topk(torch, dev, gen) -> dict:
     return out
 
 
-def served_run(torch, index_args: list[str]):
-    """One full-width served run through launch.serve.run, the kernel
-    counters zeroed just before and read just after. Returns (cfg, args,
-    corpus, result, record)."""
+def served_run(torch, index_args: list[str], cfg=None):
+    """One full-width served run through launch.serve.run (of ``cfg``,
+    default llama3-8b's published config), the kernel counters zeroed
+    just before and read just after. Returns (cfg, args, corpus, result,
+    record)."""
     from repro_torch.configs import get_config
     from repro_torch.core import dispatch
     from repro_torch.data.corpus import BUILTIN_CORPUS
     from repro_torch.launch import serve
 
-    cfg = get_config("llama3-8b").model
+    cfg = cfg or get_config("llama3-8b").model
     args = serve.parse_args(
         ["--rag", *index_args, "--requests", "8", "--max-new", "16",
          "--slots", "4", "--max-len", "256", "--seed", "0",
@@ -3456,6 +3499,291 @@ def phase_tenancy(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the other LMs of launch.serve --arch
+# ---------------------------------------------------------------------------
+def with_cfg(model, cfg):
+    """The same weights under another config (a shallow copy: one set of
+    parameters on the card)."""
+    twin = copy.copy(model)
+    twin.cfg = cfg
+    return twin
+
+
+def flash_served_cell(torch, model, cfg, args) -> dict:
+    """(b) ``flash_decode`` at the model's served cache: a prefill of
+    slots x (max_len - 1) tokens to live lengths 2-256, the kernel held
+    against its plain version on every layer's cache (2e-5) and timed
+    cycling through the layers as a tick does, beside its plain version,
+    SDPA and the bound; profiler split a launch."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as tf
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (args.slots, args.max_len - 1),
+                         device="cuda", generator=gen)
+    lens = torch.tensor([1 + (args.max_len - 2) * i // (args.slots - 1)
+                         for i in range(args.slots)], dtype=torch.int32,
+                        device="cuda")
+    _, cache = tf.prefill(model, toks, max_len=args.max_len, prompt_lens=lens)
+    live = lens + 1
+    qf = torch.randn(args.slots, cfg.n_heads, cfg.dh, device="cuda",
+                     generator=gen)
+    mask = (torch.arange(cache.k.shape[2], device="cuda")[None, :]
+            < live[:, None])[:, None, None, :]
+    err = lib_err = 0.0
+    for li in range(cfg.n_layers):
+        k, v = cache.k[li], cache.v[li]
+        want = ref.flash_decode_ref(qf, k, v, live)
+        got = ops.flash_decode(qf, k, v, live)
+        lib = F.scaled_dot_product_attention(
+            qf[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
+        torch.cuda.synchronize()
+        err = max(err, (got - want).abs().max().item())
+        lib_err = max(lib_err, (lib - want).abs().max().item())
+    assert err <= 2e-5, f"flash_decode at {cfg.name}'s served cache: {err}"
+    turn = itertools.count()
+
+    def tick(fn):
+        def run():
+            li = next(turn) % cfg.n_layers
+            return fn(cache.k[li], cache.v[li])
+        return run
+
+    kernel = tick(lambda k, v: ops.flash_decode(qf, k, v, live))
+    split = device_split(torch, kernel, "flash_decode", reps=cfg.n_layers)
+    b_ms, b_by = flash_bound(live.tolist(), args.slots, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.dh)
+    rec = dict(
+        max_abs_err=err, ms=time_ms(torch, kernel, 4 * cfg.n_layers),
+        plain_ms=time_ms(torch, tick(
+            lambda k, v: ref.flash_decode_ref(qf, k, v, live)), cfg.n_layers),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, tick(
+            lambda k, v: F.scaled_dot_product_attention(
+                qf[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)), 4 * cfg.n_layers),
+        library_max_abs_err=lib_err, **split,
+        shapes=f"B {args.slots}, H {cfg.n_heads}, KVH {cfg.n_kv_heads}, "
+               f"G {cfg.n_heads // cfg.n_kv_heads}, Dh {cfg.dh}, S "
+               f"{cache.k.shape[2]} f32, cur_len {live.tolist()}, "
+               f"{cfg.n_layers} layer caches cycled")
+    # (c) one full-width decode_step: the flash kernel and the dense path
+    nxt = toks[torch.arange(args.slots, device="cuda"), lens.long() - 1]
+    logits = {}
+    for impl in ("flash", "dense"):
+        c = tf.KVCache(cache.k.clone(), cache.v.clone(), cache.cur_len.clone())
+        logits[impl], _ = tf.decode_step(model, nxt[:, None], c,
+                                         attn_impl=impl)
+    lf, ld = logits["flash"], logits["dense"]
+    assert lf.shape == (args.slots, 1, cfg.vocab)
+    assert bool(torch.isfinite(lf).all())
+    torch.testing.assert_close(lf, ld, rtol=1e-3, atol=1e-3)
+    assert bool((lf.argmax(-1) == ld.argmax(-1)).all())
+    rec["decode_step_flash_vs_dense_max_abs_diff"] = (lf - ld).abs().max(
+        ).item()
+    return rec
+
+
+def moe_layer_cell(torch, model, cfg) -> dict:
+    """(d) Layer 0's MoE on 256 tokens on the card and on the CPU with the
+    same weights: router ids and the keep mask equal wherever the k-th
+    probability clears the (k+1)-th by 1e-5 (>= 99 % of tokens), outputs
+    within 1e-4 there, two card runs equal bit for bit; the layer timed
+    at 256 tokens and at a decode tick's slots."""
+    from repro_torch.models import moe as tmoe
+
+    mc, k = cfg.moe, cfg.moe.top_k
+    card = model.layers[0].moe
+    cpu = copy.deepcopy(card).cpu()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(MOE_TOKENS, cfg.d_model, device="cuda", generator=gen)
+    xc = x.cpu()
+    probs, _, ids, _, keep = tmoe.route(cpu, mc, xc)
+    _, _, ids_d, _, keep_d = tmoe.route(card, mc, x)
+    top = torch.sort(probs, dim=-1, descending=True).values
+    ok = (top[:, k - 1] - top[:, k]) > 1e-5
+    share = ok.float().mean().item()
+    assert share >= 0.99, f"{cfg.name}: {share:.4f} of tokens clear ties"
+    ids_eq = bool(torch.equal(ids_d.cpu()[ok], ids[ok]))
+    keep_eq = bool(torch.equal(keep_d.cpu().reshape(-1, k)[ok],
+                               keep.reshape(-1, k)[ok]))
+    assert ids_eq and keep_eq, f"{cfg.name}: routing differs from the CPU"
+    out, aux = tmoe.moe_ffn(cpu, mc, xc)
+    out_d, aux_d = tmoe.moe_ffn(card, mc, x)
+    again, aux_again = tmoe.moe_ffn(card, mc, x)
+    err = (out_d.cpu()[ok] - out[ok]).abs().max().item()
+    assert err <= 1e-4, f"{cfg.name}: MoE output err {err}"
+    assert torch.equal(again, out_d) and torch.equal(aux_again, aux_d)
+    x4 = x[:4]
+    rec = dict(tokens=MOE_TOKENS, clear_of_ties=share, ids_equal=ids_eq,
+               keep_equal=keep_eq, dropped=int((~keep).sum()),
+               capacity=tmoe.capacity(MOE_TOKENS, mc),
+               max_abs_err=err, aux=aux_d.item(),
+               aux_abs_err=abs(aux_d.item() - aux.item()),
+               bit_for_bit_twice=True,
+               ms=time_ms(torch, lambda: tmoe.moe_ffn(card, mc, x), 5),
+               decode_tick_ms=time_ms(torch, lambda: tmoe.moe_ffn(
+                   card, mc, x4), 10),
+               decode_tick_capacity=tmoe.capacity(4, mc),
+               expert_bytes_a_layer=sum(
+                   w.numel() * 4 for w in (card.we1, card.we2, card.we3)))
+    del cpu
+    return rec
+
+
+def ring_cell(torch, model, cfg) -> dict:
+    """(e) h2o-danube-3-4b's ring at full width: B 2, a 4,608-token prompt
+    (past the 4,096 window: the prefill rolls), then 64 teacher-forced
+    decode ticks that wrap the ring, flash and dense at every tick; the
+    last tick's logits against a prefill of all 4,672 tokens."""
+    from repro_torch.models import transformer as tf
+
+    total = RING_PROMPT + RING_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (RING_B, total), device="cuda",
+                         generator=gen)
+    t0 = time.perf_counter()
+    _, cache = tf.prefill(model, toks[:, :RING_PROMPT], max_len=total)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    assert cache.k.shape[2] == cfg.sliding_window == tf.cache_len(cfg, total)
+    caches = {"flash": cache,
+              "dense": tf.KVCache(cache.k.clone(), cache.v.clone(),
+                                  cache.cur_len.clone())}
+    step_diff = 0.0
+    for t in range(RING_PROMPT, total):
+        out = {}
+        for impl in ("flash", "dense"):
+            out[impl], caches[impl] = tf.decode_step(
+                model, toks[:, t:t + 1], caches[impl], attn_impl=impl)
+        torch.testing.assert_close(out["flash"], out["dense"], rtol=1e-3,
+                                   atol=1e-3)
+        step_diff = max(step_diff,
+                        (out["flash"] - out["dense"]).abs().max().item())
+    last = out["flash"]
+    del caches, cache
+    full, _ = tf.prefill(model, toks)
+    diff = (last - full).abs().max().item()
+    torch.testing.assert_close(last, full, rtol=1e-3, atol=1e-3)
+    assert bool((last.argmax(-1) == full.argmax(-1)).all())
+    return dict(batch=RING_B, prompt=RING_PROMPT, ticks=RING_STEPS,
+                ring=cfg.sliding_window, prefill_s=prefill_s,
+                flash_vs_dense_max_abs_diff=step_diff,
+                last_vs_full_prefill_max_abs_diff=diff,
+                max_abs_logit=full.abs().max().item(),
+                tolerance="rtol 1e-3, atol 1e-3; argmax equal")
+
+
+def kv_quant_cell(torch, model, cfg) -> dict:
+    """(f) the int8 cache of ``model`` (a kv_quant config): one layer's
+    payload and scales from a card prefill equal the CPU quantization of
+    the same fp32 K/V exactly; 16 teacher-forced decode ticks through the
+    flash kernel agree with the dense path from the same int8 cache at
+    every tick (rtol, atol 1e-3), and their gap to the fp32 cache's decode is measured
+    beside the reference's bound for its smoke test (0.02 max|logit| +
+    0.01). The bound is not asserted at full width: the reference's own
+    int8 scheme leaves it there (its gap grows with d_model;
+    tests/test_torch_lm_family.py holds the port's gap to the
+    reference's)."""
+    from repro_torch.models import transformer as tf
+
+    fp32 = with_cfg(model, dataclasses.replace(cfg, kv_quant=False))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    total = KVQ_PROMPT + KVQ_STEPS
+    toks = torch.randint(0, cfg.vocab, (2, total), device="cuda",
+                         generator=gen)
+    lq, cq = tf.prefill(model, toks[:, :KVQ_PROMPT], max_len=total)
+    lf, cf = tf.prefill(fp32, toks[:, :KVQ_PROMPT], max_len=total)
+    assert cq.k.dtype == torch.int8 and cq.k_scale is not None
+    for pay, scale, x in ((cq.k[0], cq.k_scale[0], cf.k[0]),
+                          (cq.v[0], cq.v_scale[0], cf.v[0])):
+        want_q, want_s = tf._quantize_kv(x.cpu())
+        assert torch.equal(pay.cpu(), want_q), "int8 payload != CPU's"
+        assert torch.equal(scale.cpu(), want_s), "int8 scales != CPU's"
+    gaps, dense_diff = [(lq - lf).abs().max().item()], 0.0
+    scale = lf.abs().max().item()
+    for t in range(KVQ_PROMPT, total):
+        tok = toks[:, t:t + 1]
+        # the dense path from the same cache: the two caches would drift
+        # apart (a new row on a rounding edge takes either int8 step)
+        cd = tf.KVCache(cq.k.clone(), cq.v.clone(), cq.cur_len.clone(),
+                        cq.k_scale.clone(), cq.v_scale.clone())
+        lq, cq = tf.decode_step(model, tok, cq)
+        ld, _ = tf.decode_step(model, tok, cd, attn_impl="dense")
+        lf, cf = tf.decode_step(fp32, tok, cf)
+        torch.testing.assert_close(lq, ld, rtol=1e-3, atol=1e-3)
+        dense_diff = max(dense_diff, (lq - ld).abs().max().item())
+        gaps.append((lq - lf).abs().max().item())
+        scale = max(scale, lf.abs().max().item())
+    bound = 0.02 * scale + 0.01
+    return dict(prompt=KVQ_PROMPT, ticks=KVQ_STEPS, layer0_exact=True,
+                flash_vs_dense_max_abs_diff=dense_diff,
+                gap_to_fp32_cache_by_tick=gaps, max_gap=max(gaps),
+                max_abs_logit=scale, reference_bound=bound,
+                within_reference_bound=max(gaps) < bound,
+                cache_bytes_int8=sum(t.numel() * t.element_size() for t in (
+                    cq.k, cq.v, cq.k_scale, cq.v_scale)),
+                cache_bytes_fp32=sum(t.numel() * 4 for t in (cf.k, cf.v)))
+
+
+def served_other_lm(torch, cfg, flat_keys, what: str) -> tuple:
+    """(a) ``--rag --index flat --index-dtype int8`` at full width:
+    ``flash_decode`` once a layer a tick, ``distance_topk`` (int8) once a
+    search, the keys phase 4 served; one decode tick's wall and device
+    ms. Returns (model, args, record)."""
+    _, args, _, res, out = served_run(
+        torch, ["--index", "flat", "--index-dtype", "int8"], cfg=cfg)
+    counts, es, rs = out["counters"], out["engine"], out["retrieval"]
+    assert counts["kernel.flash_decode"] == cfg.n_layers * es["decode_ticks"]
+    assert counts.get("kernel.distance_topk.int8", 0) == rs["searches"] > 0
+    got = [[d.key for d in r.docs] for r in res["reqs"]]
+    assert got == flat_keys, f"{what}: served keys {got} != phase 4's"
+    model = res["engine"].model
+    out["profile"] = profile_decode(torch, model, cfg, args)
+    log(f"serve {what} " + json.dumps(out))
+    return model, args, out
+
+
+def phase_other_lms(torch, flat_keys) -> dict:
+    """Each of the other LMs at its published config, one at a time."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch in OTHER_LMS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).model
+        log(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+            f"{cfg.n_heads}/{cfg.n_kv_heads}, Dh {cfg.dh}, vocab "
+            f"{cfg.vocab}, window {cfg.sliding_window}, moe {cfg.moe}")
+        model, args, rec = served_other_lm(torch, cfg, flat_keys, arch)
+        rec["flash_served"] = flash_served_cell(torch, model, cfg, args)
+        log(f"{arch} flash_decode at the served cache, decode_step flash vs "
+            "dense " + json.dumps(rec["flash_served"]))
+        if cfg.moe is not None:
+            rec["moe_layer"] = moe_layer_cell(torch, model, cfg)
+            log(f"{arch} MoE layer card vs CPU "
+                + json.dumps(rec["moe_layer"]))
+        if cfg.sliding_window is not None:
+            rec["ring"] = ring_cell(torch, model, cfg)
+            log(f"{arch} ring " + json.dumps(rec["ring"]))
+            del model
+            release(torch)
+            qcfg = dataclasses.replace(cfg, kv_quant=True)
+            model, _, rec["kv_quant_served"] = served_other_lm(
+                torch, qcfg, flat_keys, f"{arch} kv_quant")
+            rec["kv_quant"] = kv_quant_cell(torch, model, qcfg)
+            log(f"{arch} kv_quant " + json.dumps(rec["kv_quant"]))
+        del model
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"{arch}: {rec['seconds']:.1f}s, {release(torch):.2f} GB still "
+            "allocated")
+        out[arch] = rec
+    return out
+
+
 def release(torch) -> float:
     """Drop what the last phase left on the card -> GB still allocated."""
     gc.collect()
@@ -3481,7 +3809,8 @@ def profile_decode(torch, model, cfg, args) -> dict:
         tf.prefill(model, toks, max_len=args.max_len)
 
     def step():
-        c = tf.KVCache(cache.k, cache.v, cache.cur_len.clone())
+        c = tf.KVCache(cache.k, cache.v, cache.cur_len.clone(),
+                       cache.k_scale, cache.v_scale)
         tf.decode_step(model, tok, c)
 
     def wall_ms(fn, reps):
@@ -3564,6 +3893,10 @@ def main() -> int:
     ivf_1m = phase("8 ivf 1M int8", phase_ivf_1m, torch)
     shard_out = phase("9 sharded", phase_sharded, torch)
     pool_out = phase("10 tenancy", phase_tenancy, torch)
+    other = phase("11 other LMs", phase_other_lms, torch,
+                  flat_out["keys"]["int8 served"])
+    for arch, rec in other.items():
+        kern[f"flash_decode.{arch}"] = rec["flash_served"]
     for c in ("fp32", "int8"):
         kern[f"distance_topk.{c}"]["tenant_slab_scan"] = \
             pool_out[f"arena_{c}"]["slab_scan"]
@@ -3609,6 +3942,9 @@ def main() -> int:
                  pool_out["served"]["cold"]["counters"],
              "pool int8 --tenants 4 served warm":
                  pool_out["served"]["warm"]["counters"],
+             **{f"{a} flat int8": other[a]["counters"] for a in OTHER_LMS},
+             "h2o-danube-3-4b kv_quant flat int8":
+                 other["h2o-danube-3-4b"]["kv_quant_served"]["counters"],
              BAG_ENTRY: bag_counts}
     for counts in paths.values():
         for c in CODECS:

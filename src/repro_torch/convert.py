@@ -20,27 +20,31 @@ import torch
 from repro_torch.core import hnsw as thnsw
 from repro_torch.core.hnsw_build import HNSWGraph
 
-_LINEARS = ("wq", "wk", "wv", "wo", "w1", "w3", "w2")
+_ATTN = ("wq", "wk", "wv", "wo")
+_DENSE_FFN = ("w1", "w3", "w2")
+_MOE = ("router", "we1", "we2", "we3")
 
 
 def lm_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """Nested dict of numpy arrays in the reference's ``init_lm`` layout
-    -> ``LM.state_dict()``-shaped dict of CPU tensors. Dense layers only."""
+    -> ``LM.state_dict()``-shaped dict of CPU tensors. Linear weights are
+    transposed; an MoE layer's router and expert weights keep the
+    reference's layout (``layers.<i>.moe.<name>``)."""
     def t(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a))
 
     layers = params["layers"]
-    if "router" in layers:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md §1 item 12)")
+    moe = "router" in layers
     sd = {"embed.weight": t(params["embed"]),
           "final_norm": t(params["final_norm"])}
     n_layers = np.asarray(layers["attn_norm"]).shape[0]
     for i in range(n_layers):
         sd[f"layers.{i}.attn_norm"] = t(np.asarray(layers["attn_norm"])[i])
         sd[f"layers.{i}.ffn_norm"] = t(np.asarray(layers["ffn_norm"])[i])
-        for name in _LINEARS:
+        for name in _ATTN + (() if moe else _DENSE_FFN):
             sd[f"layers.{i}.{name}.weight"] = t(np.asarray(layers[name])[i].T)
+        for name in _MOE if moe else ():
+            sd[f"layers.{i}.moe.{name}"] = t(np.asarray(layers[name])[i])
     if "out_head" in params:
         sd["out_head.weight"] = t(np.asarray(params["out_head"]).T)
     return sd

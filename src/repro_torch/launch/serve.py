@@ -18,6 +18,14 @@ of ``repro/launch/serve.py``.
     PYTHONPATH=src python -m repro_torch.launch.serve --rag --tenants 4 \
         --max-resident 2 --index-dtype int8 [--store-dir DIR] [--device cpu]
 
+``--arch`` names any of the five LMs: ``llama3-8b`` and ``minitron-8b``
+(dense, full attention), ``h2o-danube-3-4b`` (sliding-window attention,
+its cache a ring of the window) and the MoE ``olmoe-1b-7b`` and
+``granite-moe-3b-a800m``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --rag --index flat --index-dtype int8 [--device cpu]
+
 The command line runs the architecture's smoke config with random weights
 from ``--seed``. ``run(cfg, args)`` takes any ``LMConfig`` (``chip_smoke.py``
 passes the full-width one). RAG requests arrive closed-loop (a bounded

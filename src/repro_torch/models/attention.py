@@ -6,8 +6,12 @@ prefill path and the dense decode path of ``repro/models/attention.py``.
     (the reference's ``impl="masked"``, which its prefill uses). This is
     plain tensor code in the reference too, not a Pallas kernel, so the
     port keeps the same math rather than calling a library attention.
+  * ``swa_blocked_attention`` — causal sliding-window attention: each q
+    block scores only the in-band kv span (``window + block_q`` positions,
+    block-aligned), the prefill of sliding-window configs.
   * ``decode_attention`` — one new token against the KV cache; direct
     reduction, f32 accumulation (``decode_step(attn_impl="dense")``).
+  * ``reference_attention`` — the O(S^2)-memory oracle of the tests.
 
 All products accumulate in float32.
 """
@@ -94,10 +98,48 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1)
 
 
+def swa_blocked_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, window: int,
+                          block_q: int = 512,
+                          block_k: int = 512) -> torch.Tensor:
+    """Causal sliding-window attention (position p sees keys in (p - window,
+    p]); touches only in-band kv blocks. q [B,S,H,Dh]; k,v [B,Sk,KVH,Dh]."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    block_q = pick_block(sq, block_q)
+    block_k = pick_block(sk, block_k)
+    if sk <= window:          # the window covers every prefix: plain causal
+        return blocked_attention(q, k, v, causal=True, block_q=block_q,
+                                 block_k=block_k)
+    # kv span one q block needs: window + block_q positions, block-aligned
+    span = min(((window + block_q) // block_k + 1) * block_k, sk)
+    sm_scale = dh ** -0.5
+    dev = q.device
+    outs = []
+    for iq in range(sq // block_q):
+        q_lo = iq * block_q
+        q_i = q[:, q_lo:q_lo + block_q] * sm_scale
+        start = min(max(q_lo + block_q - span, 0), sk - span)
+        scores = _gqa_scores(q_i, k[:, start:start + span])  # [B,H,bq,span]
+        q_pos = q_lo + torch.arange(block_q, device=dev)
+        k_pos = start + torch.arange(span, device=dev)
+        mask = ((q_pos[:, None] >= k_pos[None, :])
+                & (k_pos[None, :] > q_pos[:, None] - window))
+        scores = torch.where(mask[None, None], scores, NEG_INF)
+        m = scores.amax(dim=-1, keepdim=True)
+        p = torch.exp(scores - m)
+        l = p.sum(dim=-1, keepdim=True)
+        out = _gqa_values(p / l.clamp_min(1e-30), v[:, start:start + span])
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cur_len) -> torch.Tensor:
+                     v_cache: torch.Tensor, cur_len, *,
+                     window: int | None = None) -> torch.Tensor:
     """One-token attention against the cache. q [B,1,H,Dh]; k_cache/v_cache
-    [B,S,KVH,Dh]; ``cur_len`` scalar or per-sequence [B] -> [B,1,H,Dh]."""
+    [B,S,KVH,Dh]; ``cur_len`` scalar or per-sequence [B] -> [B,1,H,Dh].
+    ``window`` also masks positions below ``cur_len - window``."""
     b, _, h, dh = q.shape
     s = k_cache.shape[1]
     scores = _gqa_scores(q * dh ** -0.5, k_cache)          # [B,H,1,S]
@@ -105,8 +147,29 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     cur = torch.as_tensor(cur_len, dtype=torch.int32,
                           device=q.device).reshape(-1).expand(b)
     valid = pos[None, :] < cur[:, None]                    # [B,S]
+    if window is not None:
+        valid &= pos[None, :] >= cur[:, None] - window
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
     p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return _gqa_values(p, v_cache).to(q.dtype)
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: int | None = None) -> torch.Tensor:
+    """O(S^2)-memory oracle for tests; the queries are the last Sq
+    positions of the Sk keys."""
+    sq, dh = q.shape[1], q.shape[-1]
+    sk = k.shape[1]
+    scores = _gqa_scores(q * dh ** -0.5, k)
+    q_pos = torch.arange(sq, device=q.device) + (sk - sq)
+    k_pos = torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    scores = torch.where(mask[None, None], scores, NEG_INF)
+    return _gqa_values(torch.softmax(scores, dim=-1), v).to(q.dtype)

@@ -1,22 +1,27 @@
-"""Decoder-only transformer LM, dense path: GQA + RoPE + RMSNorm + SwiGLU,
-ported from ``repro/models/transformer.py``.
+"""Decoder-only transformer LM: GQA + RoPE + RMSNorm + SwiGLU (+ sliding-
+window attention, + MoE, + an int8 KV cache), ported from
+``repro/models/transformer.py``.
 
 Entry points:
   init_lm(cfg, seed, device)              random weights from a torch.Generator
-  init_cache(cfg, batch, seq_len)         empty KV cache
+  init_cache(cfg, batch, seq_len)         empty KV cache (a ring under SWA)
   prefill(model, tokens)                  build the KV cache, last logits
   decode_step(model, token, cache)        one token through the cache
 
 The reference stacks the layers along a leading axis and multiplies
 ``x @ W``; here each layer is an ``nn.Module`` of ``nn.Linear``s (weights
-``[out, in]``; ``convert.lm_params_from_jax`` transposes). The large
-matrix products stay ``F.linear``, as the reference leaves them to XLA.
-Decode attention runs through ``kernels.ops.flash_decode`` (the hand
-kernel on the card) or the dense plain path.
+``[out, in]``; ``convert.lm_params_from_jax`` transposes), and an MoE
+layer's ``models.moe.MoE`` keeps the reference's layout. The large
+matrix products stay ``F.linear``/``bmm``, as the reference leaves them
+to XLA. Decode attention runs through ``kernels.ops.flash_decode`` (the
+hand kernel on the card) or the dense plain path.
 
-This slice serves fp32, dense-FFN, full-attention configurations; MoE,
-the int8 KV cache and sliding-window attention raise
-``NotImplementedError`` (ROADMAP.md §1, item 12).
+Sliding-window configs keep a ring of ``cache_len`` = min(seq_len,
+window) positions, position p at slot p % Sc. Under ``cfg.kv_quant`` the
+cache holds int8 payloads with an fp32 scale a (layer, row, position,
+KV head), dequantized a layer at a time before the attention. Weights
+are fp32 only: other dtypes raise ``NotImplementedError`` (ROADMAP.md
+§1 item 4).
 """
 from __future__ import annotations
 
@@ -28,23 +33,19 @@ from torch.nn import functional as F
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels import ops
-from repro_torch.models.attention import blocked_attention, decode_attention
+from repro_torch.models.attention import (
+    blocked_attention,
+    decode_attention,
+    swa_blocked_attention,
+)
 from repro_torch.models.common import apply_rope, rms_norm
+from repro_torch.models.moe import MoE, moe_ffn
 from repro_torch.utils import resolve_device
 
 
-def _check_supported(cfg: LMConfig) -> None:
-    for what, unsupported in (("MoE", cfg.moe is not None),
-                              ("kv_quant", cfg.kv_quant),
-                              ("sliding-window attention",
-                               cfg.sliding_window is not None)):
-        if unsupported:
-            raise NotImplementedError(
-                f"{what} configs are not ported yet (ROADMAP.md §1 item 12)")
-
-
 class Block(nn.Module):
-    """One decoder layer's weights."""
+    """One decoder layer's weights: the dense FFN's ``w1``/``w3``/``w2``,
+    or ``moe`` for an MoE config."""
 
     def __init__(self, cfg: LMConfig, device=None, dtype=torch.float32):
         super().__init__()
@@ -59,18 +60,21 @@ class Block(nn.Module):
         self.wk = nn.Linear(D, KVH * Dh, **kw)
         self.wv = nn.Linear(D, KVH * Dh, **kw)
         self.wo = nn.Linear(H * Dh, D, **kw)
-        self.w1 = nn.Linear(D, Fh, **kw)
-        self.w3 = nn.Linear(D, Fh, **kw)
-        self.w2 = nn.Linear(Fh, D, **kw)
+        if cfg.moe is not None:
+            self.moe = MoE(D, cfg.moe, device=device, dtype=dtype)
+        else:
+            self.w1 = nn.Linear(D, Fh, **kw)
+            self.w3 = nn.Linear(D, Fh, **kw)
+            self.w2 = nn.Linear(Fh, D, **kw)
 
 
 class LM(nn.Module):
     def __init__(self, cfg: LMConfig, device=None, dtype=torch.float32):
         super().__init__()
-        _check_supported(cfg)
         if dtype != torch.float32:
             raise NotImplementedError(
-                "only fp32 weights are ported in this slice")
+                f"{dtype} weights are not ported yet: fp32 only "
+                "(ROADMAP.md §1 item 4)")
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab, cfg.d_model, device=device,
                                   dtype=dtype)
@@ -85,17 +89,23 @@ class LM(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's ``init_lm`` scheme: N(0, 0.02) weights, output
-        projections scaled by (2L)^-1/2, unit norms. Draws come from
-        ``generator`` (same device as the weights)."""
-        std_out = 0.02 / (2 * self.cfg.n_layers) ** 0.5
+        projections scaled by (2L)^-1/2, unit norms; MoE layers by
+        ``init_moe_layer``'s. Draws come from ``generator`` (same device
+        as the weights)."""
+        L = self.cfg.n_layers
+        std_out = 0.02 / (2 * L) ** 0.5
         self.embed.weight.normal_(0.0, 0.02, generator=generator)
         for blk in self.layers:
             blk.attn_norm.fill_(1.0)
             blk.ffn_norm.fill_(1.0)
-            for lin in (blk.wq, blk.wk, blk.wv, blk.w1, blk.w3):
+            dense = self.cfg.moe is None
+            for lin in (blk.wq, blk.wk, blk.wv) + (
+                    (blk.w1, blk.w3) if dense else ()):
                 lin.weight.normal_(0.0, 0.02, generator=generator)
-            for lin in (blk.wo, blk.w2):
+            for lin in (blk.wo,) + ((blk.w2,) if dense else ()):
                 lin.weight.normal_(0.0, std_out, generator=generator)
+            if not dense:
+                blk.moe.reset_parameters(generator, L)
         self.final_norm.fill_(1.0)
         if self.out_head is not None:
             self.out_head.weight.normal_(0.0, 0.02, generator=generator)
@@ -131,7 +141,12 @@ def _qkv(blk: Block, cfg: LMConfig, h: torch.Tensor, positions: torch.Tensor):
 
 
 def _ffn(blk: Block, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """The FFN residual (the MoE's aux loss is dropped: serving only)."""
     h = rms_norm(x, blk.ffn_norm, cfg.norm_eps)
+    if cfg.moe is not None:
+        B, S, D = h.shape
+        out, _ = moe_ffn(blk.moe, cfg.moe, h.reshape(B * S, D))
+        return x + out.reshape(B, S, D)
     return x + blk.w2(F.silu(blk.w1(h)) * blk.w3(h))
 
 
@@ -147,52 +162,104 @@ def _head(model: LM, x: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class KVCache:
     """Stacked-layer KV cache. k/v: [L, B, S_cache, KVH, Dh]; ``cur_len``
-    [B] int32 is each serving slot's own position. ``decode_step`` writes
-    the new token's K/V into ``k``/``v`` in place (the reference returns a
-    new functional cache instead)."""
+    [B] int32 is each serving slot's own position. With ``cfg.kv_quant``
+    k/v are int8 and ``k_scale``/``v_scale`` [L, B, S_cache, KVH] hold the
+    fp32 scales. ``decode_step`` writes the new token's K/V into the
+    tensors in place (the reference returns a new functional cache)."""
     k: torch.Tensor
     v: torch.Tensor
     cur_len: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [..., Dh] -> (int8 payload, fp32 scale [...]); rounds half to
+    even, as ``jnp.round``. Both divisions are tensor by tensor: PyTorch
+    on the card turns a division by a Python scalar into a product with
+    its reciprocal, which can differ in the last bit."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = amax / torch.full_like(amax, 127.0) + 1e-9
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def cache_len(cfg: LMConfig, seq_len: int) -> int:
+    """SWA configs keep a ring of the window; full attention keeps S."""
+    if cfg.sliding_window is not None:
+        return min(seq_len, cfg.sliding_window)
+    return seq_len
 
 
 def init_cache(cfg: LMConfig, batch: int, seq_len: int,
                dtype=torch.float32, device=None) -> KVCache:
-    _check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.dh)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
-                   v=torch.zeros(shape, dtype=dtype, device=dev),
-                   cur_len=torch.zeros(batch, dtype=torch.int32, device=dev))
+    shape = (cfg.n_layers, batch, cache_len(cfg, seq_len), cfg.n_kv_heads,
+             cfg.dh)
+    pay = torch.int8 if cfg.kv_quant else dtype
+    ks = vs = None
+    if cfg.kv_quant:
+        ks = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+        vs = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+    return KVCache(k=torch.zeros(shape, dtype=pay, device=dev),
+                   v=torch.zeros(shape, dtype=pay, device=dev),
+                   cur_len=torch.zeros(batch, dtype=torch.int32, device=dev),
+                   k_scale=ks, v_scale=vs)
+
+
+def _ring(x: torch.Tensor, Sc: int) -> torch.Tensor:
+    """A prompt's K or V [B, S, KVH, Dh] in the cache layout (position p
+    at slot p % Sc): the last Sc positions rolled when the ring is shorter
+    than the prompt, zero padding to Sc when it is longer."""
+    S = x.shape[1]
+    if Sc < S:
+        return torch.roll(x[:, S - Sc:], S % Sc, dims=1)
+    if Sc > S:
+        return F.pad(x, (0, 0, 0, 0, 0, Sc - S))
+    return x
 
 
 @torch.no_grad()
 def prefill(model: LM, tokens: torch.Tensor, max_len: int | None = None,
             prompt_lens: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, KVCache]:
-    """Run the prompt, build a cache with capacity ``max_len``, return the
-    last-valid-position logits [B,1,V]. ``prompt_lens`` [B] supports
-    right-padded batched prompts."""
+    """Run the prompt, build a cache with capacity ``max_len`` (a ring of
+    ``cache_len`` under SWA), return the last-valid-position logits
+    [B,1,V]. ``prompt_lens`` [B] supports right-padded batched prompts."""
     cfg = model.cfg
     B, S = tokens.shape
-    Sc = max_len or S
-    if Sc < S:
-        raise ValueError(f"cache capacity {Sc} is shorter than the prompt {S}")
+    Sc = cache_len(cfg, max_len or S)
     dev = model.device
     tokens = tokens.to(dev).long()
     x = model.embed(tokens)
     positions = torch.arange(S, device=dev)[None, :]
-    ks, vs = [], []
+    ks, vs, kss, vss = [], [], [], []
     for blk in model.layers:
         h = rms_norm(x, blk.attn_norm, cfg.norm_eps)
         q, k, v = _qkv(blk, cfg, h, positions)
-        attn = blocked_attention(q, k, v, causal=True,
-                                 block_q=cfg.attn_block_q,
-                                 block_k=cfg.attn_block_k)
+        if cfg.sliding_window is not None:
+            attn = swa_blocked_attention(q, k, v, window=cfg.sliding_window,
+                                         block_q=cfg.attn_block_q,
+                                         block_k=cfg.attn_block_q)
+        else:
+            attn = blocked_attention(q, k, v, causal=True,
+                                     block_q=cfg.attn_block_q,
+                                     block_k=cfg.attn_block_k)
         x = x + blk.wo(attn.reshape(B, S, -1))
         x = _ffn(blk, cfg, x)
-        pad = (0, 0, 0, 0, 0, Sc - S)            # grow the seq dim to Sc
-        ks.append(F.pad(k, pad))
-        vs.append(F.pad(v, pad))
+        k, v = _ring(k, Sc), _ring(v, Sc)
+        if cfg.kv_quant:
+            (k, k_s), (v, v_s) = _quantize_kv(k), _quantize_kv(v)
+            kss.append(k_s)
+            vss.append(v_s)
+        ks.append(k)
+        vs.append(v)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     if prompt_lens is None:
         lens = torch.full((B,), S, dtype=torch.int32, device=dev)
@@ -202,7 +269,9 @@ def prefill(model: LM, tokens: torch.Tensor, max_len: int | None = None,
         idx = (lens.long() - 1).clamp(0, S - 1)
         x_last = x[torch.arange(B, device=dev), idx][:, None, :]
     logits = _head(model, x_last)
-    return logits, KVCache(k=torch.stack(ks), v=torch.stack(vs), cur_len=lens)
+    scales = ((torch.stack(kss), torch.stack(vss)) if cfg.kv_quant
+              else (None, None))
+    return logits, KVCache(torch.stack(ks), torch.stack(vs), lens, *scales)
 
 
 @torch.no_grad()
@@ -215,7 +284,10 @@ def decode_step(model: LM, token: torch.Tensor, cache: KVCache,
     the hand CUDA kernel for tensors on the card, its plain version on the
     CPU — once per layer, masking each slot at its own depth; "dense" is
     ``models.attention.decode_attention``. Both compute the same masked
-    softmax attention in f32."""
+    softmax attention in f32. The new token's K/V go to slot pos % Sc (a
+    full SWA ring is all valid: the oldest position is overwritten), and
+    under ``kv_quant`` they are quantized there and the layer's cache is
+    dequantized before the attention."""
     if attn_impl not in ("flash", "dense"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}; "
                          "expected 'flash' or 'dense'")
@@ -234,15 +306,28 @@ def decode_step(model: LM, token: torch.Tensor, cache: KVCache,
         h = rms_norm(x, blk.attn_norm, cfg.norm_eps)
         q, k_new, v_new = _qkv(blk, cfg, h, positions)   # k_new [B,1,KVH,Dh]
         k_l, v_l = cache.k[li], cache.v[li]
-        k_l[b_idx, write_idx] = k_new[:, 0].to(k_l.dtype)
-        v_l[b_idx, write_idx] = v_new[:, 0].to(v_l.dtype)
+        if cfg.kv_quant:
+            ks_l, vs_l = cache.k_scale[li], cache.v_scale[li]
+            (kq, k_s), (vq, v_s) = (_quantize_kv(k_new[:, 0]),
+                                    _quantize_kv(v_new[:, 0]))
+            k_l[b_idx, write_idx] = kq
+            v_l[b_idx, write_idx] = vq
+            ks_l[b_idx, write_idx] = k_s
+            vs_l[b_idx, write_idx] = v_s
+            k_att = _dequantize_kv(k_l, ks_l, x.dtype)
+            v_att = _dequantize_kv(v_l, vs_l, x.dtype)
+        else:
+            k_l[b_idx, write_idx] = k_new[:, 0].to(k_l.dtype)
+            v_l[b_idx, write_idx] = v_new[:, 0].to(v_l.dtype)
+            k_att, v_att = k_l, v_l
         if attn_impl == "flash":
-            a = ops.flash_decode(q[:, 0].contiguous(), k_l, v_l, n_valid)
+            a = ops.flash_decode(q[:, 0].contiguous(), k_att, v_att, n_valid)
             attn = a.to(x.dtype)[:, None]                # [B,1,H,Dh]
         else:
-            attn = decode_attention(q, k_l, v_l, n_valid)
+            attn = decode_attention(q, k_att, v_att, n_valid)
         x = x + blk.wo(attn.reshape(B, 1, -1))
         x = _ffn(blk, cfg, x)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = _head(model, x)
-    return logits, KVCache(k=cache.k, v=cache.v, cur_len=pos + 1)
+    return logits, KVCache(cache.k, cache.v, pos + 1, cache.k_scale,
+                           cache.v_scale)

@@ -330,9 +330,13 @@ class ServeEngine:
             self.active[slot] = r
             self.stats.admitted += 1
             r.out_tokens.append(self._sample(first[j], r.rid, 0))
-            # copy this request's prefilled KV rows into its slot
+            # copy this request's prefilled KV rows (and, under
+            # kv_quant, their scales) into its slot
             self.cache.k[:, slot, :span] = cache.k[:, j]
             self.cache.v[:, slot, :span] = cache.v[:, j]
+            if cache.k_scale is not None:
+                self.cache.k_scale[:, slot, :span] = cache.k_scale[:, j]
+                self.cache.v_scale[:, slot, :span] = cache.v_scale[:, j]
             self.cache.cur_len[slot] = int(lens[j])
 
     # ------------------------------------------------------------- tick

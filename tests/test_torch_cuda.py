@@ -195,7 +195,12 @@ def _flash_args(seed, b, s, kvh, g, dh, cur, device, offset=0):
     (3, 4, 30, 200, [200, 33, 5]),          # Dh % 4 != 0: element copies
     (3, 3, 128, 200, [200, 33, 5]),         # G 3: a padded head group
     (2, 16, 128, 300, [300, 77]),           # G 16: two head groups
-    (2, 2, 1000, 64, [64, 20])])            # wide rows, one ring stage
+    (2, 2, 1000, 64, [64, 20]),             # wide rows, one ring stage
+    # the served geometries of the other LMs (4 slots x 256): olmoe G 1,
+    # Dh 128; granite G 3, Dh 64; danube G 4, Dh 120 (a row of 30 float4s,
+    # lanes past it), also at its 4,096-position ring
+    (4, 1, 128, 256, [2, 86, 171, 256]), (4, 3, 64, 256, [2, 86, 171, 256]),
+    (4, 4, 120, 256, [2, 86, 171, 256]), (2, 4, 120, 4096, [4096, 1000])])
 def test_flash_decode_kernel_matches_plain(cuda_device, b, g, dh, s, cur):
     args = _flash_args(22, b, s, 2, g, dh, cur, cuda_device)
     torch.testing.assert_close(tops.flash_decode(*args),
@@ -1382,3 +1387,96 @@ def test_pool_on_card_matches_cpu(cuda_device, codec, shards, monkeypatch):
         pk, pd = cpu.query_batch_multi(qm, mixed, k=10)
         assert ck == pk
         np.testing.assert_allclose(cd, pd, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the other LMs: the MoE layer, the SWA ring and the int8 KV cache on the
+# card against the CPU
+# ---------------------------------------------------------------------------
+def _moe_on_both(cfg, d, t, device, seed=40):
+    """A seeded MoE layer and tokens, on the CPU and on the card."""
+    from repro_torch.models import moe as tmoe
+    cpu = tmoe.MoE(d, cfg, device="cpu").requires_grad_(False)
+    cpu.reset_parameters(torch.Generator().manual_seed(seed), n_layers=4)
+    x = _t(np.random.default_rng(seed).normal(size=(t, d)).astype(
+        np.float32))
+    card = tmoe.MoE(d, cfg, device=device).requires_grad_(False)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card, x
+
+
+def _tie_gap_ok(probs, k):
+    """Tokens whose k-th and (k+1)-th router probabilities differ by more
+    than 1e-5: there the two devices must route alike."""
+    top = torch.sort(probs, dim=-1, descending=True).values
+    return (top[:, k - 1] - top[:, k]) > 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_experts,pad,top_k,d,f", [
+    (64, 0, 8, 2048, 64),           # olmoe's router, a narrow expert
+    (40, 48, 8, 1536, 32)])         # granite's, padded as at decode_32k
+def test_moe_layer_on_card_matches_cpu(cuda_device, n_experts, pad, top_k,
+                                       d, f):
+    """256 tokens: router ids and the keep mask equal the CPU's wherever
+    the k-th probability clears the next by 1e-5 (>= 99 % of tokens),
+    outputs within 1e-4 there, and two card runs equal bit for bit (no
+    float atomics in the combine)."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe as tmoe
+    cfg = MoEConfig(n_experts=n_experts, top_k=top_k, d_ff=f,
+                    pad_experts_to=pad)
+    cpu, card, x = _moe_on_both(cfg, d, 256, cuda_device)
+    xc = x.to(cuda_device)
+    probs, _, ids, _, keep = tmoe.route(cpu, cfg, x)
+    _, _, ids_c, _, keep_c = tmoe.route(card, cfg, xc)
+    ok = _tie_gap_ok(probs, top_k)
+    assert ok.float().mean() >= 0.99
+    assert torch.equal(ids_c.cpu()[ok], ids[ok])
+    assert torch.equal(keep_c.cpu().reshape(-1, top_k)[ok],
+                       keep.reshape(-1, top_k)[ok])
+    assert int(ids_c.max()) < n_experts
+    out, aux = tmoe.moe_ffn(cpu, cfg, x)
+    out_c, aux_c = tmoe.moe_ffn(card, cfg, xc)
+    again, aux_again = tmoe.moe_ffn(card, cfg, xc)
+    torch.testing.assert_close(out_c.cpu()[ok], out[ok], rtol=0, atol=1e-4)
+    torch.testing.assert_close(aux_c.cpu(), aux, rtol=0, atol=1e-5)
+    assert torch.equal(again, out_c) and torch.equal(aux_again, aux_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "olmoe-1b-7b"])
+def test_lm_decode_on_card_matches_cpu(cuda_device, arch, kv_quant):
+    """Smoke-size decode on the card (flash_decode, one launch a layer a
+    tick) against the CPU: danube's ring past its window (a 40-token
+    prompt, 8 ticks to 48) and olmoe's MoE, each with and without the
+    int8 cache. Logits within 1e-4; the int8 payload within one step of
+    the CPU's (values on a rounding edge), scales within 1e-5."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import dispatch
+    from repro_torch.models import transformer as ttf
+    cfg = dataclasses.replace(get_smoke_config(arch), kv_quant=kv_quant)
+    cpu = ttf.init_lm(cfg, seed=0, device="cpu")
+    card = ttf.LM(cfg, device=cuda_device).requires_grad_(False)
+    card.load_state_dict(cpu.state_dict())
+    toks = _t(np.random.default_rng(41).integers(
+        0, cfg.vocab, size=(2, 40)).astype(np.int32))
+    lens = _t(np.array([40, 31], np.int32))
+    lc, cc = ttf.prefill(cpu, toks, max_len=48, prompt_lens=lens)
+    lg, cg = ttf.prefill(card, toks, max_len=48, prompt_lens=lens)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+    for _ in range(8):
+        nxt = lc[:, 0].argmax(-1, keepdim=True)
+        dispatch.reset()
+        lc, cc = ttf.decode_step(cpu, nxt, cc)
+        lg, cg = ttf.decode_step(card, nxt.to(cuda_device), cg)
+        assert dispatch.get("kernel.flash_decode") == cfg.n_layers
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=1e-4)
+    assert cg.k.shape[2] == ttf.cache_len(cfg, 48)
+    if kv_quant:
+        step = (cg.k.cpu().int() - cc.k.int()).abs()
+        assert int(step.max()) <= 1
+        torch.testing.assert_close(cg.k_scale.cpu(), cc.k_scale, rtol=1e-5,
+                                   atol=0)
