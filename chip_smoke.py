@@ -6,9 +6,12 @@
 Phases (none catches an exception; any failure exits non-zero):
 
 1. Environment: the card's name and power limit, torch/CUDA versions, the
-   compute capability (must be 9.0), and the build of every hand kernel
-   from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all in
-   parallel), timed.
+   compute capability (must be 9.0), and the start of the build of every
+   hand kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
+   source, all in parallel); each kernel's first call in phase 2 waits for
+   its own compile, so phase 2's first cells run while the slower sources
+   compile, and after phase 2 every compile has finished (its seconds
+   logged).
 2. Kernels against their plain PyTorch versions at the main paths' real
    sizes — MeMemo's 1M x 384 cosine corpus (configs/mememo.py) and the
    llama3-8b decode geometry — each timed with CUDA events beside its
@@ -86,7 +89,7 @@ Phases (none catches an exception; any failure exits non-zero):
    built index's 1,024 queries; ``query_batch`` at ef 64, k 10 over
    1,024 queries must return the keys of a CPU search of the same host
    graph on >= 99 % of a 256-query sample; recall@10 against
-   ``exact_query``, and on a 20,000-row prefix the bulk and the
+   ``exact_query``, and on a 10,000-row prefix the bulk and the
    sequential builder's recall (bulk >= sequential - 0.05); (c) a
    32,768-row prefix build, timed and then traced, gives the device's
    busy and idle share of a build; (d) the durable store on (b)'s index:
@@ -153,7 +156,7 @@ Phases (none catches an exception; any failure exits non-zero):
    oracle; then 1,000 deletes leave free slots in each shard's block, so
    a shard's ``distance_topk`` runs in several passes: keys against one
    shard with the same deletes, each shard's call against its plain
-   version. (b) HNSW over 20,000 x 384 seeded rows at
+   version. (b) HNSW over 10,000 x 384 seeded rows at
    4 shards (the paper's M 5, efConstruction 20; each child built by the
    host builder): keys equal the loop oracle's (each child searched on
    its own, a host merge), ``exact_query`` equals a 1-shard index's,
@@ -168,7 +171,7 @@ Phases (none catches an exception; any failure exits non-zero):
    --index-dtype int8`` at full width: the int8 beam launches once a
    shard a search, ``flash_decode`` once a layer a decode tick, and the
    served keys equal a CPU copy of the index's.
-10. The multi-tenant ``IndexPool``. (a) 256 tenants x 1,024 seeded cosine
+10. The multi-tenant ``IndexPool``. (a) 128 tenants x 1,024 seeded cosine
    rows x D 384 in one arena of 64-row slabs, every tenant resident, fp32
    and int8, filled tenant by tenant (the fill's wall logged): for 16
    sampled tenants ``query_batch`` at B 8, k 10 returns the keys of a
@@ -223,6 +226,33 @@ Phases (none catches an exception; any failure exits non-zero):
    their gap to the fp32 cache's decode logged beside the reference's
    smoke-test bound (0.02 max|logit| + 0.01), which the reference's own
    int8 scheme leaves at this width.
+12. bf16 on the card. (a) ``flash_decode``'s bf16 instance at phase 2's
+   llama3-8b cells (B 8 at S 8,192 ragged and full, the served 4 x 256
+   cache cycled over 32 layer caches, the wide kernel at Dh 2,048) and at
+   each other LM's served cache geometry (danube G 4 Dh 120, minitron G 4
+   Dh 128, olmoe G 1 Dh 128, granite G 3 Dh 64), on bf16 tensors against
+   its plain version (2e-5), timed beside SDPA in bf16 and the bound of
+   bf16 K/V. (b) llama3-8b at full width and depth with bf16 weights
+   (``init_lm(dtype=torch.bfloat16)``) serving phase 4's ``--rag --index
+   flat --index-dtype int8`` through ``ServeEngine(dtype=torch.bfloat16)``
+   (the engine built here: ``launch.serve`` serves fp32): the keys phase
+   4 served; ``flash_decode`` on its bf16 instance once a layer a decode
+   tick and no other attention; req/s, tok/s, peak memory, a tick's wall
+   and device ms. (c) One full-width bf16 ``decode_step``, flash against
+   dense from one cache: layer 0's attention output (fp32, before its bf16
+   cast) kernel against plain within 2e-5; the two paths' logits closer
+   to each other than to (d)'s fp32 decode (a bf16 rounding of their
+   attention outputs is carried 32 layers on), their argmax by row, the
+   top-2 margins and the gaps logged. (d) The cost of bf16: the same
+   weights widened to an fp32 model, prefill and decode logits on (c)'s
+   input against the bf16 model's, logged, not asserted.
+   (e) The reference's ``decode_32k`` shape: h2o-danube-3-4b at full
+   width, depth cut to 4 layers, bf16 weights and the int8 cache: 16
+   ticks flash against dense from one int8 cache, closer to each other at
+   every tick than to the same weights widened to fp32, the dequantized
+   K/V handed to ``flash_decode`` in bf16 (its bf16 instance launched). (f)
+   olmoe-1b-7b's layer 0 MoE in bf16 on 256 tokens, card against CPU:
+   routing equal where the top-k clears a tie by 1e-5.
 
 Each phase's seconds are logged. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -295,7 +325,7 @@ BULK_INT = dict(rows=20_000, dim=64, M=8, ef_construction=40,
                 batch_size=1024)
 BULK_ROWS, BULK_QUERIES, BULK_SAMPLE = 1_000_000, 1024, 256
 PROFILE_ROWS = 32_768
-QUALITY_ROWS = 20_000
+QUALITY_ROWS = 10_000
 # embedding_bag at MIND's published table (src/repro/configs/mind.py:
 # n_items, embed_dim, seq_len) and the recsys serve shapes of
 # configs/base.py RECSYS_SHAPES (serve_p99, serve_bulk). No model path of
@@ -319,15 +349,15 @@ IVF_INSERTS, IVF_UPDATES, IVF_DELETES = 16, 8, 8
 # 5, efConstruction 20, configs/mememo.py) take well under a minute; the
 # store round trips on a prefix of the 1M int8 rows
 SHARDS, SHARD_BATCHES, SHARD_SAMPLE = 4, (8, 128), 16
-SHARD_HNSW_ROWS, SHARD_STORE_ROWS = 20_000, 100_000
+SHARD_HNSW_ROWS, SHARD_STORE_ROWS = 10_000, 100_000
 # phase 9 deletes every this many-th key of the 1M flat indexes: about
 # 250 free slots a shard, so the fan-out over-fetches in several passes
 SHARD_CHURN_EVERY = 1000
-# phase 10: the multi-tenant pool. (a) 256 tenants x 1,024 rows x D 384
+# phase 10: the multi-tenant pool. (a) 128 tenants x 1,024 rows x D 384
 # (configs/mememo.py's dim) in one arena of 64-row slabs, every tenant
 # resident, 16 of them sampled, B 8 a search and B 128 across 128
 # tenants; (b) 64 tenants x 256 rows paged through 32 resident slots
-POOL_TENANTS, POOL_ROWS, POOL_SLAB = 256, 1024, 64
+POOL_TENANTS, POOL_ROWS, POOL_SLAB = 128, 1024, 64
 POOL_SAMPLE, POOL_B, POOL_MULTI_B = 16, 8, 128
 PAGE_TENANTS, PAGE_ROWS, PAGE_RESIDENT = 64, 256, 32
 # phase 11: the other LMs of launch.serve --arch at their published
@@ -339,6 +369,9 @@ OTHER_LMS = ("h2o-danube-3-4b", "minitron-8b", "olmoe-1b-7b",
 MOE_TOKENS = 256
 RING_B, RING_PROMPT, RING_STEPS = 2, 4608, 64
 KVQ_PROMPT, KVQ_STEPS = 64, 16
+# phase 12: bf16. (e) danube's depth cut to 4 layers under kv_quant
+BF16_KVQ_LAYERS = 4
+BF16_LLAMA = "llama3-8b bf16 flat int8"
 # the kernels each served path must launch
 HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
              "kernel.flash_decode")
@@ -366,6 +399,7 @@ MAIN_PATH = {
     "distance_topk.int8": "flat int8",
     "embedding_bag.fp32": BAG_ENTRY, "embedding_bag.bf16": BAG_ENTRY,
     **{f"flash_decode.{a}": f"{a} flat int8" for a in OTHER_LMS},
+    "flash_decode.bf16": BF16_LLAMA,
 }
 HOP_COUNTER = "kernel.gather_distance.hop"
 # record -> the counter its launches are read from (default kernel.<name>)
@@ -374,7 +408,8 @@ COUNTER_OF = {**{f"greedy_descent.{c}": f"hnsw.descent_launches.{c}"
               **{f"gather_distance.{c}": f"{HOP_COUNTER}.{c}"
                  for c in ("fp32", "bf16", "int8")},
               **{f"flash_decode.{a}": "kernel.flash_decode"
-                 for a in OTHER_LMS}}
+                 for a in OTHER_LMS},
+              "flash_decode.bf16": "kernel.flash_decode.bf16"}
 # the descent is an entry point of gather_distance.cu
 SOURCE_OF = {"greedy_descent": "gather_distance"}
 REPLACES = {
@@ -473,14 +508,27 @@ def phase_environment(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
-    t0 = time.perf_counter()
-    took = build.build()
-    log(f"kernel build: {time.perf_counter() - t0:.2f}s wall, per source "
-        + json.dumps({k: round(v, 2) for k, v in took.items()}))
-    for name in ("gather_distance", "beam_search", "embedding_bag"):
+    build.start()
+    log(f"kernel build: one nvcc a source started for {sorted(build.SOURCES)}"
+        "; each kernel's first call waits for its own")
+    return smi
+
+
+def build_report() -> dict:
+    """Wait for every kernel's compile still running (all must have
+    built) -> seconds from the start of the build to each source's wait,
+    logged with the registers and spills of the kernels ``nvcc -Xptxas
+    -v`` reported."""
+    from repro_torch.kernels import build
+
+    build.build()
+    took = {k: round(v, 2) for k, v in build.TOOK.items()}
+    log("kernel build, seconds to each source's wait " + json.dumps(took))
+    for name in ("gather_distance", "beam_search", "embedding_bag",
+                 "flash_decode"):
         for line in ptxas_report(name):
             log(f"{name} ptxas {line}")
-    return smi
+    return took
 
 
 def encode_rows(torch, x, codec: str, integer: bool = False):
@@ -996,11 +1044,12 @@ def phase_kernels(torch) -> dict:
 
 
 def flash_bound(cur_len: list[int], b: int, h: int, kvh: int,
-                dh: int) -> tuple[float, str]:
-    """Live K and V rows, q and the output once each, cur_len; 4 H Dh
-    flops a live position at the fp32 rate."""
+                dh: int, elem: int = 4) -> tuple[float, str]:
+    """Live K and V rows and q of ``elem`` bytes an element, the fp32
+    output once each, cur_len; 4 H Dh flops a live position at the fp32
+    rate (the CUDA cores; 2-byte elements are widened)."""
     live = sum(cur_len)
-    return bound(live * kvh * dh * 4 * 2 + b * h * dh * 8 + b * 4,
+    return bound(live * kvh * dh * elem * 2 + b * h * dh * (elem + 4) + b * 4,
                  4.0 * live * h * dh)
 
 
@@ -1011,66 +1060,77 @@ def check_flash_decode(torch, dev, gen) -> dict:
     at its own depth) with one cache per layer, the timed calls cycling
     through the 32 as a decode tick does (one layer's cache fits L2,
     the tick's do not); and the wide-head kernel at the same head counts,
-    B 8, S 1,024, Dh 2,048. Each cell: the kernel against its plain version
-    (2e-5), CUDA-event times of the kernel, the plain version and SDPA,
-    the bound, and a profiler split holding one launch a call and no
-    other kernel. The record is the ragged cell's, with every cell
-    beside it."""
+    B 8, S 1,024, Dh 2,048 (``flash_cell``, fp32). The record is the
+    ragged cell's, with every cell beside it."""
+    cells = {name: flash_cell(torch, name, b, s, lens, layers, DEC_H,
+                              DEC_KVH, dh, gen, torch.float32)
+             for name, (b, s, lens, layers, dh) in FLASH_CELLS.items()}
+    return dict(cells["ragged"], cells=cells)
+
+
+def flash_cell(torch, name: str, b: int, s: int, lens: list[int],
+               layers: int, h: int, kvh: int, dh: int, gen,
+               dtype) -> dict:
+    """One ``flash_decode`` cell on q/K/V of ``dtype`` (fp32 or bf16):
+    ``layers`` caches cycled, the kernel against its plain version on
+    every one (2e-5), CUDA-event ms of the kernel, the plain version and
+    SDPA at ``dtype``, the bound of the cache's bytes, a profiler split
+    holding one launch a call and no other kernel, and the device ms
+    queued behind a spin kernel."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
-    cells = {}
-    for name, (b, s, lens, layers, dh) in FLASH_CELLS.items():
-        cur = torch.tensor(lens, dtype=torch.int32, device=dev)
-        qd = torch.randn(b, DEC_H, dh, device=dev, generator=gen)
-        kv = [(torch.randn(b, s, DEC_KVH, dh, device=dev, generator=gen),
-               torch.randn(b, s, DEC_KVH, dh, device=dev, generator=gen))
-              for _ in range(layers)]
-        mask = (torch.arange(s, device=dev)[None, :]
-                < cur[:, None])[:, None, None, :]          # [B,1,1,S]
-        err = lib_err = 0.0
-        for kd, vd in kv:
-            got = ops.flash_decode(qd, kd, vd, cur)
-            want = ref.flash_decode_ref(qd, kd, vd, cur)
-            lib = F.scaled_dot_product_attention(
+    dev = torch.device("cuda")
+    codec = ops.FLASH_CODEC_OF[dtype]
+    cur = torch.tensor(lens, dtype=torch.int32, device=dev)
+    qd = torch.randn(b, h, dh, device=dev, generator=gen).to(dtype)
+    kv = [(torch.randn(b, s, kvh, dh, device=dev, generator=gen).to(dtype),
+           torch.randn(b, s, kvh, dh, device=dev, generator=gen).to(dtype))
+          for _ in range(layers)]
+    mask = (torch.arange(s, device=dev)[None, :]
+            < cur[:, None])[:, None, None, :]                # [B,1,1,S]
+    err = lib_err = 0.0
+    for kd, vd in kv:
+        got = ops.flash_decode(qd, kd, vd, cur)
+        want = ref.flash_decode_ref(qd, kd, vd, cur)
+        lib = F.scaled_dot_product_attention(
+            qd[:, :, None, :], kd.transpose(1, 2), vd.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0]
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        err = max(err, (got - want).abs().max().item())
+        lib_err = max(lib_err, (lib.float() - want).abs().max().item())
+    assert err <= 2e-5, f"flash_decode {codec} {name}: max abs err {err}"
+    turn = itertools.count()
+
+    def cycled(fn):
+        def run():
+            kd, vd = kv[next(turn) % layers]
+            return fn(kd, vd)
+        return run
+
+    kernel = cycled(lambda kd, vd: ops.flash_decode(qd, kd, vd, cur))
+    split = device_split(torch, kernel, "flash_decode", reps=max(8, layers))
+    assert split["kernel_launches_traced"] <= 1 and \
+        split["other_device_ms"] == 0, f"flash_decode {codec} {name}: {split}"
+    b_ms, b_by = flash_bound(lens, b, h, kvh, dh, elem=qd.element_size())
+    rec = dict(
+        max_abs_err=err, ms=time_ms(torch, kernel, max(50, layers)),
+        queued_ms=queued_ms(torch, kernel, max(50, layers)),
+        plain_ms=time_ms(torch, cycled(
+            lambda kd, vd: ref.flash_decode_ref(qd, kd, vd, cur)), 20),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, cycled(
+            lambda kd, vd: F.scaled_dot_product_attention(
                 qd[:, :, None, :], kd.transpose(1, 2), vd.transpose(1, 2),
-                attn_mask=mask, enable_gqa=True)[:, :, 0]
-            torch.cuda.synchronize()
-            err = max(err, (got - want).abs().max().item())
-            lib_err = max(lib_err, (lib - want).abs().max().item())
-        assert err <= 2e-5, f"flash_decode {name}: max abs err {err}"
-        turn = itertools.count()
-
-        def cycled(fn):
-            def run():
-                kd, vd = kv[next(turn) % layers]
-                return fn(kd, vd)
-            return run
-
-        kernel = cycled(lambda kd, vd: ops.flash_decode(qd, kd, vd, cur))
-        split = device_split(torch, kernel, "flash_decode",
-                             reps=max(8, layers))
-        assert split["kernel_launches_traced"] <= 1 and \
-            split["other_device_ms"] == 0, f"flash_decode {name}: {split}"
-        b_ms, b_by = flash_bound(lens, b, DEC_H, DEC_KVH, dh)
-        cells[name] = dict(
-            max_abs_err=err,
-            ms=time_ms(torch, kernel, max(50, layers)),
-            plain_ms=time_ms(torch, cycled(
-                lambda kd, vd: ref.flash_decode_ref(qd, kd, vd, cur)), 20),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(torch, cycled(
-                lambda kd, vd: F.scaled_dot_product_attention(
-                    qd[:, :, None, :], kd.transpose(1, 2),
-                    vd.transpose(1, 2), attn_mask=mask, enable_gqa=True)),
-                50),
-            library_max_abs_err=lib_err, **split,
-            shapes=f"B {b}, H {DEC_H}, KVH {DEC_KVH}, Dh {dh}, S {s} "
-                   f"f32, cur_len {lens}, {layers} cache(s) cycled")
-        log(f"flash_decode {name} " + json.dumps(cells[name]))
-        del kv, qd
-        torch.cuda.empty_cache()
-    return dict(cells["ragged"], cells=cells)
+                attn_mask=mask, enable_gqa=True)), 50),
+        library_max_abs_err=lib_err, **split,
+        shapes=f"B {b}, H {h}, KVH {kvh}, G {h // kvh}, Dh {dh}, S {s} "
+               f"{codec}, cur_len {lens}, {layers} cache(s) cycled")
+    log(f"flash_decode {codec} {name} " + json.dumps(rec))
+    del kv, qd
+    torch.cuda.empty_cache()
+    return rec
 
 
 def check_embedding_bag(torch, dev, gen) -> dict:
@@ -3049,7 +3109,7 @@ def phase_sharded(torch) -> dict:
     shards share cuda:0 (``REPRO_TORCH_SHARD_DEVICES``), so their launches
     run one after another; with two or more cards the 1M cells run again
     with one shard a card. (a) flat and IVF int8 over ``build_1m``'s rows
-    at 4 shards against 1 shard; (b) HNSW over 20,000 x 384 rows at 4
+    at 4 shards against 1 shard; (b) HNSW over 10,000 x 384 rows at 4
     shards against the loop oracle; (c) int8 flat stores written at 4
     shards restored at 1 and back; (d) the served path ``--rag --shards 4
     --index hnsw --index-dtype int8``, its keys against a CPU copy."""
@@ -3783,6 +3843,285 @@ def phase_other_lms(torch, flat_keys) -> dict:
         out[arch] = rec
     return out
 
+# ---------------------------------------------------------------------------
+# phase 12: bf16 weights, activations and cache
+# ---------------------------------------------------------------------------
+def flash_bf16_cells(torch) -> dict:
+    """(a) phase 2's llama3-8b cells, then each other LM's served cache."""
+    from repro_torch.configs import get_config
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cells = {name: flash_cell(torch, name, b, s, lens, layers, DEC_H,
+                              DEC_KVH, dh, gen, bf)
+             for name, (b, s, lens, layers, dh) in FLASH_CELLS.items()}
+    _, s, lens, _, _ = FLASH_CELLS["served"]
+    for arch in OTHER_LMS:
+        cfg = get_config(arch).model
+        cells[arch] = flash_cell(torch, arch, len(lens), s, lens,
+                                 cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.dh, gen, bf)
+    return cells
+
+
+def served_bf16(torch, cfg, model, flat_keys) -> tuple:
+    """(b) phase 4's served path with ``model`` (bf16 weights) behind
+    ``ServeEngine(dtype=torch.bfloat16)``: the flat int8 index over the
+    same corpus, 8 requests, 16 new tokens, 4 slots, the counters zeroed
+    before the index is filled and read after the last request. Returns
+    (args, record)."""
+    from repro_torch.core import dispatch
+    from repro_torch.data.corpus import BUILTIN_CORPUS
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.rag import RAGPipeline
+
+    args = serve.parse_args(
+        ["--rag", "--index", "flat", "--index-dtype", "int8", "--requests",
+         "8", "--max-new", "16", "--slots", "4", "--max-len", "256",
+         "--seed", "0", "--device", "cuda"])
+    corpus = list(BUILTIN_CORPUS) + synthetic_corpus(SYNTHETIC_DOCS,
+                                                     args.seed)
+    t0 = time.perf_counter()
+    dispatch.reset()
+    rag = RAGPipeline(index_kind="flat", index_dtype="int8",
+                      retrieval_batch=args.retrieval_batch,
+                      retrieval_cache=args.retrieval_cache, device="cuda")
+    rag.add_documents(corpus)
+    eng = ServeEngine(model, cfg, pipeline=rag, slots=args.slots,
+                      max_len=args.max_len, dtype=torch.bfloat16,
+                      seed=args.seed, device="cuda")
+    queries = [serve.QUERIES[i % len(serve.QUERIES)]
+               for i in range(args.requests)]
+    reqs, dt = serve._serve_closed_loop(eng, queries, [None] * len(queries),
+                                        k=3, max_new=args.max_new)
+    torch.cuda.synchronize()
+    counts = dispatch.snapshot()
+    es, rs = eng.stats.as_dict(), rag.retriever.stats.as_dict()
+    assert all(r.done and len(r.out_tokens) == args.max_new for r in reqs)
+    assert eng.cache.k.dtype == torch.bfloat16
+    got = [[d.key for d in r.docs] for r in reqs]
+    assert got == flat_keys, f"bf16 served keys {got} != phase 4's"
+    ticks = es["decode_ticks"]
+    assert counts["kernel.flash_decode.bf16"] == cfg.n_layers * ticks \
+        == counts["kernel.flash_decode"], counts
+    assert counts.get("kernel.distance_topk.int8", 0) == rs["searches"] > 0
+    rec = dict(requests=len(reqs), tokens=eng.tokens_out, seconds=dt,
+               req_per_s=len(reqs) / dt, tok_per_s=eng.tokens_out / dt,
+               setup_and_serve_s=time.perf_counter() - t0,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               engine=es, retrieval=rs, counters=counts, keys=got)
+    return args, rec
+
+
+def bf16_decode_cell(torch, model, cfg, args) -> tuple[dict, dict]:
+    """(c) and (d) on one input: a prefill of slots x (max_len - 1) tokens
+    to live lengths 2-256, then one full-width ``decode_step``. (c) bf16,
+    flash against dense from one cache: layer 0's attention output (fp32,
+    before its bf16 cast) kernel against plain within 2e-5. (d) the same
+    weights widened to an fp32 model (loaded from the bf16 state), its own
+    fp32 prefill and decode: the bf16 model's prefill and decode logits
+    against it, logged. The two bf16 paths must be closer to each other
+    than bf16 is to fp32: a bf16 rounding of their attention outputs
+    (fp32 sums in another order) is carried 32 layers on, so their argmax
+    may part where the top-2 margin is small; rows, margins and gaps are
+    logged."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import rms_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    toks = torch.randint(0, cfg.vocab, (args.slots, args.max_len - 1),
+                         device="cuda", generator=gen)
+    lens = torch.tensor([1 + (args.max_len - 2) * i // (args.slots - 1)
+                         for i in range(args.slots)], dtype=torch.int32,
+                        device="cuda")
+    pre16, cache = tf.prefill(model, toks, max_len=args.max_len,
+                              prompt_lens=lens)
+    assert cache.k.dtype == torch.bfloat16
+    nxt = toks[torch.arange(args.slots, device="cuda"), lens.long() - 1]
+    # layer 0 as decode_step runs it: the new token's q and K/V row
+    x = tf._embed(model, nxt[:, None], torch.bfloat16)
+    h = rms_norm(x, model.layers[0].attn_norm, cfg.norm_eps)
+    q, k_new, v_new = tf._qkv(model.layers[0], cfg, h, lens[:, None])
+    k0, v0 = cache.k[0].clone(), cache.v[0].clone()
+    b_idx = torch.arange(args.slots, device="cuda")
+    k0[b_idx, lens.long()] = k_new[:, 0]
+    v0[b_idx, lens.long()] = v_new[:, 0]
+    q0 = q[:, 0].contiguous()
+    a_kernel = ops.flash_decode(q0, k0, v0, lens + 1)
+    a_plain = ref.flash_decode_ref(q0, k0, v0, lens + 1)
+    torch.cuda.synchronize()
+    layer0_err = (a_kernel - a_plain).abs().max().item()
+    assert layer0_err <= 2e-5, f"bf16 layer 0 attention: {layer0_err}"
+    logits = {}
+    for impl in ("flash", "dense"):
+        c = tf.KVCache(cache.k.clone(), cache.v.clone(), cache.cur_len.clone())
+        logits[impl], _ = tf.decode_step(model, nxt[:, None], c,
+                                         attn_impl=impl)
+        logits[impl] = logits[impl][:, 0]
+    del cache
+    wide = tf.LM(cfg, device="meta").to_empty(device="cuda")
+    wide.load_state_dict(model.state_dict())
+    wide.requires_grad_(False)
+    pre32, c32 = tf.prefill(wide, toks, max_len=args.max_len,
+                            prompt_lens=lens)
+    l32, _ = tf.decode_step(wide, nxt[:, None], c32)
+    del wide, c32
+    lf, ld, l32 = logits["flash"], logits["dense"], l32[:, 0]
+    assert lf.dtype == torch.float32 and lf.shape == (args.slots, cfg.vocab)
+    assert bool(torch.isfinite(lf).all())
+
+    def gap(a, b):
+        return (a - b).abs().max().item()
+
+    top2 = torch.topk(ld, 2, dim=-1).values
+    paths, to_fp32 = gap(lf, ld), min(gap(lf, l32), gap(ld, l32))
+    assert paths < to_fp32, (paths, to_fp32)
+    dec = dict(layer0_attention_kernel_vs_plain_max_abs_err=layer0_err,
+               logits_flash_vs_dense_max_abs_diff=paths,
+               flash_vs_fp32=gap(lf, l32), dense_vs_fp32=gap(ld, l32),
+               max_abs_logit=ld.abs().max().item(),
+               argmax_equal_rows=(lf.argmax(-1) == ld.argmax(-1)).tolist(),
+               top2_margin=(top2[:, 0] - top2[:, 1]).tolist(),
+               live=(lens + 1).tolist())
+    cost = dict(prefill_max_abs_diff=gap(pre16, pre32),
+                prefill_mean_abs_diff=(pre16 - pre32).abs().mean().item(),
+                decode_max_abs_diff=gap(lf, l32),
+                max_abs_logit_fp32=max(pre32.abs().max().item(),
+                                       l32.abs().max().item()),
+                prefill_argmax_agree=(pre16.argmax(-1) == pre32.argmax(-1)
+                                      ).float().mean().item(),
+                decode_argmax_agree=(lf.argmax(-1) == l32.argmax(-1)
+                                     ).float().mean().item(),
+                tokens=f"{args.slots} x {args.max_len - 1}, live "
+                       f"{(lens + 1).tolist()}")
+    return dec, cost
+
+
+def bf16_kv_quant_cell(torch) -> dict:
+    """(e) the reference's ``decode_32k`` shape: h2o-danube-3-4b at full
+    width, depth cut to 4 layers, bf16 weights and the int8 cache: 16
+    teacher-forced ticks, flash against dense from the same int8 cache,
+    the dequantized K/V handed to ``flash_decode`` in bf16 (its bf16
+    instance, once a layer a tick). At each tick the two paths' logits
+    must be closer to each other than to the same weights widened to fp32
+    (their own int8 cache): at bf16 a rounding of the attention output
+    moves the logits by bf16's noise, not phase 11's 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b").model,
+                              n_layers=BF16_KVQ_LAYERS, kv_quant=True)
+    model = tf.init_lm(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    wide = tf.LM(cfg, device="meta").to_empty(device="cuda")
+    wide.load_state_dict(model.state_dict())
+    wide.requires_grad_(False)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    total = KVQ_PROMPT + KVQ_STEPS
+    toks = torch.randint(0, cfg.vocab, (2, total), device="cuda",
+                         generator=gen)
+    _, cq = tf.prefill(model, toks[:, :KVQ_PROMPT], max_len=total)
+    _, c32 = tf.prefill(wide, toks[:, :KVQ_PROMPT], max_len=total)
+    assert cq.k.dtype == torch.int8
+    paths, to_fp32 = [], []
+    for t in range(KVQ_PROMPT, total):
+        tok = toks[:, t:t + 1]
+        cd = tf.KVCache(cq.k.clone(), cq.v.clone(), cq.cur_len.clone(),
+                        cq.k_scale.clone(), cq.v_scale.clone())
+        dispatch.reset()
+        lq, cq = tf.decode_step(model, tok, cq)
+        assert dispatch.get("kernel.flash_decode.bf16") == cfg.n_layers \
+            == dispatch.get("kernel.flash_decode")
+        ld, _ = tf.decode_step(model, tok, cd, attn_impl="dense")
+        l32, c32 = tf.decode_step(wide, tok, c32)
+        assert bool(torch.isfinite(lq).all())
+        paths.append((lq - ld).abs().max().item())
+        to_fp32.append((lq - l32).abs().max().item())
+        assert paths[-1] < to_fp32[-1], (t, paths[-1], to_fp32[-1])
+    del model, wide
+    return dict(layers=cfg.n_layers, reduced="depth 24 -> 4 layers",
+                prompt=KVQ_PROMPT, ticks=KVQ_STEPS,
+                flash_vs_dense_max_abs_diff=max(paths),
+                flash_vs_dense_by_tick=paths,
+                bf16_vs_fp32_by_tick=to_fp32,
+                flash_instance="bf16 (dequantized K/V)")
+
+
+def bf16_moe_cell(torch) -> dict:
+    """(f) olmoe-1b-7b's layer 0 MoE (its published widths) with bf16
+    weights on 256 bf16 tokens, card against CPU with the same weights:
+    router ids and the keep mask equal wherever the k-th probability
+    clears the (k+1)-th by 1e-5 (>= 99 % of tokens); the bf16 outputs'
+    gap logged."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as tmoe
+
+    cfg = get_config("olmoe-1b-7b").model
+    mc, k = cfg.moe, cfg.moe.top_k
+    card = tmoe.MoE(cfg.d_model, mc, device="cuda", dtype=torch.bfloat16)
+    card.reset_parameters(torch.Generator(device="cuda").manual_seed(16),
+                          cfg.n_layers)
+    card.requires_grad_(False)
+    cpu = copy.deepcopy(card).cpu()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn(MOE_TOKENS, cfg.d_model, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    xc = x.cpu()
+    probs, _, ids, _, keep = tmoe.route(cpu, mc, xc)
+    _, _, ids_d, _, keep_d = tmoe.route(card, mc, x)
+    top = torch.sort(probs, dim=-1, descending=True).values
+    ok = (top[:, k - 1] - top[:, k]) > 1e-5
+    share = ok.float().mean().item()
+    assert share >= 0.99, f"bf16 MoE: {share:.4f} of tokens clear ties"
+    assert torch.equal(ids_d.cpu()[ok], ids[ok])
+    assert torch.equal(keep_d.cpu().reshape(-1, k)[ok],
+                       keep.reshape(-1, k)[ok])
+    out, _ = tmoe.moe_ffn(cpu, mc, xc)
+    out_d, _ = tmoe.moe_ffn(card, mc, x)
+    assert out_d.dtype == torch.bfloat16
+    gap = (out_d.float().cpu()[ok] - out.float()[ok]).abs().max().item()
+    return dict(tokens=MOE_TOKENS, clear_of_ties=share, ids_equal=True,
+                keep_equal=True, out_max_abs_diff=gap,
+                max_abs_out=out.float().abs().max().item(),
+                ms=time_ms(torch, lambda: tmoe.moe_ffn(card, mc, x), 5))
+
+
+def phase_bf16(torch, flat_keys) -> dict:
+    """bf16 on the card: (a) the kernel's cells, (b)-(d) llama3-8b with
+    bf16 weights, (e) danube's int8 cache at bf16, (f) olmoe's MoE."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+
+    out = {"cells": flash_bf16_cells(torch)}
+    cfg = get_config("llama3-8b").model
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tf.init_lm(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"llama3-8b bf16 weights: {cfg.n_layers} layers, "
+        f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f}"
+        f" GB, built in {time.perf_counter() - t0:.1f}s")
+    args, out["served"] = served_bf16(torch, cfg, model, flat_keys)
+    out["served"]["profile"] = profile_decode(torch, model, cfg, args)
+    log("serve llama3-8b bf16 " + json.dumps(out["served"]))
+    out["decode_step"], out["cost_vs_fp32"] = bf16_decode_cell(
+        torch, model, cfg, args)
+    log("bf16 decode_step flash vs dense " + json.dumps(out["decode_step"]))
+    log("bf16 vs fp32 logits " + json.dumps(out["cost_vs_fp32"]))
+    del model
+    release(torch)
+    out["kv_quant"] = bf16_kv_quant_cell(torch)
+    log("danube bf16 kv_quant " + json.dumps(out["kv_quant"]))
+    release(torch)
+    out["moe"] = bf16_moe_cell(torch)
+    log("olmoe bf16 MoE layer card vs CPU " + json.dumps(out["moe"]))
+    # the record of the served bf16 path: the served cache's cell, every
+    # other cell beside it
+    out["flash"] = dict(out["cells"]["served"], cells=out["cells"])
+    return out
+
 
 def release(torch) -> float:
     """Drop what the last phase left on the card -> GB still allocated."""
@@ -3881,6 +4220,7 @@ def main() -> int:
 
     smi = phase("1 environment", phase_environment, torch)
     kern = phase("2 kernels", phase_kernels, torch)
+    build_s = build_report()
     bag_counts = phase("2 embedding_bag entry", bag_entry_run, torch)
     serve_out = phase("3 serve hnsw", phase_serve, torch)
     flat_out = phase("4 serve flat", phase_serve_flat, torch,
@@ -3895,6 +4235,9 @@ def main() -> int:
     pool_out = phase("10 tenancy", phase_tenancy, torch)
     other = phase("11 other LMs", phase_other_lms, torch,
                   flat_out["keys"]["int8 served"])
+    bf16 = phase("12 bf16", phase_bf16, torch,
+                 flat_out["keys"]["int8 served"])
+    kern["flash_decode.bf16"] = bf16["flash"]
     for arch, rec in other.items():
         kern[f"flash_decode.{arch}"] = rec["flash_served"]
     for c in ("fp32", "int8"):
@@ -3945,6 +4288,7 @@ def main() -> int:
              **{f"{a} flat int8": other[a]["counters"] for a in OTHER_LMS},
              "h2o-danube-3-4b kv_quant flat int8":
                  other["h2o-danube-3-4b"]["kv_quant_served"]["counters"],
+             BF16_LLAMA: bf16["served"]["counters"],
              BAG_ENTRY: bag_counts}
     for counts in paths.values():
         for c in CODECS:
@@ -3963,7 +4307,8 @@ def main() -> int:
                      "launches_by_path": {
                          p: c.get(counter, 0) for p, c in paths.items()},
                      **rec})
-    log("phase seconds " + json.dumps(seconds))
+    log("phase seconds " + json.dumps(seconds) + ", kernel build "
+        + json.dumps(build_s))
     log(f"total {time.perf_counter() - t0:.1f}s on {smi}")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

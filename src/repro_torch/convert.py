@@ -25,13 +25,20 @@ _DENSE_FFN = ("w1", "w3", "w2")
 _MOE = ("router", "we1", "we2", "we3")
 
 
-def lm_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+def lm_params_from_jax(params: dict, dtype=None) -> dict[str, torch.Tensor]:
     """Nested dict of numpy arrays in the reference's ``init_lm`` layout
-    -> ``LM.state_dict()``-shaped dict of CPU tensors. Linear weights are
-    transposed; an MoE layer's router and expert weights keep the
-    reference's layout (``layers.<i>.moe.<name>``)."""
+    (fp32, fp16 or bf16, the latter as ``ml_dtypes.bfloat16`` arrays) ->
+    ``LM.state_dict()``-shaped dict of CPU tensors of the same dtype, bit
+    for bit, or cast to ``dtype``. Linear weights are transposed; an MoE
+    layer's router and expert weights keep the reference's layout
+    (``layers.<i>.moe.<name>``)."""
     def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a))
+        a = np.ascontiguousarray(a)
+        if a.dtype.name == "bfloat16":       # numpy has no bf16: its bits
+            w = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            w = torch.from_numpy(a)
+        return w if dtype is None else w.to(dtype)
 
     layers = params["layers"]
     moe = "router" in layers

@@ -1,15 +1,19 @@
 """Build the hand kernels from ``kernels/csrc`` at first use.
 
 Each CUDA source compiles with ``nvcc`` into its own shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds), which
-``kernels.ops`` loads with ``ctypes``. All sources that are not built yet
-compile in parallel — one ``nvcc`` per source, all started together — into
-``build/torch_kernels/`` at the root of the checkout. A library's file name
-carries a hash of its source and flags, so an edited source never loads a
-stale build. A failed build raises with the compiler's output.
+plain C interface (no PyTorch headers), which ``kernels.ops`` loads with
+``ctypes``. All sources that are not built yet compile in parallel — one
+``nvcc`` per source, all started together at the first use of any — into
+``build/torch_kernels/`` at the root of the checkout; a library waits only
+for its own compile, so a caller can run one kernel while the others still
+compile, and the process waits for any compile still running before it
+exits. A library's file name carries a hash of its source and flags, so an
+edited source never loads a stale build. A failed build raises with the
+compiler's output.
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
@@ -36,6 +40,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+# kernel name -> (nvcc process, temporary output, library path, log file,
+# start time) of each compile still running
+_PENDING: dict[str, tuple] = {}
+TOOK: dict[str, float] = {}        # kernel name -> seconds its compile took
 
 
 def nvcc_path() -> str:
@@ -66,31 +74,39 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h}.so"
 
 
-def build() -> dict[str, float]:
-    """Compile every kernel whose library is not built yet, all in
-    parallel. Returns {name: seconds} for the ones
-    it compiled; the compiler's report (``-Xptxas -v``: registers, shared
-    memory, spills) lands in ``build/torch_kernels/<name>.log``."""
-    todo = [n for n in SOURCES if not _lib_path(n).is_file()]
+def start() -> None:
+    """Start one ``nvcc`` for every kernel whose library is neither built
+    nor being built, all at once, and return without waiting. The
+    compiler's report (``-Xptxas -v``: registers, shared memory, spills)
+    goes to ``build/torch_kernels/<name>.log``."""
+    todo = [n for n in SOURCES
+            if n not in _PENDING and not _lib_path(n).is_file()]
     if not todo:
-        return {}
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
-    procs = {}
-    t0 = time.perf_counter()
     for n in todo:
         out = _lib_path(n)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(BUILD_DIR / f"{n}.log", "w")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
-        procs[n] = (subprocess.Popen(cmd, stdout=log,
-                                     stderr=subprocess.STDOUT),
-                    tmp, out, log)
+        _PENDING[n] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT),
+                       tmp, out, log, time.perf_counter())
+
+
+def wait(names) -> dict[str, float]:
+    """Wait for the running compiles of ``names`` -> {name: seconds from
+    its start} (also kept in ``TOOK``); raises with the compiler's output
+    if any failed."""
     took, failed = {}, []
-    for n, (p, tmp, out, log) in procs.items():
+    for n in names:
+        if n not in _PENDING:
+            continue
+        p, tmp, out, log, t0 = _PENDING.pop(n)
         rc = p.wait()
         log.close()
-        took[n] = time.perf_counter() - t0
+        took[n] = TOOK[n] = time.perf_counter() - t0
         if rc != 0:
             failed.append(n)
             continue
@@ -103,13 +119,26 @@ def build() -> dict[str, float]:
     return took
 
 
+def build() -> dict[str, float]:
+    """Compile every kernel whose library is not built yet, all in
+    parallel, and wait for every compile still running. Returns {name:
+    seconds} for the ones it waited for."""
+    start()
+    return wait(list(_PENDING))
+
+
+atexit.register(lambda: wait(list(_PENDING)))
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, building it (and every
-    other kernel not built yet, in parallel) at first use."""
+    """The loaded library of kernel ``name``, building it at first use
+    (and starting every other kernel's build beside it, without waiting
+    for them)."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build()
+            start()
+            wait([name])
             lib = ctypes.CDLL(str(_lib_path(name)))
             _LIBS[name] = lib
         return lib

@@ -1,6 +1,7 @@
-// One-token GQA decode attention with an online softmax, fp32, for NVIDIA
-// Hopper (sm_90a), in one launch: the split over the cache and the merge
-// of its partials.
+// One-token GQA decode attention with an online softmax, for NVIDIA Hopper
+// (sm_90a), in one launch: the split over the cache and the merge of its
+// partials. q, K and V are fp32, bf16 or fp16 (one type a launch, an
+// instance each); every score, exponent, partial and the output are fp32.
 //
 // Replaces the TPU kernel repro/kernels/flash_decode.py
 // (flash_decode_pallas / _kernel): out[b, h] = softmax(q[b, h] . K[b]^T
@@ -12,9 +13,17 @@
 // version averages V there; the decode path never passes 0).
 //
 // What bounds it on this card: bytes. Every live cache position is read
-// once (a K and a V row of Dh floats per KV head) for 4 G Dh flops, about
-// one flop per byte at G 4: the tensor cores would add nothing, so the
-// products run on the CUDA cores and the design keeps bytes in flight.
+// once (a K and a V row of Dh elements per KV head) for 4 G Dh flops, about
+// one flop per byte at G 4 in fp32 (two in bf16): the tensor cores would
+// add nothing, so the products run on the CUDA cores and the design keeps
+// bytes in flight.
+//
+// Element types. The ring holds the cache's own type V, so a 2-byte row is
+// half the bytes of an fp32 one and the tile and stage count grow to fill
+// the same ring. A lane reads four elements at once (a float4, or 8 bytes
+// of bf16 / fp16) and widens them to fp32 exactly, as the plain version's
+// .float() does; q is widened on load. Everything after the load is the
+// fp32 arithmetic of the fp32 instance.
 //
 // Streams and units. A stream is one (KV head, head group of gb query
 // heads) of a row; a unit is a tile of T live positions of one row for
@@ -37,22 +46,24 @@
 // a ring stage, completion counted by the stage's "full" mbarrier
 // (expect_tx). T is the largest power of two <= 16 for which three
 // stages fit in 200 KB, and the ring takes as many stages as fit there,
-// up to 16: at llama3-8b's 4 KB runs, T 8 and three 64 KB stages, 192 KB.
+// up to 16: at llama3-8b's 4 KB fp32 runs, T 8 and three 64 KB stages,
+// 192 KB; its 2 KB bf16 runs, T 16 and three 64 KB stages.
 // By Little's law the card needs ~25 KB in flight per SM to sustain 3.35
 // TB/s at ~1 us of latency; the consumers use a stage in a small part of
 // its arrival time, so two stages or more stay in flight. A cache whose
-// rows are not a whole number of 16 bytes (Dh % 4 != 0) or that is
-// misaligned takes the generic instance: the producer copies element by
-// element and its 32 lanes arrive on the barrier.
+// rows are not a whole number of 16 bytes (Dh % 4 != 0 in fp32, Dh % 8 !=
+// 0 in bf16 / fp16) or that is misaligned takes the generic instance: the
+// producer copies element by element and its 32 lanes arrive on the
+// barrier.
 //
 // State in registers. Each consumer warp owns one stream of the unit
 // (SB of them) and a share of its positions (WP = 8 / SB warps a
 // stream, chunks taken round robin); every consumer warp waits on every
 // stage's full barrier and arrives on its "empty" barrier: no block-wide
 // barrier in the position loop. A lane holds q (pre-scaled) and the
-// running sum acc of the stream's heads for its dims (float4 columns
-// lane, lane + 32, ...), so a K or V row is one coalesced float4 read
-// from shared memory. Per chunk of 32 / gb positions the gb x positions
+// running sum acc of the stream's heads for its dims (4-element columns
+// lane, lane + 32, ...), so a K or V row is one coalesced read of 16 (or
+// 8) bytes a lane from shared memory. Per chunk of 32 / gb positions the gb x positions
 // partial dot products are reduced by a butterfly reduce-scatter (31
 // shuffles for 32 sums), the lane holding (position, head) applies the
 // mask and the online softmax (running max m, its share of the sum l),
@@ -71,6 +82,7 @@
 // stream's partials from cur_len alone, so no block waits for another.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes.
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -85,10 +97,57 @@ constexpr int kMaxGB = 8;            // heads of a stream (m[8], l[8])
 constexpr float kNeg = -1e30f;       // the plain version's mask value
 constexpr unsigned kFull = 0xffffffffu;
 
+// bf16 and fp16 elements, held as their 16 bits
+struct bf16_t { uint16_t bits; };
+struct f16_t { uint16_t bits; };
+
+// an element widened to fp32 (exact for all three types)
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16_t x) {
+  return __uint_as_float(static_cast<uint32_t>(x.bits) << 16);
+}
+__device__ __forceinline__ float widen(f16_t x) {
+  return __half2float(__ushort_as_half(x.bits));
+}
+// an element read through the read-only cache
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ bf16_t ldg(const bf16_t* p) {
+  return bf16_t{__ldg(&p->bits)};
+}
+__device__ __forceinline__ f16_t ldg(const f16_t* p) {
+  return f16_t{__ldg(&p->bits)};
+}
+// four consecutive elements (16 bytes of fp32, or 8 of a 2-byte type, so
+// aligned), widened
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16_t* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 load4(const f16_t* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// bytes of a ring of `elems` elements of V, rounded up to 16 (the
+// barriers follow it)
+template <typename V>
+__host__ __device__ inline size_t ring_bytes(size_t elems) {
+  return (elems * sizeof(V) + 15) / 16 * 16;
+}
+
+template <typename V>
 struct Args {
-  const float* q;                    // [B, H, Dh]
-  const float* k;                    // [B, S, KVH, Dh]
-  const float* v;
+  const V* q;                        // [B, H, Dh]
+  const V* k;                        // [B, S, KVH, Dh]
+  const V* v;
   const int32_t* cur_len;            // [B]
   float* out;                        // [B, H, Dh]
   float* part;                       // [(grid + segments) * warps][kHead + gb Dh]
@@ -196,24 +255,25 @@ struct Cursor {
 };
 
 // ---------------------------------------------------------------------------
-// a lane's dims: NC columns of W floats, column c at (c * 32 + lane) * W
+// a lane's dims: NC columns of W elements, column c at (c * 32 + lane) * W,
+// widened to fp32
 // ---------------------------------------------------------------------------
-template <int NC, int W>
-__device__ __forceinline__ void load_dims(const float* row, int lane, int Dh,
+template <int NC, int W, typename V>
+__device__ __forceinline__ void load_dims(const V* row, int lane, int Dh,
                                           bool live, float (&x)[NC * W]) {
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int d = (c * 32 + lane) * W;
     if constexpr (W == 4) {
       float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (live && d < Dh) f = *reinterpret_cast<const float4*>(row + d);
+      if (live && d < Dh) f = load4(row + d);
       x[c * 4] = f.x; x[c * 4 + 1] = f.y; x[c * 4 + 2] = f.z; x[c * 4 + 3] = f.w;
     } else {
-      x[c] = (live && d < Dh) ? row[d] : 0.f;
+      x[c] = (live && d < Dh) ? widen(row[d]) : 0.f;
     }
   }
 }
-// the same from global memory written by other blocks (through L2)
+// fp32 partials from global memory written by other blocks (through L2)
 template <int NC, int W>
 __device__ __forceinline__ void load_dims_cg(const float* row, int lane,
                                              int Dh, float (&x)[NC * W]) {
@@ -279,13 +339,14 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[P], int lane) {
 // ---------------------------------------------------------------------------
 // the producer warp
 // ---------------------------------------------------------------------------
-template <int W>
-__device__ void produce(const Args& a, const Plan& pl, const int* lens,
-                        long long u0, long long units, float* ring,
+template <int W, typename V>
+__device__ void produce(const Args<V>& a, const Plan& pl, const int* lens,
+                        long long u0, long long units, V* ring,
                         uint64_t* full, uint64_t* empty, int lane) {
-  const size_t pos = static_cast<size_t>(a.KVH) * a.Dh;   // floats a position
-  const int run = a.KW * a.Dh;                            // floats a unit row
+  const size_t pos = static_cast<size_t>(a.KVH) * a.Dh;   // elements a position
+  const int run = a.KW * a.Dh;                            // elements a unit row
   const int stage = 2 * a.T * run;
+  constexpr uint32_t kElem = sizeof(V);
   Cursor c;
   c.seek(pl, u0);
   for (long long j = 0; j < units; ++j) {
@@ -297,11 +358,11 @@ __device__ void produce(const Args& a, const Plan& pl, const int* lens,
     const int n = min(a.T, lens[c.b] - t0);
     const size_t off = (static_cast<size_t>(c.b) * a.S + t0) * pos +
                        static_cast<size_t>(c.sb * a.SB / a.NG) * a.Dh;
-    float* ks = ring + static_cast<size_t>(s) * stage;
-    float* vs = ks + a.T * run;
+    V* ks = ring + static_cast<size_t>(s) * stage;
+    V* vs = ks + a.T * run;
     if constexpr (W == 4) {
       if (lane == 0) {
-        mbar_arrive_tx(full + s, static_cast<uint32_t>(2 * n * run * 4));
+        mbar_arrive_tx(full + s, static_cast<uint32_t>(2 * n * run) * kElem);
       }
       __syncwarp();
       const int t = lane & (kMaxTile - 1);
@@ -309,13 +370,13 @@ __device__ void produce(const Args& a, const Plan& pl, const int* lens,
         const bool is_v = lane >= kMaxTile;
         bulk_copy((is_v ? vs : ks) + t * run,
                   (is_v ? a.v : a.k) + off + t * pos,
-                  static_cast<uint32_t>(run * 4), full + s);
+                  static_cast<uint32_t>(run) * kElem, full + s);
       }
     } else {
       for (int e = lane; e < n * run; e += 32) {
         const int t = e / run, d = e - t * run;
-        ks[e] = __ldg(a.k + off + t * pos + d);
-        vs[e] = __ldg(a.v + off + t * pos + d);
+        ks[e] = ldg(a.k + off + t * pos + d);
+        vs[e] = ldg(a.v + off + t * pos + d);
       }
       mbar_arrive(full + s);
     }
@@ -326,7 +387,7 @@ __device__ void produce(const Args& a, const Plan& pl, const int* lens,
 // ---------------------------------------------------------------------------
 // the consumer warps
 // ---------------------------------------------------------------------------
-template <int GB, int NC, int W>
+template <typename V, int GB, int NC, int W>
 struct Warp {
   static constexpr int E = NC * W;                   // floats of a head a lane
   static constexpr int P = kMaxTile * GB < 32 ? kMaxTile * GB : 32;
@@ -338,7 +399,8 @@ struct Warp {
   float m, l;                        // head lane % GB: running max, sum share
 
   // heads h0 .. h0 + heads - 1 of row b (the rest of the GB are padding)
-  __device__ void start(const Args& a, int b, int h0, int heads, int lane) {
+  __device__ void start(const Args<V>& a, int b, int h0, int heads,
+                        int lane) {
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
       load_dims<NC, W>(a.q + (static_cast<size_t>(b) * a.H + h0 + g) * a.Dh,
@@ -355,8 +417,8 @@ struct Warp {
 
   // positions [c0, c0 + TC) of a stage holding n live rows, K row t at
   // ks + t * rs
-  __device__ void chunk(const float* ks, const float* vs, int rs, int c0,
-                        int n, int heads, int Dh, int lane) {
+  __device__ void chunk(const V* ks, const V* vs, int rs, int c0, int n,
+                        int heads, int Dh, int lane) {
     float part[P];
 #pragma unroll
     for (int t = 0; t < TC; ++t) {
@@ -405,7 +467,7 @@ struct Warp {
   // leave segment seg, where this warp took stream (sl of the block, its
   // ps-th warp): write the stream's output, or a partial and take a
   // ticket; the stream's last partial merges them all
-  __device__ void flush(const Args& a, const Plan& pl, int seg, int sl,
+  __device__ void flush(const Args<V>& a, const Plan& pl, int seg, int sl,
                         int ps, int lane) {
     const int nw = a.SB * a.WP;
 #pragma unroll
@@ -532,16 +594,16 @@ struct Warp {
 // Consumer warp w takes stream sl = w % SB of every unit of the block's
 // share, and of each unit's positions the chunks ps, ps + WP, ...
 // (ps = w / SB).
-template <int GB, int NC, int W>
-__device__ void consume(const Args& a, const Plan& pl, const int* lens,
-                        long long u0, long long units, const float* ring,
+template <typename V, int GB, int NC, int W>
+__device__ void consume(const Args<V>& a, const Plan& pl, const int* lens,
+                        long long u0, long long units, const V* ring,
                         uint64_t* full, uint64_t* empty, int warp,
                         int lane) {
-  constexpr int TC = Warp<GB, NC, W>::TC;
+  constexpr int TC = Warp<V, GB, NC, W>::TC;
   const int sl = warp % a.SB, ps = warp / a.SB;
   const int run = a.KW * a.Dh;
   const int stage = 2 * a.T * run;
-  Warp<GB, NC, W> st;
+  Warp<V, GB, NC, W> st;
   Cursor c;
   c.seek(pl, u0);
   int cur = -1, heads = 0, col = 0;
@@ -559,8 +621,8 @@ __device__ void consume(const Args& a, const Plan& pl, const int* lens,
     const int s = static_cast<int>(j % a.stages);
     const int n = min(a.T, lens[c.b] - c.tile * a.T);
     mbar_wait(full + s, static_cast<uint32_t>((j / a.stages) & 1));
-    const float* ks = ring + static_cast<size_t>(s) * stage + col;
-    const float* vs = ks + a.T * run;
+    const V* ks = ring + static_cast<size_t>(s) * stage + col;
+    const V* vs = ks + a.T * run;
 #pragma unroll 1
     for (int c0 = ps * TC; c0 < n; c0 += a.WP * TC) {
       st.chunk(ks, vs, run, c0, n, heads, a.Dh, lane);
@@ -572,12 +634,14 @@ __device__ void consume(const Args& a, const Plan& pl, const int* lens,
   st.flush(a, pl, cur, sl, ps, lane);
 }
 
-template <int GB, int NC, int W>
-__global__ void __launch_bounds__(288, 1) flash_decode_kernel(const Args a) {
+template <typename V, int GB, int NC, int W>
+__global__ void __launch_bounds__(288, 1)
+flash_decode_kernel(const Args<V> a) {
   extern __shared__ float4 smem4[];
-  float* ring = reinterpret_cast<float*>(smem4);
+  V* ring = reinterpret_cast<V*>(smem4);
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      ring + static_cast<size_t>(a.stages) * 2 * a.T * a.KW * a.Dh);
+      reinterpret_cast<char*>(smem4) +
+      ring_bytes<V>(static_cast<size_t>(a.stages) * 2 * a.T * a.KW * a.Dh));
   uint64_t* empty = full + a.stages;
   int* lens = reinterpret_cast<int*>(empty + a.stages);   // [B]
   int* pre = lens + a.B;                                  // [B + 1]
@@ -633,15 +697,15 @@ __global__ void __launch_bounds__(288, 1) flash_decode_kernel(const Args a) {
   if (warp == nw) {
     produce<W>(a, pl, lens, u0, units, ring, full, empty, lane);
   } else {
-    consume<GB, NC, W>(a, pl, lens, u0, units, ring, full, empty, warp,
-                       lane);
+    consume<V, GB, NC, W>(a, pl, lens, u0, units, ring, full, empty, warp,
+                          lane);
   }
 }
 
-template <int GB, int NC, int W>
-cudaError_t launch(const Args& a, int grid, int threads, size_t smem,
+template <typename V, int GB, int NC, int W>
+cudaError_t launch(const Args<V>& a, int grid, int threads, size_t smem,
                    cudaStream_t st) {
-  auto kern = flash_decode_kernel<GB, NC, W>;
+  auto kern = flash_decode_kernel<V, GB, NC, W>;
   static bool raised[64] = {};       // the shared-memory limit, per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -661,28 +725,30 @@ cudaError_t launch(const Args& a, int grid, int threads, size_t smem,
 // ---------------------------------------------------------------------------
 // The stream kernel above keeps a lane's share of gb heads' q and acc in
 // registers, which caps Dh at 1,024. A wider head takes this kernel: one
-// block of kWideThreads a (b, query head), q (pre-scaled) and acc in
-// shared memory, each thread owning dims tid, tid + kWideThreads, ...;
-// per live position one block-wide dot product (warp shuffles, then the
-// eight warp sums in order from a double-buffered slot, one barrier),
-// the online softmax in every thread alike, and acc = acc * alpha + p v.
-// It reads every live K and V row once a query head, G times the bytes of
-// the stream kernel; no configuration of the repo has such heads, so it
-// is kept simple and right, not fast.
+// block of kWideThreads a (b, query head), q (pre-scaled, widened to fp32)
+// and acc in shared memory, each thread owning dims tid, tid +
+// kWideThreads, ...; per live position one block-wide dot product (warp
+// shuffles, then the eight warp sums in order from a double-buffered slot,
+// one barrier), the online softmax in every thread alike, and acc = acc *
+// alpha + p v. It reads every live K and V row once a query head, G times
+// the bytes of the stream kernel; no configuration of the repo has such
+// heads, so it is kept simple and right, not fast.
 constexpr int kWideThreads = 256;
 
+template <typename V>
 struct WideArgs {
-  const float* q;                    // [B, H, Dh]
-  const float* k;                    // [B, S, KVH, Dh]
-  const float* v;
+  const V* q;                        // [B, H, Dh]
+  const V* k;                        // [B, S, KVH, Dh]
+  const V* v;
   const int32_t* cur_len;            // [B]
   float* out;                        // [B, H, Dh]
   int H, S, KVH, Dh, G;
   float scale;
 };
 
+template <typename V>
 __global__ void __launch_bounds__(kWideThreads)
-flash_decode_wide_kernel(const WideArgs a) {
+flash_decode_wide_kernel(const WideArgs<V> a) {
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);          // [Dh]
   float* acc = q_s + a.Dh;                               // [Dh]
@@ -696,22 +762,22 @@ flash_decode_wide_kernel(const WideArgs a) {
     for (int d = tid; d < a.Dh; d += kWideThreads) out[d] = 0.f;
     return;
   }
-  const float* q = a.q + (static_cast<size_t>(b) * a.H + h) * a.Dh;
+  const V* q = a.q + (static_cast<size_t>(b) * a.H + h) * a.Dh;
   for (int d = tid; d < a.Dh; d += kWideThreads) {
-    q_s[d] = q[d] * a.scale;
+    q_s[d] = widen(q[d]) * a.scale;
     acc[d] = 0.f;
   }
-  const size_t pos = static_cast<size_t>(a.KVH) * a.Dh;   // floats a position
-  const float* k0 = a.k + static_cast<size_t>(b) * a.S * pos +
-                    static_cast<size_t>(kh) * a.Dh;
-  const float* v0 = a.v + static_cast<size_t>(b) * a.S * pos +
-                    static_cast<size_t>(kh) * a.Dh;
+  const size_t pos = static_cast<size_t>(a.KVH) * a.Dh;   // elements a position
+  const V* k0 = a.k + static_cast<size_t>(b) * a.S * pos +
+                static_cast<size_t>(kh) * a.Dh;
+  const V* v0 = a.v + static_cast<size_t>(b) * a.S * pos +
+                static_cast<size_t>(kh) * a.Dh;
   float m = kNeg, l = 0.f;
   for (int t = 0; t < len; ++t) {
-    const float* kr = k0 + t * pos;
+    const V* kr = k0 + t * pos;
     float part = 0.f;
     for (int d = tid; d < a.Dh; d += kWideThreads) {
-      part = fmaf(q_s[d], __ldg(kr + d), part);
+      part = fmaf(q_s[d], widen(ldg(kr + d)), part);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(kFull, part, o);
@@ -726,9 +792,9 @@ flash_decode_wide_kernel(const WideArgs a) {
     const float p = expf(s - m_new);
     l = l * alpha + p;
     m = m_new;
-    const float* vr = v0 + t * pos;
+    const V* vr = v0 + t * pos;
     for (int d = tid; d < a.Dh; d += kWideThreads) {
-      acc[d] = fmaf(p, __ldg(vr + d), acc[d] * alpha);
+      acc[d] = fmaf(p, widen(ldg(vr + d)), acc[d] * alpha);
     }
   }
   for (int d = tid; d < a.Dh; d += kWideThreads) out[d] = acc[d] / l;
@@ -738,31 +804,16 @@ __host__ inline size_t wide_smem_bytes(int Dh) {
   return (2 * static_cast<size_t>(Dh) + 16) * sizeof(float);
 }
 
-}  // namespace
-
-extern "C" const char* kernel_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// q [B, H, Dh], k/v [B, S, KVH, Dh], cur_len [B] i32 -> out [B, H, Dh], all
-// fp32 and contiguous; H % KVH == 0; scale = Dh^-0.5 as the caller rounds
-// it. gb: heads of a stream (1, 2, 4 or 8; gb * Dh <= 1024 rounded up to
-// the lane columns; 1 when vec is 0), ng = ceil(G / gb) streams a KV head.
-// vec: runs read by 16-byte bulk copies (Dh % 4 == 0, k and v 16-byte
-// aligned), else element by element (Dh <= 1024). part: the caller's
-// scratch of (grid + B * KVH * ng) * warps slots of 16 + gb * Dh floats;
-// tickets: B * KVH * ng int32, zero (each launch leaves them zero).
-// grid: blocks (one per SM), warps: consumer warps a block at most (1..8).
-// Returns the first launch error (0 on success).
-extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
-                                const void* cur_len, void* out, void* part,
-                                void* tickets, int B, int H, int S, int KVH,
-                                int Dh, int gb, int ng, int vec, int grid,
-                                int warps, float scale, void* stream) {
+// the stream kernel's launch on elements of V (see flash_decode_f32)
+template <typename V>
+int run_stream(const void* q, const void* k, const void* v,
+               const void* cur_len, void* out, void* part, void* tickets,
+               int B, int H, int S, int KVH, int Dh, int gb, int ng, int vec,
+               int grid, int warps, float scale, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (KVH <= 0 || H % KVH || Dh <= 0 || Dh > 1024 || warps < 1 ||
-      warps > 8 || grid < 1 || (vec && Dh % 4) || ng * gb < H / KVH ||
-      (!vec && gb != 1)) {
+      warps > 8 || grid < 1 || (vec && (Dh * sizeof(V)) % 16) ||
+      ng * gb < H / KVH || (!vec && gb != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // streams a unit: the most (<= warps) that are whole KV heads (a
@@ -772,22 +823,24 @@ extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
     if (ng % d == 0 || (d % ng == 0 && KVH % (d / ng) == 0)) sb = d;
   }
   const int kw = sb >= ng ? sb / ng : 1;
-  const size_t run = static_cast<size_t>(kw) * Dh * sizeof(float);
+  const size_t run = static_cast<size_t>(kw) * Dh * sizeof(V);   // bytes
   const size_t fixed = static_cast<size_t>(2 * B + 1) * sizeof(int) +
                        static_cast<size_t>(2) * kMaxStages * sizeof(uint64_t);
   int T = kMaxTile;
   while (T > 1 && fixed + 3 * 2 * T * run > kRingBytes) T /= 2;
   const size_t stage = 2 * T * run;
-  if (fixed + stage > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   size_t fit = (kRingBytes > fixed ? (kRingBytes - fixed) : 0) / stage;
   if (fit < 1) fit = 1;
   const int stages = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
-  const size_t smem = stages * stage + 2 * stages * sizeof(uint64_t) +
-                      static_cast<size_t>(2 * B + 1) * sizeof(int);
-  Args a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
+  const size_t smem =
+      ring_bytes<V>(static_cast<size_t>(stages) * stage / sizeof(V)) +
+      2 * stages * sizeof(uint64_t) +
+      static_cast<size_t>(2 * B + 1) * sizeof(int);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  Args<V> a;
+  a.q = static_cast<const V*>(q);
+  a.k = static_cast<const V*>(k);
+  a.v = static_cast<const V*>(v);
   a.cur_len = static_cast<const int32_t*>(cur_len);
   a.out = static_cast<float*>(out);
   a.part = static_cast<float*>(part);
@@ -802,66 +855,109 @@ extern "C" int flash_decode_f32(const void* q, const void* k, const void* v,
   if (vec) {
     const int nc = cols <= 1 ? 1 : cols <= 2 ? 2 : cols <= 4 ? 4 : 8;
     switch (gb * 16 + nc) {
-      case 1 * 16 + 1: e = launch<1, 1, 4>(a, grid, threads, smem, st); break;
-      case 2 * 16 + 1: e = launch<2, 1, 4>(a, grid, threads, smem, st); break;
-      case 4 * 16 + 1: e = launch<4, 1, 4>(a, grid, threads, smem, st); break;
-      case 8 * 16 + 1: e = launch<8, 1, 4>(a, grid, threads, smem, st); break;
-      case 1 * 16 + 2: e = launch<1, 2, 4>(a, grid, threads, smem, st); break;
-      case 2 * 16 + 2: e = launch<2, 2, 4>(a, grid, threads, smem, st); break;
-      case 4 * 16 + 2: e = launch<4, 2, 4>(a, grid, threads, smem, st); break;
-      case 1 * 16 + 4: e = launch<1, 4, 4>(a, grid, threads, smem, st); break;
-      case 2 * 16 + 4: e = launch<2, 4, 4>(a, grid, threads, smem, st); break;
-      case 1 * 16 + 8: e = launch<1, 8, 4>(a, grid, threads, smem, st); break;
+      case 1 * 16 + 1: e = launch<V, 1, 1, 4>(a, grid, threads, smem, st); break;
+      case 2 * 16 + 1: e = launch<V, 2, 1, 4>(a, grid, threads, smem, st); break;
+      case 4 * 16 + 1: e = launch<V, 4, 1, 4>(a, grid, threads, smem, st); break;
+      case 8 * 16 + 1: e = launch<V, 8, 1, 4>(a, grid, threads, smem, st); break;
+      case 1 * 16 + 2: e = launch<V, 1, 2, 4>(a, grid, threads, smem, st); break;
+      case 2 * 16 + 2: e = launch<V, 2, 2, 4>(a, grid, threads, smem, st); break;
+      case 4 * 16 + 2: e = launch<V, 4, 2, 4>(a, grid, threads, smem, st); break;
+      case 1 * 16 + 4: e = launch<V, 1, 4, 4>(a, grid, threads, smem, st); break;
+      case 2 * 16 + 4: e = launch<V, 2, 4, 4>(a, grid, threads, smem, st); break;
+      case 1 * 16 + 8: e = launch<V, 1, 8, 4>(a, grid, threads, smem, st); break;
       default: break;
     }
   } else {
     const int nc = cols <= 1 ? 1 : cols <= 2 ? 2 : cols <= 4 ? 4
                  : cols <= 8 ? 8 : cols <= 16 ? 16 : 32;
     switch (nc) {
-      case 1: e = launch<1, 1, 1>(a, grid, threads, smem, st); break;
-      case 2: e = launch<1, 2, 1>(a, grid, threads, smem, st); break;
-      case 4: e = launch<1, 4, 1>(a, grid, threads, smem, st); break;
-      case 8: e = launch<1, 8, 1>(a, grid, threads, smem, st); break;
-      case 16: e = launch<1, 16, 1>(a, grid, threads, smem, st); break;
-      case 32: e = launch<1, 32, 1>(a, grid, threads, smem, st); break;
+      case 1: e = launch<V, 1, 1, 1>(a, grid, threads, smem, st); break;
+      case 2: e = launch<V, 1, 2, 1>(a, grid, threads, smem, st); break;
+      case 4: e = launch<V, 1, 4, 1>(a, grid, threads, smem, st); break;
+      case 8: e = launch<V, 1, 8, 1>(a, grid, threads, smem, st); break;
+      case 16: e = launch<V, 1, 16, 1>(a, grid, threads, smem, st); break;
+      case 32: e = launch<V, 1, 32, 1>(a, grid, threads, smem, st); break;
       default: break;
     }
   }
   return static_cast<int>(e);
 }
 
-// The same function for heads of any width whose q and acc fit a block's
-// shared memory (2 Dh + 16 floats <= 227 KB): one block a (b, query
-// head), no scratch. Returns the launch error (0 on success).
-extern "C" int flash_decode_wide_f32(const void* q, const void* k,
-                                     const void* v, const void* cur_len,
-                                     void* out, int B, int H, int S, int KVH,
-                                     int Dh, float scale, void* stream) {
+// the wide kernel's launch on elements of V (see flash_decode_wide_f32)
+template <typename V>
+int run_wide(const void* q, const void* k, const void* v, const void* cur_len,
+             void* out, int B, int H, int S, int KVH, int Dh, float scale,
+             void* stream) {
   if (B <= 0 || H <= 0) return 0;
   const size_t smem = wide_smem_bytes(Dh);
   if (KVH <= 0 || H % KVH || Dh <= 0 || smem > 227 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  auto kern = flash_decode_wide_kernel<V>;
   static bool raised[64] = {};       // the shared-memory limit, per device
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev >= 64 || !raised[dev]) {
-    e = cudaFuncSetAttribute(flash_decode_wide_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              227 * 1024);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev < 64) raised[dev] = true;
   }
-  WideArgs a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
+  WideArgs<V> a;
+  a.q = static_cast<const V*>(q);
+  a.k = static_cast<const V*>(k);
+  a.v = static_cast<const V*>(v);
   a.cur_len = static_cast<const int32_t*>(cur_len);
   a.out = static_cast<float*>(out);
   a.H = H; a.S = S; a.KVH = KVH; a.Dh = Dh; a.G = H / KVH;
   a.scale = scale;
-  flash_decode_wide_kernel<<<B * H, kWideThreads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(a);
+  kern<<<B * H, kWideThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+extern "C" const char* kernel_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// q [B, H, Dh], k/v [B, S, KVH, Dh] of one element type (f32, bf16 or f16
+// by the entry point), cur_len [B] i32 -> out [B, H, Dh] fp32, all
+// contiguous; H % KVH == 0; scale = Dh^-0.5 as the caller rounds it. gb:
+// heads of a stream (1, 2, 4 or 8; gb * Dh <= 1024 rounded up to the lane
+// columns; 1 when vec is 0), ng = ceil(G / gb) streams a KV head. vec:
+// runs read by 16-byte bulk copies (a row a whole number of 16 bytes: Dh %
+// 4 == 0 in f32, Dh % 8 == 0 in bf16 / f16; q, k and v 16-byte aligned),
+// else element by element (Dh <= 1024). part: the caller's scratch of
+// (grid + B * KVH * ng) * warps slots of 16 + gb * Dh floats; tickets: B *
+// KVH * ng int32, zero (each launch leaves them zero). grid: blocks (one
+// per SM), warps: consumer warps a block at most (1..8). Returns the first
+// launch error (0 on success).
+#define FLASH_DECODE_ENTRY(SUFFIX, V)                                        \
+  extern "C" int flash_decode_##SUFFIX(                                      \
+      const void* q, const void* k, const void* v, const void* cur_len,      \
+      void* out, void* part, void* tickets, int B, int H, int S, int KVH,    \
+      int Dh, int gb, int ng, int vec, int grid, int warps, float scale,     \
+      void* stream) {                                                        \
+    return run_stream<V>(q, k, v, cur_len, out, part, tickets, B, H, S, KVH, \
+                         Dh, gb, ng, vec, grid, warps, scale, stream);       \
+  }
+FLASH_DECODE_ENTRY(f32, float)
+FLASH_DECODE_ENTRY(bf16, bf16_t)
+FLASH_DECODE_ENTRY(f16, f16_t)
+
+// The same function for heads of any width whose q and acc fit a block's
+// shared memory (2 Dh + 16 floats <= 227 KB): one block a (b, query
+// head), no scratch. Returns the launch error (0 on success).
+#define FLASH_DECODE_WIDE_ENTRY(SUFFIX, V)                                   \
+  extern "C" int flash_decode_wide_##SUFFIX(                                 \
+      const void* q, const void* k, const void* v, const void* cur_len,      \
+      void* out, int B, int H, int S, int KVH, int Dh, float scale,          \
+      void* stream) {                                                        \
+    return run_wide<V>(q, k, v, cur_len, out, B, H, S, KVH, Dh, scale,       \
+                       stream);                                              \
+  }
+FLASH_DECODE_WIDE_ENTRY(f32, float)
+FLASH_DECODE_WIDE_ENTRY(bf16, bf16_t)
+FLASH_DECODE_WIDE_ENTRY(f16, f16_t)

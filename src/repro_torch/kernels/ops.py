@@ -10,11 +10,13 @@ Each wrapper checks device, dtype, shape and contiguity, allocates the
 outputs with ``torch.empty``, launches on the current stream, raises the
 launch error, and bumps its ``kernel.<name>`` counter (core/dispatch.py)
 on the kernel branch only, beside ``kernel.<name>.<codec>`` for the row
-codec it read (fp32, bf16, int8). ``gather_distance``, ``beam_search``
-and ``flat_topk`` take fp32, bf16 and int8 (+ fp32 scales) rows: one CUDA
-kernel per function, instantiated per row type; ``greedy_descent`` is a
-second entry point of ``gather_distance``'s kernel source and counts as
-its launch; ``embedding_bag`` takes fp32 and bf16 tables.
+codec it read (fp32, bf16, int8; fp16 for ``flash_decode``).
+``gather_distance``, ``beam_search`` and ``flat_topk`` take fp32, bf16
+and int8 (+ fp32 scales) rows: one CUDA kernel per function, instantiated
+per row type; ``greedy_descent`` is a second entry point of
+``gather_distance``'s kernel source and counts as its launch;
+``embedding_bag`` takes fp32 and bf16 tables; ``flash_decode`` takes q,
+K and V of one float type (fp32, bf16 or fp16).
 ``select_neighbors`` is plain PyTorch on either device (the JAX package
 keeps it jnp-only too).
 """
@@ -34,7 +36,10 @@ _F = ctypes.c_float
 
 # row dtype -> codec name (counter suffix, C symbol suffix)
 CODEC_OF = {torch.float32: "fp32", torch.bfloat16: "bf16", torch.int8: "int8"}
-_SYM_SUFFIX = {"fp32": "f32", "bf16": "bf16", "int8": "int8"}
+_SYM_SUFFIX = {"fp32": "f32", "bf16": "bf16", "int8": "int8", "fp16": "f16"}
+# flash_decode's q/K/V dtype -> its instance (counter suffix)
+FLASH_CODEC_OF = {torch.float32: "fp32", torch.bfloat16: "bf16",
+                  torch.float16: "fp16"}
 
 # kernel name -> (C symbol, argtypes); a symbol with "{}" has one entry
 # point per row codec
@@ -49,10 +54,10 @@ _SIGS = {
                     [_P, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P]),
-    "flash_decode": ("flash_decode_f32",
+    "flash_decode": ("flash_decode_{}",
                      [_P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
-    "flash_decode_wide": ("flash_decode_wide_f32",
+    "flash_decode_wide": ("flash_decode_wide_{}",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P]),
     "distance_topk": ("distance_topk",
                       [_P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P,
@@ -509,7 +514,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Decode attention: q [B,H,Dh], k/v [B,S,KVH,Dh] -> [B,H,Dh] f32.
     ``cur_len`` is a scalar or a per-sequence [B] vector of live prefix
     lengths (continuous batching: one launch serves slots at different
-    depths), clamped to [0, S].
+    depths), clamped to [0, S]. On the card q, k and v share one dtype,
+    fp32, bf16 or fp16, and the kernel's instance for it reads them as
+    they are (no cast: a 2-byte cache moves half the bytes); the scores,
+    softmax and output are fp32, as the plain version's upcast.
 
     On the card one launch a call: the blocks split the live positions
     among themselves on the device (no host sync), and the last partial
@@ -521,9 +529,14 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and stream, so ``out`` is the only allocation a call."""
     if not _on_cuda(q, k, v):
         return _ref.flash_decode_ref(q, k, v, cur_len)
-    _check(q, "q", torch.float32, 3)
-    _check(k, "k", torch.float32, 4)
-    _check(v, "v", torch.float32, 4)
+    codec = FLASH_CODEC_OF.get(q.dtype)
+    if codec is None or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_decode: q, k and v must share one dtype of "
+                        f"{sorted(FLASH_CODEC_OF.values())}; got q {q.dtype}, "
+                        f"k {k.dtype}, v {v.dtype}")
+    _check(q, "q", q.dtype, 3)
+    _check(k, "k", q.dtype, 4)
+    _check(v, "v", q.dtype, 4)
     b, h, dh = q.shape
     s, kvh = k.shape[1], k.shape[2]
     if k.shape != (b, s, kvh, dh) or v.shape != k.shape or h % kvh:
@@ -542,12 +555,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
         if b:
             with torch.cuda.device(q.device):
-                _launch("flash_decode_wide", "fp32", _ptr(q), _ptr(k),
+                _launch("flash_decode_wide", codec, _ptr(q), _ptr(k),
                         _ptr(v), _ptr(cur_len), _ptr(out), b, h, s, kvh, dh,
                         dh ** -0.5, _stream(q))
         return out
-    vec = int(dh % 4 == 0 and k.data_ptr() % 16 == 0
-              and v.data_ptr() % 16 == 0)
+    vec = _flash_vec(dh, q.element_size(), q, k, v)
     gb, ng, grid = _flash_plan(h // kvh, dh, vec, q.device)
     part, _, tickets = _scratch(q, "flash_decode",
                                 (grid + b * kvh * ng) * _FLASH_WARPS
@@ -555,11 +567,20 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, h, dh), dtype=torch.float32, device=q.device)
     if b:
         with torch.cuda.device(q.device):
-            _launch("flash_decode", "fp32", _ptr(q), _ptr(k), _ptr(v),
+            _launch("flash_decode", codec, _ptr(q), _ptr(k), _ptr(v),
                     _ptr(cur_len), _ptr(out), _ptr(part), _ptr(tickets), b,
                     h, s, kvh, dh, gb, ng, vec, grid, _FLASH_WARPS,
                     dh ** -0.5, _stream(q))
     return out
+
+
+def _flash_vec(dh: int, elem: int, *tensors: torch.Tensor) -> int:
+    """1 when a row of ``dh`` elements of ``elem`` bytes is a whole number
+    of 16 bytes and every tensor is 16-byte aligned: the bulk-copy ring
+    and 4-element lane reads (Dh % 4 == 0 in fp32, Dh % 8 == 0 in bf16
+    and fp16); else the element-by-element instance."""
+    return int((dh * elem) % 16 == 0
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _flash_plan(g: int, dh: int, vec: int, device) -> tuple[int, int, int]:

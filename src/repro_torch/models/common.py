@@ -1,7 +1,29 @@
-"""Shared model building blocks: RMSNorm and RoPE (``repro/models/common.py``)."""
+"""Shared model building blocks: RMSNorm, RoPE (``repro/models/common.py``)
+and the products at a compute dtype.
+
+The reference casts each weight to the compute dtype where it is used
+(``_w``: ``lp[name].astype(dtype)``) and multiplies with
+``preferred_element_type=float32``: products of ``dtype`` operands summed
+in fp32, the result fp32 until the caller casts it. ``weight`` is that
+cast, and ``linear_f32``/``bmm_f32`` that product: on the card one
+``torch.mm``/``torch.bmm`` with an fp32 output where PyTorch has the
+``out_dtype`` overload, else (and on the CPU, which has no kernel for it)
+the operands widened to fp32, which is exact for bf16 and fp16.
+``linear`` is the product the reference casts straight back to
+``dtype``: on the card one 16-bit ``F.linear`` (cuBLAS sums in fp32 and
+rounds once, as the fp32 product and a cast would, in one launch less;
+``scripts/time_bf16_products.py``), elsewhere ``linear_f32`` and the
+cast. fp32 operands take the plain fp32 product, so an fp32 model runs
+as before.
+"""
 from __future__ import annotations
 
 import torch
+from torch.nn import functional as F
+
+# PyTorch's mm/bmm with an fp32 output from 16-bit operands (CUDA only)
+_OUT_DTYPE = ("dtype" in torch.ops.aten.mm.overloads()
+              and "dtype" in torch.ops.aten.bmm.overloads())
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -31,3 +53,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A weight in the compute dtype (the reference's ``_w``): itself when
+    it already is, else a rounded copy."""
+    return w if w.dtype == dtype else w.to(dtype)
+
+
+def _f32_out(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True when ``a @ b`` can run as one product with an fp32 output."""
+    return a.is_cuda and _OUT_DTYPE and a.dtype == b.dtype and \
+        a.dtype in (torch.bfloat16, torch.float16)
+
+
+def linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., in] times w [out, in] transposed -> [..., out] fp32."""
+    if x.dtype == w.dtype == torch.float32:
+        return F.linear(x, w)
+    if _f32_out(x, w):
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+    return F.linear(x.float(), w.float())
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., in] times w [out, in] transposed -> [..., out] in x's dtype
+    (w already in it), summed in fp32 and rounded once."""
+    if x.dtype == torch.float32 or _f32_out(x, w):
+        return F.linear(x, w)
+    return linear_f32(x, w).to(x.dtype)
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [E, C, D] times b [E, D, F] -> [E, C, F] fp32."""
+    if a.dtype == b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if _f32_out(a, b):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())

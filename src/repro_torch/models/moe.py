@@ -9,6 +9,13 @@ multiplies its [C, D] buffer of gathered tokens. The expert products are
 ``torch.bmm`` over the expert axis (plain matrix products, which the
 reference leaves to XLA).
 
+Dtypes, as the reference's at a compute dtype: the router runs in fp32;
+the gathered rows are in the tokens' dtype and the expert weights are
+cast to it where they are used; h1, h3 and the expert outputs are fp32
+(``models.common.bmm_f32``), silu(h1)·h3 is cast to the tokens' dtype
+before the second product, the combine is fp32, and the output is cast
+to the tokens' dtype.
+
 Differences from the reference, by design:
 
   * Groups. The reference routes ``G`` token groups with local capacity,
@@ -30,6 +37,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.models.common import bmm_f32, weight
 
 
 class MoE(nn.Module):
@@ -87,8 +95,8 @@ def route(p: MoE, cfg: MoEConfig, x: torch.Tensor):
 
 def moe_ffn(p: MoE, cfg: MoEConfig, x: torch.Tensor
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [T, D] fp32 tokens -> (out [T, D], the Switch aux loss, a
-    scalar)."""
+    """x [T, D] tokens -> (out [T, D] in x's dtype, the Switch aux loss,
+    an fp32 scalar)."""
     T, D = x.shape
     E, K = cfg.n_slots, cfg.top_k
     C = capacity(T, cfg)
@@ -103,9 +111,11 @@ def moe_ffn(p: MoE, cfg: MoEConfig, x: torch.Tensor
     slot_to_token[slot] = token_idx
 
     # --- dispatch and expert compute (SwiGLU) ---------------------------
+    dt = x.dtype
     gathered = x[slot_to_token[:E * C]].reshape(E, C, D)
-    h = F.silu(torch.bmm(gathered, p.we1)) * torch.bmm(gathered, p.we3)
-    expert_out = torch.bmm(h, p.we2)                              # [E, C, D]
+    h = F.silu(bmm_f32(gathered, weight(p.we1, dt))) \
+        * bmm_f32(gathered, weight(p.we3, dt))
+    expert_out = bmm_f32(h.to(dt), weight(p.we2, dt))             # [E, C, D]
 
     # --- combine: each token gathers its kept rows, summed over k in order
     rows = torch.cat([expert_out.reshape(E * C, D),
@@ -120,4 +130,4 @@ def moe_ffn(p: MoE, cfg: MoEConfig, x: torch.Tensor
            * keep[:, None].float()).mean(dim=0)
     p_e = probs.mean(dim=0)
     aux = cfg.aux_loss_weight * E * torch.sum(f_e * p_e)
-    return out, aux
+    return out.to(dt), aux

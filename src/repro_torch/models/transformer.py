@@ -3,10 +3,10 @@ window attention, + MoE, + an int8 KV cache), ported from
 ``repro/models/transformer.py``.
 
 Entry points:
-  init_lm(cfg, seed, device)              random weights from a torch.Generator
-  init_cache(cfg, batch, seq_len)         empty KV cache (a ring under SWA)
-  prefill(model, tokens)                  build the KV cache, last logits
-  decode_step(model, token, cache)        one token through the cache
+  init_lm(cfg, seed, device, dtype)       random weights from a torch.Generator
+  init_cache(cfg, batch, seq_len, dtype)  empty KV cache (a ring under SWA)
+  prefill(model, tokens, dtype=)          build the KV cache, last logits
+  decode_step(model, token, cache, dtype=)  one token through the cache
 
 The reference stacks the layers along a leading axis and multiplies
 ``x @ W``; here each layer is an ``nn.Module`` of ``nn.Linear``s (weights
@@ -19,9 +19,17 @@ hand kernel on the card) or the dense plain path.
 Sliding-window configs keep a ring of ``cache_len`` = min(seq_len,
 window) positions, position p at slot p % Sc. Under ``cfg.kv_quant`` the
 cache holds int8 payloads with an fp32 scale a (layer, row, position,
-KV head), dequantized a layer at a time before the attention. Weights
-are fp32 only: other dtypes raise ``NotImplementedError`` (ROADMAP.md
-§1 item 4).
+KV head), dequantized a layer at a time before the attention.
+
+Weights are fp32, bf16 or fp16. ``prefill`` and ``decode_step`` compute
+at ``dtype`` as the reference does: each weight cast to it where it is
+used (a no-op when it already is), activations and the cache in it; the
+products sum in fp32 (``models.common``) and are cast to
+``dtype`` where the reference casts them, while the dense FFN's h1, h3
+and silu(h1)·h3, the MoE's expert products and combine, and the head's
+logits stay fp32 as there. The reference defaults ``dtype`` to bf16; the
+port's ``dtype=None`` is the weights' own, so an fp32 model computes in
+fp32 unless asked.
 """
 from __future__ import annotations
 
@@ -38,7 +46,13 @@ from repro_torch.models.attention import (
     decode_attention,
     swa_blocked_attention,
 )
-from repro_torch.models.common import apply_rope, rms_norm
+from repro_torch.models.common import (
+    apply_rope,
+    linear,
+    linear_f32,
+    rms_norm,
+    weight,
+)
 from repro_torch.models.moe import MoE, moe_ffn
 from repro_torch.utils import resolve_device
 
@@ -68,13 +82,14 @@ class Block(nn.Module):
             self.w2 = nn.Linear(Fh, D, **kw)
 
 
+WEIGHT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
 class LM(nn.Module):
     def __init__(self, cfg: LMConfig, device=None, dtype=torch.float32):
         super().__init__()
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                f"{dtype} weights are not ported yet: fp32 only "
-                "(ROADMAP.md §1 item 4)")
+        if dtype not in WEIGHT_DTYPES:
+            raise ValueError(f"LM weights are fp32, bf16 or fp16, not {dtype}")
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab, cfg.d_model, device=device,
                                   dtype=dtype)
@@ -114,6 +129,11 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.weight.device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The weights' dtype (the default compute dtype)."""
+        return self.embed.weight.dtype
+
 
 def init_lm(cfg: LMConfig, seed: int = 0, device=None,
             dtype=torch.float32) -> LM:
@@ -130,30 +150,46 @@ def init_lm(cfg: LMConfig, seed: int = 0, device=None,
 # ---------------------------------------------------------------------------
 # Layer pieces (shared by prefill / decode)
 # ---------------------------------------------------------------------------
+def _proj(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W`` at ``x``'s dtype: the weight cast to it, the product
+    summed in fp32 and rounded to x's dtype once (the reference's einsum,
+    then astype)."""
+    return linear(x, weight(lin.weight, x.dtype))
+
+
 def _qkv(blk: Block, cfg: LMConfig, h: torch.Tensor, positions: torch.Tensor):
     """h [B,S,D] -> q [B,S,H,Dh], k,v [B,S,KVH,Dh] with RoPE applied."""
     B, S, _ = h.shape
-    q = blk.wq(h).reshape(B, S, cfg.n_heads, cfg.dh)
-    k = blk.wk(h).reshape(B, S, cfg.n_kv_heads, cfg.dh)
-    v = blk.wv(h).reshape(B, S, cfg.n_kv_heads, cfg.dh)
+    q = _proj(blk.wq, h).reshape(B, S, cfg.n_heads, cfg.dh)
+    k = _proj(blk.wk, h).reshape(B, S, cfg.n_kv_heads, cfg.dh)
+    v = _proj(blk.wv, h).reshape(B, S, cfg.n_kv_heads, cfg.dh)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
 def _ffn(blk: Block, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
-    """The FFN residual (the MoE's aux loss is dropped: serving only)."""
+    """The FFN residual (the MoE's aux loss is dropped: serving only).
+    The dense FFN keeps h1, h3 and silu(h1)·h3 in fp32 and casts once."""
     h = rms_norm(x, blk.ffn_norm, cfg.norm_eps)
     if cfg.moe is not None:
         B, S, D = h.shape
         out, _ = moe_ffn(blk.moe, cfg.moe, h.reshape(B * S, D))
         return x + out.reshape(B, S, D)
-    return x + blk.w2(F.silu(blk.w1(h)) * blk.w3(h))
+    dt = h.dtype
+    g = F.silu(linear_f32(h, weight(blk.w1.weight, dt))) \
+        * linear_f32(h, weight(blk.w3.weight, dt))
+    return x + _proj(blk.w2, g.to(dt))
+
+
+def _embed(model: LM, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """The embedding rows of ``tokens``, taken, then cast to ``dtype``."""
+    return model.embed(tokens).to(dtype)
 
 
 def _head(model: LM, x: torch.Tensor) -> torch.Tensor:
-    if model.out_head is None:
-        return F.linear(x, model.embed.weight)
-    return model.out_head(x)
+    """Logits in fp32 from ``x`` at its dtype (never cast back)."""
+    w = model.embed.weight if model.out_head is None else model.out_head.weight
+    return linear_f32(x, weight(w, x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -227,17 +263,19 @@ def _ring(x: torch.Tensor, Sc: int) -> torch.Tensor:
 
 @torch.no_grad()
 def prefill(model: LM, tokens: torch.Tensor, max_len: int | None = None,
-            prompt_lens: torch.Tensor | None = None
+            prompt_lens: torch.Tensor | None = None, dtype=None
             ) -> tuple[torch.Tensor, KVCache]:
     """Run the prompt, build a cache with capacity ``max_len`` (a ring of
     ``cache_len`` under SWA), return the last-valid-position logits
-    [B,1,V]. ``prompt_lens`` [B] supports right-padded batched prompts."""
+    [B,1,V] fp32. ``prompt_lens`` [B] supports right-padded batched
+    prompts. ``dtype``: the compute dtype (default the weights'); the
+    cache holds K/V in it (int8 under ``kv_quant``)."""
     cfg = model.cfg
     B, S = tokens.shape
     Sc = cache_len(cfg, max_len or S)
     dev = model.device
     tokens = tokens.to(dev).long()
-    x = model.embed(tokens)
+    x = _embed(model, tokens, dtype or model.dtype)
     positions = torch.arange(S, device=dev)[None, :]
     ks, vs, kss, vss = [], [], [], []
     for blk in model.layers:
@@ -251,7 +289,7 @@ def prefill(model: LM, tokens: torch.Tensor, max_len: int | None = None,
             attn = blocked_attention(q, k, v, causal=True,
                                      block_q=cfg.attn_block_q,
                                      block_k=cfg.attn_block_k)
-        x = x + blk.wo(attn.reshape(B, S, -1))
+        x = x + _proj(blk.wo, attn.reshape(B, S, -1))
         x = _ffn(blk, cfg, x)
         k, v = _ring(k, Sc), _ring(v, Sc)
         if cfg.kv_quant:
@@ -276,9 +314,11 @@ def prefill(model: LM, tokens: torch.Tensor, max_len: int | None = None,
 
 @torch.no_grad()
 def decode_step(model: LM, token: torch.Tensor, cache: KVCache,
-                attn_impl: str = "flash") -> tuple[torch.Tensor, KVCache]:
-    """token [B,1] -> (logits [B,1,V], cache). One new token per sequence;
-    every slot advances its own ``cur_len``.
+                attn_impl: str = "flash", dtype=None
+                ) -> tuple[torch.Tensor, KVCache]:
+    """token [B,1] -> (logits [B,1,V] fp32, cache). One new token per
+    sequence; every slot advances its own ``cur_len``. ``dtype``: the
+    compute dtype (default the weights').
 
     ``attn_impl``: "flash" (default) runs ``kernels.ops.flash_decode`` —
     the hand CUDA kernel for tensors on the card, its plain version on the
@@ -287,7 +327,10 @@ def decode_step(model: LM, token: torch.Tensor, cache: KVCache,
     softmax attention in f32. The new token's K/V go to slot pos % Sc (a
     full SWA ring is all valid: the oldest position is overwritten), and
     under ``kv_quant`` they are quantized there and the layer's cache is
-    dequantized before the attention."""
+    dequantized to the compute dtype before the attention. A cache of
+    another float dtype than the compute dtype is attended with both
+    widened to fp32, as the reference's kernel upcasts them (the hand
+    kernel takes one dtype)."""
     if attn_impl not in ("flash", "dense"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}; "
                          "expected 'flash' or 'dense'")
@@ -295,7 +338,7 @@ def decode_step(model: LM, token: torch.Tensor, cache: KVCache,
     dev = model.device
     B = token.shape[0]
     Sc = cache.k.shape[2]
-    x = model.embed(token.to(dev).long())
+    x = _embed(model, token.to(dev).long(), dtype or model.dtype)
     pos = cache.cur_len.to(torch.int32).expand(B)
     write_idx = (pos % Sc).long()
     positions = pos[:, None]
@@ -321,11 +364,14 @@ def decode_step(model: LM, token: torch.Tensor, cache: KVCache,
             v_l[b_idx, write_idx] = v_new[:, 0].to(v_l.dtype)
             k_att, v_att = k_l, v_l
         if attn_impl == "flash":
-            a = ops.flash_decode(q[:, 0].contiguous(), k_att, v_att, n_valid)
+            qa = q[:, 0].contiguous()
+            if k_att.dtype != qa.dtype:
+                qa, k_att, v_att = qa.float(), k_att.float(), v_att.float()
+            a = ops.flash_decode(qa, k_att, v_att, n_valid)
             attn = a.to(x.dtype)[:, None]                # [B,1,H,Dh]
         else:
             attn = decode_attention(q, k_att, v_att, n_valid)
-        x = x + blk.wo(attn.reshape(B, 1, -1))
+        x = x + _proj(blk.wo, attn.reshape(B, 1, -1))
         x = _ffn(blk, cfg, x)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = _head(model, x)

@@ -141,10 +141,14 @@ class ServeEngine:
                  folds the same triple into a JAX key; the two frameworks'
                  bits differ.)
     device:      where the cache lives and the model runs (default cuda).
+    dtype:       the compute dtype of every prefill and decode tick and of
+                 the cache (fp32, bf16 or fp16), as the reference's
+                 ``dtype``; default the weights' own (the reference's
+                 default, fp32, for the fp32 models it builds).
     """
 
     def __init__(self, model: tf.LM, cfg: LMConfig, *, pipeline=None,
-                 slots: int = 4, max_len: int = 256, dtype=torch.float32,
+                 slots: int = 4, max_len: int = 256, dtype=None,
                  sampler: str = "greedy", temperature: float = 1.0,
                  seed: int = 0, device=None):
         if sampler not in SAMPLERS:
@@ -161,7 +165,7 @@ class ServeEngine:
         self.pipeline = pipeline
         self.slots = slots
         self.max_len = max_len
-        self.dtype = dtype
+        self.dtype = model.dtype if dtype is None else dtype
         self.sampler = sampler
         self.temperature = float(temperature)
         self.seed = int(seed)
@@ -173,7 +177,8 @@ class ServeEngine:
         self.active: list[Request | None] = [None] * slots
         self._next_rid = 0
         self.stats = EngineStats(slots=slots)
-        self.cache = tf.init_cache(cfg, slots, max_len, dtype, self.device)
+        self.cache = tf.init_cache(cfg, slots, max_len, self.dtype,
+                                   self.device)
 
     # legacy counters (benchmarks/tests read these)
     @property
@@ -321,7 +326,8 @@ class ServeEngine:
             lens[j] = len(r.prompt)
         logits, cache = tf.prefill(
             self.model, torch.as_tensor(batch).to(self.device),
-            max_len=self.max_len, prompt_lens=torch.as_tensor(lens))
+            max_len=self.max_len, prompt_lens=torch.as_tensor(lens),
+            dtype=self.dtype)
         first = logits[:, 0].float().cpu().numpy()          # [B,V]
         self.stats.prefills += 1
         span = cache.k.shape[2]
@@ -360,7 +366,8 @@ class ServeEngine:
                 if r is not None and r.out_tokens:
                     last[i, 0] = r.out_tokens[-1]
             logits, self.cache = tf.decode_step(
-                self.model, torch.as_tensor(last).to(self.device), self.cache)
+                self.model, torch.as_tensor(last).to(self.device), self.cache,
+                dtype=self.dtype)
             self.stats.decode_ticks += 1
             self.stats.occupied_slot_ticks += n_active
         # ---- overlap window: retrieval runs behind the launched decode

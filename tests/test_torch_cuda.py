@@ -250,6 +250,233 @@ def test_flash_decode_kernel_tickets_reset_between_calls(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# flash_decode on bf16 and fp16 q/K/V
+# ---------------------------------------------------------------------------
+_HALF = {"bf16": torch.bfloat16, "fp16": torch.float16}
+
+
+def _flash_args_16(seed, b, s, kvh, g, dh, cur, device, dtype, offset=0):
+    """``_flash_args`` in a 2-byte ``dtype``: k and v ``offset`` elements
+    into their buffers (off 16-byte alignment when offset % 8 != 0)."""
+    rng = np.random.default_rng(seed)
+    q = _t(rng.normal(size=(b, g * kvh, dh)).astype(np.float32)).to(
+        device, dtype)
+    kv = []
+    for _ in range(2):
+        n = b * s * kvh * dh
+        flat = torch.zeros(n + offset, dtype=dtype, device=device)
+        flat[offset:] = _t(rng.normal(size=n).astype(np.float32)).to(
+            device, dtype)
+        kv.append(flat[offset:].view(b, s, kvh, dh))
+    cur = cur if np.isscalar(cur) else _t(np.asarray(cur, np.int32)).to(
+        device)
+    return q, kv[0], kv[1], cur
+
+
+def _flash_16_case(args, codec):
+    """One call, counted on the codec's instance, against the plain
+    version on the same 2-byte tensors (2e-5: both widen exactly)."""
+    from repro_torch.core import dispatch
+    dispatch.reset()
+    got = tops.flash_decode(*args)
+    assert got.dtype == torch.float32
+    assert dispatch.get(f"kernel.flash_decode.{codec}") == 1
+    assert dispatch.get("kernel.flash_decode") == 1
+    torch.testing.assert_close(got, tref.flash_decode_ref(*args), rtol=0,
+                               atol=2e-5)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["bf16", "fp16"])
+@pytest.mark.parametrize("b,g,dh,s,cur", [
+    # the served caches (4 slots x 256): olmoe G 1 Dh 128, granite G 3 Dh
+    # 64, danube G 4 Dh 120 (240-byte rows), llama / minitron G 4 Dh 128
+    (4, 1, 128, 256, [2, 86, 171, 256]), (4, 3, 64, 256, [2, 86, 171, 256]),
+    (4, 4, 120, 256, [2, 86, 171, 256]), (4, 4, 128, 256, [2, 86, 171, 256]),
+    (2, 4, 120, 4096, [4096, 1000]),
+    (8, 4, 128, 8192, [1, 33, 1000, 4097, 5000, 6143, 8191, 8192]),
+    (1, 4, 128, 8192, [8192]), (2, 1, 64, 8192, [8192, 5001]),
+    (8, 4, 128, 100, [1, 15, 16, 17, 31, 32, 48, 100]),   # tile edges
+    (2, 16, 128, 300, [300, 77]),            # two head groups
+    (2, 2, 1000, 64, [64, 20]),              # wide rows, one ring stage
+    (3, 4, 36, 200, [200, 33, 5]),           # Dh % 8 != 0: element copies
+    (3, 4, 30, 200, [200, 33, 5])])
+def test_flash_decode_16bit_kernel_matches_plain(cuda_device, codec, b, g,
+                                                 dh, s, cur):
+    """The bf16 and fp16 instances at every served geometry (G 1, 3, 4;
+    Dh 64, 120, 128), S 256 and 8,192, and the element-by-element path
+    (rows not a whole number of 16 bytes)."""
+    _flash_16_case(_flash_args_16(30, b, s, 2, g, dh, cur, cuda_device,
+                                  _HALF[codec]), codec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["bf16", "fp16"])
+@pytest.mark.parametrize("cur", [5000, 9000, [9000, 1, 8192, 40],
+                                 [0, 8192, 0, 3]])
+def test_flash_decode_16bit_scalar_clamped_and_zero_cur_len(cuda_device,
+                                                            codec, cur):
+    """A scalar ``cur_len``, lengths past S (clamped to S), and rows at 0
+    (zeros, as the fp32 instance writes)."""
+    q, k, v, c = _flash_args_16(31, 4, 8192, 8, 4, 128, cur, cuda_device,
+                                _HALF[codec])
+    got = tops.flash_decode(q, k, v, c)
+    want = tref.flash_decode_ref(q, k, v, c)
+    zero = torch.as_tensor(cur, device=cuda_device).reshape(-1).expand(4) == 0
+    assert bool((got[zero] == 0).all())
+    torch.testing.assert_close(got[~zero], want[~zero], rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["bf16", "fp16"])
+@pytest.mark.parametrize("offset", [1, 4])       # 2 and 8 bytes off 16
+def test_flash_decode_16bit_misaligned_cache(cuda_device, codec, offset):
+    """A cache view off 16-byte alignment takes the element-copy instance
+    (Dh 128 and 120), and matches the plain version."""
+    for dh in (128, 120):
+        _flash_16_case(_flash_args_16(32, 3, 300, 2, 4, dh, [300, 1, 45],
+                                      cuda_device, _HALF[codec], offset),
+                       codec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["bf16", "fp16"])
+def test_flash_decode_16bit_tickets_reset_between_calls(cuda_device, codec):
+    """Launches of both 16-bit instances and the fp32 one back to back on
+    one stream, through the one cached scratch: each leaves its counters
+    at zero for the next."""
+    shapes = [(8, 4, 128, 8192, [8192, 4000, 1, 17, 8192, 300, 5000, 64]),
+              (2, 8, 64, 3000, [3000, 1500]),
+              (8, 4, 120, 4096, [1, 4096, 4096, 16, 700, 33, 2048, 4095])]
+    calls = [_flash_args_16(33 + i, b, s, 8, g, dh, cur, cuda_device,
+                            _HALF[codec])
+             for i, (b, g, dh, s, cur) in enumerate(shapes)]
+    calls.insert(1, _flash_args(36, 4, 2000, 8, 4, 128, [2000, 1, 999, 64],
+                                cuda_device))
+    outs = [tops.flash_decode(*a) for a in calls]
+    for a, o in zip(calls, outs):
+        torch.testing.assert_close(o, tref.flash_decode_ref(*a), rtol=0,
+                                   atol=2e-5)
+    again = tops.flash_decode(*calls[0])
+    torch.testing.assert_close(again, outs[0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["bf16", "fp16"])
+@pytest.mark.parametrize("b,g,dh,s,cur", [
+    (3, 4, 1152, 300, [300, 33, 1]), (2, 2, 2048, 200, [200, 77]),
+    (2, 1, 1030, 50, 50)])
+def test_flash_decode_16bit_wide_heads_match_plain(cuda_device, codec, b, g,
+                                                   dh, s, cur):
+    """Heads past 1,024 elements take the wide kernel's 16-bit instance."""
+    _flash_16_case(_flash_args_16(34, b, s, 2, g, dh, cur, cuda_device,
+                                  _HALF[codec]), codec)
+
+
+@pytest.mark.cuda
+def test_flash_decode_mixed_dtypes_raise(cuda_device):
+    """On the card q, k and v share one dtype; the error names them (the
+    wrapper never casts)."""
+    q, k, v, cur = _flash_args(35, 2, 64, 2, 2, 64, [64, 3], cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tops.flash_decode(q, k.to(torch.bfloat16), v.to(torch.bfloat16), cur)
+    with pytest.raises(TypeError, match="float16"):
+        tops.flash_decode(q.to(torch.bfloat16), k.to(torch.bfloat16),
+                          v.to(torch.float16), cur)
+    with pytest.raises(TypeError, match="float64"):
+        tops.flash_decode(q.double(), k.double(), v.double(), cur)
+
+
+def _lm_16(arch, device, weights=torch.float32, seed=0):
+    """A smoke-config LM on ``device`` with the CPU's seeded weights."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as ttf
+    cfg = get_smoke_config(arch)
+    cpu = ttf.init_lm(cfg, seed=seed, device="cpu")
+    model = ttf.LM(cfg, device=device, dtype=weights).requires_grad_(False)
+    model.load_state_dict({n: w.to(weights) for n, w in
+                           cpu.state_dict().items()})
+    return cfg, model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "h2o-danube-3-4b",
+                                  "olmoe-1b-7b"])
+def test_bf16_decode_step_flash_matches_dense(cuda_device, arch):
+    """bf16 weights, activations and cache on the card: 8 decode ticks
+    through the bf16 ``flash_decode`` (one launch a layer a tick, no other
+    attention) against the dense path from the same cache, logits within
+    3e-2 x max|logit| (the bf16 casts of two fp32 attention outputs that
+    differ in summation order)."""
+    from repro_torch.core import dispatch
+    from repro_torch.models import transformer as ttf
+    cfg, model = _lm_16(arch, cuda_device, torch.bfloat16)
+    toks = _t(np.random.default_rng(42).integers(
+        0, cfg.vocab, size=(2, 40)).astype(np.int32)).to(cuda_device)
+    lens = _t(np.array([40, 31], np.int32))
+    logits, cache = ttf.prefill(model, toks, max_len=48, prompt_lens=lens)
+    assert cache.k.dtype == torch.bfloat16 and logits.dtype == torch.float32
+    nxt = logits[:, 0].argmax(-1, keepdim=True)
+    for _ in range(8):
+        dense = ttf.KVCache(cache.k.clone(), cache.v.clone(),
+                            cache.cur_len.clone())
+        dispatch.reset()
+        lf, cache = ttf.decode_step(model, nxt, cache)
+        assert dispatch.get("kernel.flash_decode.bf16") == cfg.n_layers
+        assert dispatch.get("kernel.flash_decode") == cfg.n_layers
+        ld, _ = ttf.decode_step(model, nxt, dense, attn_impl="dense")
+        torch.testing.assert_close(lf, ld, rtol=0,
+                                   atol=3e-2 * ld.abs().max().item())
+        nxt = lf[:, 0].argmax(-1, keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "olmoe-1b-7b"])
+def test_bf16_serve_engine_on_card_matches_cpu(cuda_device, arch):
+    """``ServeEngine(dtype=torch.bfloat16)`` over fp32 weights on the card
+    against the same engine on the CPU: greedy tokens equal up to each
+    request's first position where the CPU's top-2 margin is under 3e-2 x
+    max|logit|, at least 8 positions compared; the card's logits within
+    that tolerance of the CPU's there."""
+    from repro_torch.serve.engine import ServeEngine
+    tol = 3e-2
+    rows = {}
+    engines = {}
+    for dev in ("cpu", cuda_device):
+        cfg, model = _lm_16(arch, dev)
+        eng = ServeEngine(model, cfg, slots=2, max_len=64,
+                          dtype=torch.bfloat16, device=dev)
+        seen, sample = {}, eng._sample
+
+        def rec(row, rid, t, seen=seen, sample=sample):
+            seen[(rid, t)] = np.asarray(row, np.float32)
+            return sample(row, rid, t)
+
+        eng._sample = rec
+        rng = np.random.default_rng(43)
+        prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
+                   for n in (7, 19, 36, 12, 25, 3, 44, 16)]
+        engines[str(dev)] = eng.generate(prompts, max_new_tokens=10)
+        rows[str(dev)] = seen
+        assert eng.cache.k.dtype == torch.bfloat16
+    got, want = engines[str(cuda_device)], engines["cpu"]
+    compared = 0
+    for rid, (g, w) in enumerate(zip(got, want)):
+        for t, (gt, wt) in enumerate(zip(g, w)):
+            row = rows["cpu"][(rid, t)]
+            scale = np.abs(row).max()
+            np.testing.assert_allclose(rows[str(cuda_device)][(rid, t)], row,
+                                       rtol=0, atol=tol * scale)
+            top2 = np.sort(row)[-2:]
+            if top2[1] - top2[0] < tol * scale:
+                break
+            assert gt == wt, (rid, t)
+            compared += 1
+    assert compared >= 8, compared
+
+
+# ---------------------------------------------------------------------------
 # distance_topk (ops.flat_topk)
 # ---------------------------------------------------------------------------
 def _encoded(codec_name, x, device):

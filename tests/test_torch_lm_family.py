@@ -229,17 +229,21 @@ def test_launch_serve_main_serves_each_lm_on_cpu(arch):
     assert out["engine"].cache.k.shape[2] == ttf.cache_len(cfg, 129)
 
 
-def test_kv_quant_error_is_the_reference_error():
+@pytest.mark.parametrize("d_model,n_heads,n_kv_heads", [
+    (1920, 16, 4), (3840, 32, 8)])          # half and all of danube's width
+def test_kv_quant_error_is_the_reference_error(d_model, n_heads, n_kv_heads):
     """The int8 cache's logit gap to the fp32 cache grows with d_model in
     the reference's scheme (at danube's full width it leaves the bound of
-    the reference's smoke test). At d_model 1,920 and Dh 120, 16
-    teacher-forced ticks: the port's gap is the reference's within 5 %,
-    and its int8 decode stays within a tenth of that gap of the
-    reference's."""
+    the reference's smoke test). At d_model 1,920 and at danube's 3,840,
+    Dh 120 (2 layers, d_ff 512, vocab 1,024: ~0.4 GB of fp32 weights at
+    3,840), 16 teacher-forced ticks: the port's gap is the reference's
+    within 5 %, and its int8 decode stays within a tenth of that gap of
+    the reference's."""
     from repro.configs.base import LMConfig as JLMConfig
     from repro_torch.configs.base import LMConfig
-    kw = dict(name="wide", n_layers=2, d_model=1920, n_heads=16,
-              n_kv_heads=4, d_ff=512, vocab=1024, rope_theta=10000.0)
+    kw = dict(name="wide", n_layers=2, d_model=d_model, n_heads=n_heads,
+              n_kv_heads=n_kv_heads, d_ff=512, vocab=1024,
+              rope_theta=10000.0)
     params = jtf.init_lm(jax.random.PRNGKey(0), JLMConfig(**kw))
     toks = np.random.default_rng(5).integers(
         0, kw["vocab"], size=(2, 80)).astype(np.int32)

@@ -145,15 +145,19 @@ def test_prefill_and_decode_logits_match_reference(lm):
 
 def test_unported_model_configs_raise(lm):
     """What the port still refuses, naming the ROADMAP item that holds
-    it: non-fp32 weights, and the reference's non-LM architectures. The
-    LM configs (SWA, MoE, kv_quant) are served since they were ported."""
+    it: the reference's non-LM architectures. bf16 and fp16 weights and
+    the LM configs (SWA, MoE, kv_quant) build since they were ported;
+    weights of any other dtype are refused."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MoEConfig
     _, _, cfg, _ = lm
     for dtype in (torch.bfloat16, torch.float16):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttf.LM(cfg, device="cpu", dtype=dtype)
+        model = ttf.LM(cfg, device="cpu", dtype=dtype)
+        assert model.dtype == dtype
+        assert all(w.dtype == dtype for w in model.parameters())
+    with pytest.raises(ValueError, match="fp32, bf16 or fp16"):
+        ttf.LM(cfg, device="cpu", dtype=torch.float64)
     for arch in ("graphsage-reddit", "mind", "wide-deep", "bert4rec", "fm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
