@@ -105,12 +105,13 @@ Phases (none catches an exception; any failure exits non-zero):
 6. The HNSW served path over int8 rows, ``--rag --index hnsw
    --index-dtype int8``, with the same model shape, corpus and requests:
    the int8 instances of ``gather_distance`` and ``beam_search`` and
-   ``flash_decode`` must launch; the served keys must equal a CPU
-   ``HNSW(dtype="int8")`` of the same corpus; a bf16 HNSW of the corpus
-   (its run counted) must return the CPU's keys; and the hop kernel's
-   route, an fp32, bf16 and int8 HNSW of the corpus searched with the
-   per-hop layer-0 beam (``beam_impl="jnp"``, each run counted), must
-   return the CPU's keys.
+   ``flash_decode`` must launch; the served keys must equal a CPU copy
+   of the served index (the same host graph, searched by the plain
+   versions); a bf16 HNSW of the corpus built on the card (its run
+   counted) must return a CPU copy's keys; and the hop kernel's route,
+   an fp32, bf16 and int8 HNSW of the corpus searched with the per-hop
+   layer-0 beam (``beam_impl="jnp"``, each run counted), must return the
+   CPU copy's keys.
 7. The same int8 HNSW served path with ``--store-dir``, cold and then
    warm: the warm run restores the index, inserts nothing (the epoch, the
    WAL and the snapshots stay as the cold run left them) and retrieves
@@ -254,6 +255,36 @@ Phases (none catches an exception; any failure exits non-zero):
    olmoe-1b-7b's layer 0 MoE in bf16 on 256 tokens, card against CPU:
    routing equal where the top-k clears a tie by 1e-5.
 
+13. The off-path models at their published configs (random weights from a
+   seeded CUDA ``torch.Generator``, TF32 off), one resident at a time;
+   every check runs the same weights and inputs on the CPU as well and
+   holds the card within 1e-4 x max|value| of it. (a) The recsys serve
+   steps of the reference's ``launch/steps.py``: ``fm_forward`` (39 x 1M
+   x 10 table) and ``wide_deep_forward`` (40 x 1M x 32, MLP 1024-512-256)
+   on ``ctr_batches`` at serve_p99 (B 512; card against CPU) and at
+   serve_bulk (B 262,144; timed, finite); ``bert4rec_user_embedding`` on
+   ``masked_item_batches`` (B 512, S 200) and ``mind_user_embedding`` on
+   ``seq_rec_batches`` (B 512, S 50), card against CPU; each step's wall
+   ms, device ms (queued) and peak GB. (b) retrieval_cand: one MIND
+   user's 4 interests against its 1M x 64 item table through
+   ``FlatIndex.build(items, metric="ip").query(k=100)``: exactly one
+   ``distance_topk`` launch (counted), (d, id) against its plain version
+   on the same rows (``assert_topk_agree``), timed beside ``torch.mm`` +
+   ``torch.topk`` and its bound. (c) graphsage-reddit: minibatch_lg's
+   graph, ``make_graph(232,965, 492, 602, 41)`` (114,618,780 edges, 2,888
+   past the published count: the generator takes an integer degree),
+   built on the host in a process started before phase 10 (its seconds
+   logged, and how long phase 13 waited for it); the CSR and features on
+   the card, ``sample_neighbors`` at fanouts 15 and 10 for 1,024 seeds,
+   the feature gather and ``sage_sampled_forward``: every sampled id a
+   CSR neighbour of its seed (or the seed at zero degree), the logits
+   near the CPU's on the same ids, the sampled loss finite, the sampler
+   and the step timed; full_graph_sm (2,708 nodes, the first 10,556 edges
+   of ``make_graph`` at degree 4, d_feat 1,433) through
+   ``sage_full_forward`` twice on the card, equal bit for bit, and near
+   the CPU; molecule (128 graphs x 30 nodes) through
+   ``sage_molecule_forward``, card against CPU.
+
 Each phase's seconds are logged. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
 repository around it, the script exits non-zero and prints no result.
@@ -372,6 +403,19 @@ KVQ_PROMPT, KVQ_STEPS = 64, 16
 # phase 12: bf16. (e) danube's depth cut to 4 layers under kv_quant
 BF16_KVQ_LAYERS = 4
 BF16_LLAMA = "llama3-8b bf16 flat int8"
+# phase 13: the off-path models (configs/{fm,wide_deep,bert4rec,mind,
+# graphsage_reddit}.py) at the reference's serve and graph shapes
+# (configs/base.py RECSYS_SHAPES, GNN_SHAPES), each recsys model's serve
+# step as launch/steps.py serves it, and retrieval_cand's k (steps.py)
+RECSYS_ARCHS = ("fm", "wide-deep", "bert4rec", "mind")
+SERVE_STEP = {"fm": "fm_forward", "wide_deep": "wide_deep_forward",
+              "bert4rec": "bert4rec_user_embedding",
+              "mind": "mind_user_embedding"}
+RETRIEVAL_K = 100
+RETRIEVAL_PATH = "mind retrieval_cand"
+# minibatch_lg: make_graph takes an integer degree; 232,965 x 492 =
+# 114,618,780 edges against the published 114,615,892
+SAGE_DEGREE = 492
 # the kernels each served path must launch
 HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
              "kernel.flash_decode")
@@ -397,6 +441,7 @@ MAIN_PATH = {
     "gather_distance.int8": "ivf int8",
     "distance_topk.fp32": "flat fp32", "distance_topk.bf16": "flat bf16",
     "distance_topk.int8": "flat int8",
+    "distance_topk.retrieval_cand": RETRIEVAL_PATH,
     "embedding_bag.fp32": BAG_ENTRY, "embedding_bag.bf16": BAG_ENTRY,
     **{f"flash_decode.{a}": f"{a} flat int8" for a in OTHER_LMS},
     "flash_decode.bf16": BF16_LLAMA,
@@ -409,7 +454,8 @@ COUNTER_OF = {**{f"greedy_descent.{c}": f"hnsw.descent_launches.{c}"
                  for c in ("fp32", "bf16", "int8")},
               **{f"flash_decode.{a}": "kernel.flash_decode"
                  for a in OTHER_LMS},
-              "flash_decode.bf16": "kernel.flash_decode.bf16"}
+              "flash_decode.bf16": "kernel.flash_decode.bf16",
+              "distance_topk.retrieval_cand": "kernel.distance_topk.fp32"}
 # the descent is an entry point of gather_distance.cu
 SOURCE_OF = {"greedy_descent": "gather_distance"}
 REPLACES = {
@@ -2236,31 +2282,37 @@ def phase_serve_int8(torch) -> dict:
     idx = {("int8", "cuda"): rag.index}
     del res, rag
 
-    def hnsw_keys(dtype, device):
-        idx[dtype, device] = make_index("hnsw", device=device,
+    def hnsw_keys(dtype):
+        idx[dtype, "cuda"] = make_index("hnsw", device="cuda",
                                         **dict(conf, dtype=dtype))
-        idx[dtype, device].bulk_insert(keys, vecs)
-        return idx[dtype, device].query_batch(qv, k=3)[0]
+        idx[dtype, "cuda"].bulk_insert(keys, vecs)
+        return idx[dtype, "cuda"].query_batch(qv, k=3)[0]
 
-    want = hnsw_keys("int8", "cpu")
-    assert got == want, f"served hnsw int8 keys {got} != CPU index {want}"
+    def cpu_keys(dtype):
+        """The card index's keys searched on a CPU copy: the same host
+        graph and rows, a CPU device graph, the plain versions."""
+        cpu = idx[dtype, "cpu"] = copy.copy(idx[dtype, "cuda"])
+        cpu.device, cpu._devices = torch.device("cpu"), [torch.device("cpu")]
+        cpu._device_graph = None
+        return cpu.query_batch(qv, k=3)[0]
+
+    want = cpu_keys("int8")
+    assert got == want, f"served hnsw int8 keys {got} != CPU copy {want}"
     out["keys"] = {"int8 served": got}
     dispatch.reset()
-    card = hnsw_keys("bf16", "cuda")
+    card = hnsw_keys("bf16")
     out["counters_bf16"] = dispatch.snapshot()
-    cpu = hnsw_keys("bf16", "cpu")
-    assert card == cpu, f"hnsw bf16: card {card} != CPU {cpu}"
+    cpu = cpu_keys("bf16")
+    assert card == cpu, f"hnsw bf16: card {card} != CPU copy {cpu}"
     out["keys"]["bf16"] = card
-    log("hnsw keys (int8 served == CPU; bf16 card == CPU) "
+    log("hnsw keys (int8 served == CPU copy; bf16 card == CPU copy) "
         + json.dumps(out["keys"]))
-    # the hop kernel's route: these indexes (and an fp32 one, searched on
-    # the CPU through a copy) searched with the per-hop layer-0 beam
-    # (beam_impl="jnp"), each hop one gather_distance launch; its launches
-    # are the codec's gather launches less the one descent a search
-    hnsw_keys("fp32", "cuda")
-    idx["fp32", "cpu"] = copy.copy(idx["fp32", "cuda"])
-    idx["fp32", "cpu"].device = torch.device("cpu")
-    idx["fp32", "cpu"]._device_graph = None
+    # the hop kernel's route: these indexes (and an fp32 one) searched
+    # with the per-hop layer-0 beam (beam_impl="jnp"), each hop one
+    # gather_distance launch; its launches are the codec's gather
+    # launches less the one descent a search
+    hnsw_keys("fp32")
+    cpu_keys("fp32")
 
     def per_hop_keys(dtype, device):
         c = copy.copy(idx[dtype, device])
@@ -4123,6 +4175,340 @@ def phase_bf16(torch, flat_keys) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the off-path models
+# ---------------------------------------------------------------------------
+def build_sage_graph(out_dir: str) -> None:
+    """minibatch_lg's graph by ``data.synthetic.make_graph`` on the host,
+    in a process of its own (started before phase 10, so that the host
+    build, ~100 s, overlaps phases 10 to 12): the CSR, features and labels saved
+    under ``out_dir`` as ``.npy``, the build's seconds in ``graph.json``."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_graph
+
+    dims = {s.name: s for s in get_config("graphsage-reddit").shapes}
+    shape = dims["minibatch_lg"]
+    t0 = time.perf_counter()
+    g = make_graph(shape["n_nodes"], SAGE_DEGREE, shape["d_feat"],
+                   shape["n_classes"], seed=0)
+    build_s = time.perf_counter() - t0
+    out = Path(out_dir)
+    for name in ("row_ptr", "col_idx", "feats", "labels"):
+        np.save(out / f"{name}.npy", getattr(g, name))
+    (out / "graph.json").write_text(json.dumps(
+        {"make_graph_s": build_s, "edges": int(g.col_idx.shape[0]),
+         "save_s": time.perf_counter() - t0 - build_s}))
+
+
+def start_graph_build():
+    """-> (process, directory) of ``build_sage_graph``."""
+    import multiprocessing
+
+    d = store_dir("sage_graph")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=build_sage_graph, args=(str(d),))
+    proc.start()
+    return proc, d
+
+
+def stop_graph_build(graph) -> None:
+    proc, d = graph
+    if proc.is_alive():
+        proc.terminate()
+    proc.join(timeout=30)
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def near_cpu(torch, got, want, what: str) -> dict:
+    """Card against CPU: finite, the same shape, within 1e-4 x max|value|
+    -> {max_abs_err, scale}."""
+    got, want = got.float().cpu(), want.float()
+    assert got.shape == want.shape, f"{what}: {got.shape} != {want.shape}"
+    assert bool(torch.isfinite(got).all()), f"{what}: not finite"
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    assert err <= 1e-4 * scale, f"{what}: card vs CPU {err} (scale {scale})"
+    return {"max_abs_err": err, "scale": scale}
+
+
+def step_times(torch, fn, reps: int = 5) -> dict:
+    """A served step's wall ms (host clock, synchronized a call), device
+    ms (queued behind a spin kernel) and peak GB (weights included)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    return {"wall_ms": wall, "device_ms": queued_ms(torch, fn, reps),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def recsys_inputs(kind: str, cfg, b: int, seed: int):
+    """A serve step's numpy inputs from ``data.synthetic``: fm and
+    wide-deep ``ctr_batches`` (ids, dense), bert4rec
+    ``masked_item_batches`` (the item sequence), mind ``seq_rec_batches``
+    (behaviour, mask)."""
+    from repro_torch.data import synthetic
+
+    if kind in ("fm", "wide_deep"):
+        bt = next(synthetic.ctr_batches(cfg.n_sparse, cfg.rows_per_field,
+                                        cfg.n_dense, b, seed=seed))
+        return bt["sparse_ids"], bt["dense"]
+    if kind == "bert4rec":
+        bt = next(synthetic.masked_item_batches(cfg.n_items, cfg.seq_len, b,
+                                                seed=seed))
+        return (bt["item_seq"],)
+    bt = next(synthetic.seq_rec_batches(cfg.n_items, cfg.seq_len, b,
+                                        seed=seed))
+    return bt["behavior"], bt["behavior_mask"]
+
+
+def retrieval_cand(torch, params, cfg, behavior, mask) -> tuple[dict, dict]:
+    """launch/steps.py's retrieval_cand: one MIND user's interests against
+    its item table, ``FlatIndex.build(items, metric="ip").query(k=100)``,
+    one ``distance_topk`` launch (counted), held against the plain version
+    on the same rows and timed beside it, ``torch.mm`` + ``torch.topk``
+    and the bound -> (record, counters)."""
+    from repro_torch.core import dispatch
+    from repro_torch.core.flat import FlatIndex
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import recsys as trs
+
+    k = RETRIEVAL_K
+    interests = trs.mind_user_embedding(
+        params, cfg, torch.from_numpy(behavior[:1]).cuda(),
+        torch.from_numpy(mask[:1]).cuda())[0]
+    qn = interests.cpu().numpy()
+    t0 = time.perf_counter()
+    index = FlatIndex.build(params["items"].cpu().numpy(), metric="ip")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    dispatch.reset()
+    t0 = time.perf_counter()
+    d, i = index.query(qn, k=k)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = dispatch.snapshot()
+    assert counts.get("kernel.distance_topk", 0) == 1, counts
+    db, q = index.vectors, torch.from_numpy(qn).cuda()
+    rd, ri = ref.distance_topk_ref(db, q, k, metric="ip")
+    frac = assert_topk_agree(torch, (d, i), (rd, ri), "retrieval_cand")
+    b_ms, b_by = topk_bound(db, None, q.shape[0], k)
+    rec = dict(
+        B=q.shape[0], k=k, rows=index.n, dim=db.shape[1],
+        interests_identical=bool(torch.equal(
+            interests, interests[:1].expand_as(interests))),
+        ids_equal_rows=frac, exact=bool(torch.equal(i, ri)
+                                        and torch.equal(d, rd)),
+        max_abs_err=(d - rd).abs().max().item(), index_build_s=build_s,
+        query_wall_ms=wall_ms,
+        ms=time_ms(torch, lambda: ops.flat_topk(db, q, k, metric="ip"), 20),
+        plain_ms=time_ms(torch, lambda: ref.distance_topk_ref(
+            db, q, k, metric="ip"), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_topk_ms(torch, db, None, q, k, metric="ip"),
+        library="torch.mm (TF32 off) + torch.topk on the item rows",
+        shapes=f"db {index.n}x{db.shape[1]} fp32 (MIND's item table), "
+               f"ip, B {q.shape[0]} (one user's interests), k {k}",
+        **device_split(torch, lambda: ops.flat_topk(db, q, k, metric="ip"),
+                       "distance_topk"))
+    return rec, counts
+
+
+def recsys_model(torch, arch: str) -> dict:
+    """One recsys model at its published config, random weights from a
+    seeded CUDA generator: its serve step (``SERVE_STEP``) at serve_p99
+    on the card and on the CPU with the same weights and inputs, timed;
+    fm and wide-deep also at serve_bulk (timed, finite); mind also
+    ``retrieval_cand``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import recsys as trs
+    from repro_torch.models.common import tree_tensors, tree_to
+
+    conf = get_config(arch)
+    cfg, shapes = conf.model, {s.name: s for s in conf.shapes}
+    kind = cfg.kind
+    fn = getattr(trs, SERVE_STEP[kind])
+    t0 = time.perf_counter()
+    params = trs.INIT[kind](cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0, "step": SERVE_STEP[kind],
+           "weights_gb": sum(t.numel() * t.element_size()
+                             for t in tree_tensors(params)) / 1e9}
+    for shape in ("serve_p99", "serve_bulk"):
+        if shape == "serve_bulk" and kind not in ("fm", "wide_deep"):
+            continue
+        b = shapes[shape]["batch"]
+        host = recsys_inputs(kind, cfg, b, seed=1)
+        args = [torch.from_numpy(a).cuda() for a in host]
+        got = fn(params, cfg, *args)
+        rec = {"B": b, "out_shape": list(got.shape),
+               **step_times(torch, lambda: fn(params, cfg, *args))}
+        if shape == "serve_p99":
+            t0 = time.perf_counter()
+            cpu = tree_to(params, "cpu")
+            want = fn(cpu, cfg, *(torch.from_numpy(a) for a in host))
+            rec.update(near_cpu(torch, got, want, f"{arch} {shape}"),
+                       cpu_s=time.perf_counter() - t0)
+            del cpu, want
+        else:
+            assert bool(torch.isfinite(got).all()), f"{arch} {shape}"
+        out[shape] = rec
+        log(f"{arch} {shape} " + json.dumps(rec))
+        if kind == "mind":
+            out["retrieval_cand"], out["counters"] = retrieval_cand(
+                torch, params, cfg, *host)
+            log("mind retrieval_cand " + json.dumps(out["retrieval_cand"]))
+        del got, args
+    return out
+
+
+def sage_full_graph_sm(torch, cfg, shape) -> dict:
+    """full_graph_sm through ``sage_full_forward``: twice on the card,
+    equal bit for bit (no float atomics), and near the CPU. The graph is
+    ``make_graph`` at degree ceil(E / N), its edge list cut to the
+    published E."""
+    from repro_torch.data.synthetic import make_graph
+    from repro_torch.models import gnn as tgnn
+    from repro_torch.models.common import tree_to
+
+    n, e = shape["n_nodes"], shape["n_edges"]
+    g = make_graph(n, -(-e // n), shape["d_feat"], shape["n_classes"],
+                   seed=2)
+    host = [torch.from_numpy(a) for a in (g.feats, g.edge_src[:e],
+                                          g.edge_dst[:e])]
+    args = [a.cuda() for a in host]
+    params = tgnn.init_sage(cfg, shape["d_feat"], shape["n_classes"],
+                            seed=1, device="cuda")
+    runs = [tgnn.sage_full_forward(params, cfg, *args) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1]), "full_graph_sm: two runs differ"
+    want = tgnn.sage_full_forward(tree_to(params, "cpu"), cfg, *host)
+    return {"nodes": n, "edges": e, "runs_bit_equal": True,
+            **near_cpu(torch, runs[0], want, "full_graph_sm"),
+            "call_ms": time_ms(torch, lambda: tgnn.sage_full_forward(
+                params, cfg, *args), 10)}
+
+
+def sage_molecule(torch, cfg, shape) -> dict:
+    """molecule (128 graphs x 30 nodes) through ``sage_molecule_forward``,
+    card against CPU."""
+    from repro_torch.data.synthetic import molecule_batches
+    from repro_torch.models import gnn as tgnn
+    from repro_torch.models.common import tree_to
+
+    bt = next(molecule_batches(shape["batch"], shape["n_nodes"],
+                               shape["d_feat"], shape["n_classes"], seed=3))
+    host = [torch.from_numpy(bt[k]) for k in ("feats", "adj")]
+    args = [a.cuda() for a in host]
+    params = tgnn.init_sage(cfg, shape["d_feat"], shape["n_classes"],
+                            seed=2, device="cuda")
+    got = tgnn.sage_molecule_forward(params, cfg, *args)
+    want = tgnn.sage_molecule_forward(tree_to(params, "cpu"), cfg, *host)
+    return {"graphs": shape["batch"],
+            **near_cpu(torch, got, want, "molecule"),
+            **step_times(torch, lambda: tgnn.sage_molecule_forward(
+                params, cfg, *args))}
+
+
+def csr_members(torch, row_ptr, col_idx, seeds, ids) -> bool:
+    """True when every ids[b, j] is a CSR neighbour of seeds[b] (or the
+    seed itself at zero degree): each pair looked up among the graph's
+    sorted (src, dst) keys."""
+    n = row_ptr.shape[0] - 1
+    deg = (row_ptr[1:] - row_ptr[:-1]).long()
+    src = torch.repeat_interleave(torch.arange(n, device=deg.device), deg)
+    keys = torch.sort(src * n + col_idx.long()).values
+    del src
+    s = seeds.long()[:, None].expand_as(ids)
+    pair = (s * n + ids.long()).reshape(-1)
+    pos = torch.searchsorted(keys, pair).clamp_max(keys.shape[0] - 1)
+    ok = (keys[pos] == pair).reshape(ids.shape) | (
+        (deg[s] == 0) & (ids.long() == s))
+    return bool(ok.all())
+
+
+def sage_minibatch_lg(torch, cfg, shape, graph) -> dict:
+    """minibatch_lg: the graph from ``build_sage_graph``, its CSR and
+    features uploaded, ``sample_neighbors`` at fanouts 15 and 10 for 1,024
+    seeds on the card (``gnn.sample_tree``: the sampler and the feature
+    gather), ``sage_sampled_forward``: the ids CSR neighbours, the logits
+    near the CPU's on the same ids; the step timed."""
+    import numpy as np
+    from repro_torch.models import gnn as tgnn
+    from repro_torch.models.common import tree_to
+
+    proc, d = graph
+    t0 = time.perf_counter()
+    proc.join()
+    assert proc.exitcode == 0, f"graph build exited {proc.exitcode}"
+    out = {"waited_s": time.perf_counter() - t0,
+           **json.loads((d / "graph.json").read_text())}
+    host = {k: np.load(d / f"{k}.npy")
+            for k in ("row_ptr", "col_idx", "feats", "labels")}
+    out.update(nodes=shape["n_nodes"], published_edges=shape["n_edges"],
+               degree=SAGE_DEGREE)
+    t0 = time.perf_counter()
+    rp, ci, feats, labels = (torch.from_numpy(host[k]).cuda() for k in
+                             ("row_ptr", "col_idx", "feats", "labels"))
+    torch.cuda.synchronize()
+    out["upload_s"] = time.perf_counter() - t0
+    params = tgnn.init_sage(cfg, shape["d_feat"], shape["n_classes"],
+                            seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, fan = shape["batch_nodes"], (shape["fanout1"], shape["fanout2"])
+    seeds = torch.randint(0, shape["n_nodes"], (b,), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    (n1, n2), xs = tgnn.sample_tree(gen, rp, ci, feats, seeds, fan)
+    logits = tgnn.sage_sampled_forward(params, cfg, *xs)
+    assert csr_members(torch, rp, ci, seeds, n1), "depth-1 ids"
+    assert csr_members(torch, rp, ci, n1.reshape(-1), n2), "depth-2 ids"
+    fc = torch.from_numpy(host["feats"])
+    xc = (fc[seeds.cpu().long()],
+          fc[n1.cpu().long().reshape(-1)].reshape(b, fan[0], -1),
+          fc[n2.cpu().long().reshape(-1)].reshape(b, fan[0], fan[1], -1))
+    want = tgnn.sage_sampled_forward(tree_to(params, "cpu"), cfg, *xc)
+    out.update(near_cpu(torch, logits, want, "minibatch_lg"),
+               ids_csr_neighbours=True)
+    loss = tgnn.sampled_train_from_graph(params, cfg, rp, ci, feats, seeds,
+                                         labels[seeds.long()], gen, fan)
+    assert math.isfinite(loss.item())
+    out["loss"] = loss.item()
+    out["sample"] = step_times(torch, lambda: tgnn.sample_tree(
+        gen, rp, ci, feats, seeds, fan))
+    out["step"] = step_times(torch, lambda: tgnn.sage_sampled_forward(
+        params, cfg, *tgnn.sample_tree(gen, rp, ci, feats, seeds, fan)[1]))
+    return out
+
+
+def phase_offpath(torch, graph) -> dict:
+    """Phase 13: the recsys serve steps, retrieval_cand and GraphSAGE's
+    three regimes at their published configs, one model resident at a
+    time."""
+    from repro_torch.configs import get_config
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    for arch in RECSYS_ARCHS:
+        out[arch] = recsys_model(torch, arch)
+        release(torch)
+    conf = get_config("graphsage-reddit")
+    cfg, shapes = conf.model, {s.name: s for s in conf.shapes}
+    sage = {"full_graph_sm": sage_full_graph_sm(
+                torch, cfg, shapes["full_graph_sm"]),
+            "molecule": sage_molecule(torch, cfg, shapes["molecule"])}
+    log("graphsage full_graph_sm, molecule " + json.dumps(sage))
+    sage["minibatch_lg"] = sage_minibatch_lg(torch, cfg,
+                                             shapes["minibatch_lg"], graph)
+    log("graphsage minibatch_lg " + json.dumps(sage["minibatch_lg"]))
+    out["graphsage-reddit"] = sage
+    return out
+
+
 def release(torch) -> float:
     """Drop what the last phase left on the card -> GB still allocated."""
     gc.collect()
@@ -4232,11 +4618,17 @@ def main() -> int:
     ivf_out = phase("8 serve ivf and tiered", phase_serve_ivf, torch)
     ivf_1m = phase("8 ivf 1M int8", phase_ivf_1m, torch)
     shard_out = phase("9 sharded", phase_sharded, torch)
-    pool_out = phase("10 tenancy", phase_tenancy, torch)
-    other = phase("11 other LMs", phase_other_lms, torch,
-                  flat_out["keys"]["int8 served"])
-    bf16 = phase("12 bf16", phase_bf16, torch,
-                 flat_out["keys"]["int8 served"])
+    graph = start_graph_build()
+    try:
+        pool_out = phase("10 tenancy", phase_tenancy, torch)
+        other = phase("11 other LMs", phase_other_lms, torch,
+                      flat_out["keys"]["int8 served"])
+        bf16 = phase("12 bf16", phase_bf16, torch,
+                     flat_out["keys"]["int8 served"])
+        offpath = phase("13 off-path models", phase_offpath, torch, graph)
+    finally:
+        stop_graph_build(graph)
+    kern["distance_topk.retrieval_cand"] = offpath["mind"]["retrieval_cand"]
     kern["flash_decode.bf16"] = bf16["flash"]
     for arch, rec in other.items():
         kern[f"flash_decode.{arch}"] = rec["flash_served"]
@@ -4289,6 +4681,7 @@ def main() -> int:
              "h2o-danube-3-4b kv_quant flat int8":
                  other["h2o-danube-3-4b"]["kv_quant_served"]["counters"],
              BF16_LLAMA: bf16["served"]["counters"],
+             RETRIEVAL_PATH: offpath["mind"]["counters"],
              BAG_ENTRY: bag_counts}
     for counts in paths.values():
         for c in CODECS:

@@ -1,22 +1,26 @@
 """Architecture registry: ``get_config("--arch id")`` resolution.
 
-The port carries the configurations its slices serve: the five LMs of
-``launch.serve --arch`` (dense ``llama3-8b`` and ``minitron-8b``,
+The port carries every configuration of the reference registry: the five
+LMs of ``launch.serve --arch`` (dense ``llama3-8b`` and ``minitron-8b``,
 sliding-window ``h2o-danube-3-4b``, MoE ``olmoe-1b-7b`` and
-``granite-moe-3b-a800m``) and MeMemo's own retrieval setting. The
-reference registry's non-LM architectures wait for the off-path models
-of ROADMAP.md §1 item 5 and raise ``NotImplementedError`` here."""
+``granite-moe-3b-a800m``), the off-path models (``graphsage-reddit``, and
+the recsys ``mind``, ``wide-deep``, ``bert4rec`` and ``fm``) and MeMemo's
+own retrieval setting."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
+    GNNConfig,
     LMConfig,
     MoEConfig,
+    RecsysConfig,
     RetrievalConfig,
     ShapeSpec,
+    GNN_SHAPES,
     LM_SHAPES,
+    RECSYS_SHAPES,
 )
 
 _MODULES = {
@@ -25,20 +29,18 @@ _MODULES = {
     "minitron-8b": "minitron_8b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "granite-moe-3b-a800m": "granite_moe_3b",
+    "graphsage-reddit": "graphsage_reddit",
+    "mind": "mind",
+    "wide-deep": "wide_deep",
+    "bert4rec": "bert4rec",
+    "fm": "fm",
     "mememo": "mememo",
 }
-
-# reference architectures not ported yet: the off-path models
-# (ROADMAP.md §1, item 5)
-_NOT_PORTED = ("graphsage-reddit", "mind", "wide-deep", "bert4rec", "fm")
 
 ALL_ARCHS = tuple(_MODULES)
 
 
 def _module(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP.md §1 item 5)")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

@@ -6,6 +6,11 @@ The caller hands in numpy arrays (this module never imports JAX):
     stacked along a leading [L] axis, matrices laid out for ``x @ W``) ->
     a ``state_dict`` for ``models.transformer.LM`` (one module per layer,
     ``nn.Linear`` weights ``[out, in]``, hence the transposes);
+  * ``encoder_params_from_jax``, ``recsys_params_from_jax`` and
+    ``sage_params_from_jax`` — the reference's encoder, recsys and
+    GraphSAGE trees -> the port's: the same tensors in the same layout
+    (``x @ W``, the encoder's blocks stacked along [L]), the encoder an
+    ``models.encoder.Encoder``;
   * ``device_graph_from_host`` — any host HNSW graph with the reference's
     fields (vectors, neighbors0, upper, levels, entry, max_level, metric)
     -> a ``DeviceGraph`` on ``device``. The graph is this system's
@@ -19,6 +24,9 @@ import torch
 
 from repro_torch.core import hnsw as thnsw
 from repro_torch.core.hnsw_build import HNSWGraph
+from repro_torch.models import encoder as enc_lib
+from repro_torch.models.common import tree_map
+from repro_torch.models.recsys import _bert4rec_enc_cfg
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _DENSE_FFN = ("w1", "w3", "w2")
@@ -55,6 +63,38 @@ def lm_params_from_jax(params: dict, dtype=None) -> dict[str, torch.Tensor]:
     if "out_head" in params:
         sd["out_head.weight"] = t(np.asarray(params["out_head"]).T)
     return sd
+
+
+def _tensors(tree):
+    """Nested dicts and lists of numpy arrays -> the same tree of fp32
+    CPU tensors."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)),
+                    tree)
+
+
+def encoder_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The reference's ``init_encoder`` tree of numpy arrays ->
+    ``Encoder.state_dict()``-shaped dict of CPU tensors."""
+    sd = {k: params[k] for k in ("embed", "pos", "final_g", "final_b")}
+    sd.update({f"layers.{k}": v for k, v in params["layers"].items()})
+    return _tensors(sd)
+
+
+def recsys_params_from_jax(kind: str, params: dict, cfg=None) -> dict:
+    """The reference's ``recsys.INIT[kind]`` tree of numpy arrays -> the
+    port's on the CPU: the same dicts and MLP lists of tensors; for
+    ``bert4rec`` (which needs its ``RecsysConfig`` ``cfg``) the encoder as
+    an ``Encoder``."""
+    if kind != "bert4rec":
+        return _tensors(params)
+    enc = enc_lib.Encoder(_bert4rec_enc_cfg(cfg), device="cpu")
+    enc.load_state_dict(encoder_params_from_jax(params["encoder"]))
+    return {"encoder": enc.requires_grad_(False).eval()}
+
+
+def sage_params_from_jax(params: dict) -> dict:
+    """The reference's ``init_sage`` tree -> the port's on the CPU."""
+    return _tensors(params)
 
 
 def device_graph_from_host(g, deleted: np.ndarray | None = None, *,

@@ -1,5 +1,6 @@
-"""Shared model building blocks: RMSNorm, RoPE (``repro/models/common.py``)
-and the products at a compute dtype.
+"""Shared model building blocks (``repro/models/common.py``): the norms,
+RoPE, initialisation from a ``torch.Generator``, the losses, and the
+products at a compute dtype.
 
 The reference casts each weight to the compute dtype where it is used
 (``_w``: ``lp[name].astype(dtype)``) and multiplies with
@@ -18,6 +19,8 @@ as before.
 """
 from __future__ import annotations
 
+import copy
+
 import torch
 from torch.nn import functional as F
 
@@ -33,6 +36,25 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * gamma.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in fp32 (the population variance, as
+    ``jnp.var``), cast back to ``x``'s dtype."""
+    dtype = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.float() + beta.float()).to(dtype)
+
+
+def normal_init(generator: torch.Generator, shape, scale: float = 0.02
+                ) -> torch.Tensor:
+    """N(0, scale^2) fp32 draws from ``generator``, on its device."""
+    return scale * torch.randn(shape, generator=generator,
+                               device=generator.device)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -93,3 +115,62 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if _f32_out(a, b):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy; logits [..., V], labels [...] integer; with
+    ``mask``, the mean over the positions it weights."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+def sigmoid_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    labels = labels.float()
+    return torch.mean(torch.clamp_min(logits, 0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-12) -> torch.Tensor:
+    xf = x.float()
+    n = torch.sqrt(torch.sum(torch.square(xf), dim=dim, keepdim=True))
+    return (xf / torch.clamp_min(n, eps)).to(x.dtype)
+
+
+def tree_tensors(tree) -> list[torch.Tensor]:
+    """The tensors of a parameter tree: an ``nn.Module``'s parameters, or
+    the leaves of nested dicts and lists (of tensors and modules)."""
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for v in items for t in tree_tensors(v)]
+
+
+def count_params(tree) -> int:
+    return sum(t.numel() for t in tree_tensors(tree))
+
+
+def tree_map(fn, tree):
+    """The same nesting of dicts and lists with ``fn`` applied to each
+    leaf (a tensor, an array or a module)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_to(tree, device):
+    """The parameter tree on ``device``: each tensor moved, each module
+    copied and moved."""
+    return tree_map(lambda t: (copy.deepcopy(t) if isinstance(
+        t, torch.nn.Module) else t).to(device), tree)

@@ -1707,3 +1707,123 @@ def test_lm_decode_on_card_matches_cpu(cuda_device, arch, kv_quant):
         assert int(step.max()) <= 1
         torch.testing.assert_close(cg.k_scale.cpu(), cc.k_scale, rtol=1e-5,
                                    atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the off-path models at their smoke configs, card against CPU
+# ---------------------------------------------------------------------------
+RECSYS_ARCHS = {"fm": "fm", "wide-deep": "wide_deep", "bert4rec": "bert4rec",
+                "mind": "mind"}
+
+
+def _recsys_outputs(kind, params, cfg, batch, device):
+    from repro_torch.models import recsys as trs
+
+    def t(name):
+        return _t(batch[name]).to(device)
+
+    if kind in ("fm", "wide_deep"):
+        args = (t("sparse_ids"), t("dense"))
+        return [getattr(trs, f"{kind}_forward")(params, cfg, *args),
+                getattr(trs, f"{kind}_loss")(params, cfg, *args, t("labels"))]
+    if kind == "bert4rec":
+        seq = t("item_seq")
+        return [trs.bert4rec_user_embedding(params, cfg, seq),
+                trs.bert4rec_loss(params, cfg, seq, t("labels"),
+                                  t("label_mask"))]
+    return [trs.mind_user_embedding(params, cfg, t("behavior"),
+                                    t("behavior_mask")),
+            trs.mind_loss(params, cfg, t("behavior"), t("behavior_mask"),
+                          t("target"), t("neg"))]
+
+
+def _near(got, want):
+    """Card against CPU within 1e-4 x max|value|."""
+    want = want.float().cpu()
+    tol = 1e-4 * max(want.abs().max().item(), 1e-30)
+    assert (got.float().cpu() - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(RECSYS_ARCHS))
+def test_recsys_model_on_card_matches_cpu(cuda_device, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.flat import FlatIndex
+    from repro_torch.data import synthetic
+    from repro_torch.models import recsys as trs
+    from repro_torch.models.common import tree_to
+
+    kind, cfg = RECSYS_ARCHS[arch], get_smoke_config(arch)
+    cpu = trs.INIT[kind](cfg, seed=0, device="cpu")
+    card = tree_to(cpu, cuda_device)
+    if kind in ("fm", "wide_deep"):
+        batch = next(synthetic.ctr_batches(cfg.n_sparse, cfg.rows_per_field,
+                                           cfg.n_dense, 64, seed=1))
+    elif kind == "bert4rec":
+        batch = next(synthetic.masked_item_batches(cfg.n_items, cfg.seq_len,
+                                                   64, seed=2))
+    else:
+        batch = next(synthetic.seq_rec_batches(cfg.n_items, cfg.seq_len, 64,
+                                               seed=3))
+    for got, want in zip(_recsys_outputs(kind, card, cfg, batch, cuda_device),
+                         _recsys_outputs(kind, cpu, cfg, batch, "cpu")):
+        assert got.is_cuda and got.shape == want.shape
+        _near(got, want)
+    if kind == "mind":       # retrieval_cand: distance_topk at k 100
+        interests = trs.mind_user_embedding(
+            cpu, cfg, _t(batch["behavior"][:1]),
+            _t(batch["behavior_mask"][:1]))[0].numpy()
+        items = cpu["items"].numpy()
+        kd, ki = FlatIndex.build(items, metric="ip", device=cuda_device) \
+            .query(interests, k=100)
+        rd, ri = FlatIndex.build(items, metric="ip", device="cpu") \
+            .query(interests, k=100)
+        err = (kd.cpu() - rd).abs()
+        assert err.max().item() <= 1e-5
+        assert bool(((ki.cpu() == ri) | (err <= 1e-6)).all())
+
+
+@pytest.mark.cuda
+def test_graphsage_on_card_matches_cpu(cuda_device):
+    """The full-graph forward twice on the card, equal bit for bit (no
+    float atomics) and near the CPU's; the sampler's ids on the card are
+    CSR neighbours, and the sampled forward on them near the CPU's; the
+    molecule forward near the CPU's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import gnn as tgnn
+    from repro_torch.models.common import tree_to
+
+    cfg = get_smoke_config("graphsage-reddit")
+    n, d, c = 300, 12, 4
+    g = synthetic.make_graph(n, 5, d, c, seed=1)
+    cpu = tgnn.init_sage(cfg, d, c, seed=0, device="cpu")
+    card = tree_to(cpu, cuda_device)
+    arrays = [_t(a) for a in (g.feats, g.edge_src, g.edge_dst)]
+    want = tgnn.sage_full_forward(cpu, cfg, *arrays)
+    runs = [tgnn.sage_full_forward(card, cfg,
+                                   *(a.to(cuda_device) for a in arrays))
+            for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    _near(runs[0], want)
+    rp, ci, feats = (_t(a).to(cuda_device)
+                     for a in (g.row_ptr, g.col_idx, g.feats))
+    seeds = torch.arange(0, n, 5, dtype=torch.int32, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    (n1, n2), xs = tgnn.sample_tree(gen, rp, ci, feats, seeds,
+                                    cfg.sample_sizes)
+    for s, nb in ((seeds, n1), (n1.reshape(-1), n2)):
+        s, nb = s.cpu().long(), nb.cpu().long()
+        lo, hi = _t(g.row_ptr)[s].long(), _t(g.row_ptr)[s + 1].long()
+        ok = [set(nb[i].tolist()) <= (set(g.col_idx[lo[i]:hi[i]].tolist())
+                                     or {int(s[i])}) for i in range(len(s))]
+        assert all(ok)
+    _near(tgnn.sage_sampled_forward(card, cfg, *xs),
+          tgnn.sage_sampled_forward(cpu, cfg, *(x.cpu() for x in xs)))
+    mol = next(synthetic.molecule_batches(16, 30, 16, 2, seed=2))
+    mcpu = tgnn.init_sage(cfg, 16, 2, seed=1, device="cpu")
+    _near(tgnn.sage_molecule_forward(tree_to(mcpu, cuda_device), cfg,
+                                     _t(mol["feats"]).to(cuda_device),
+                                     _t(mol["adj"]).to(cuda_device)),
+          tgnn.sage_molecule_forward(mcpu, cfg, _t(mol["feats"]),
+                                     _t(mol["adj"])))

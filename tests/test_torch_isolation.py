@@ -76,6 +76,7 @@ def test_entry_points_refuse_missing_card(monkeypatch, tmp_path):
     from repro_torch.core.index import make_index
     from repro_torch.core.interface import HNSW
     from repro_torch.launch import serve
+    from repro_torch.models import encoder, gnn, recsys
     from repro_torch.models import transformer as tf
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.rag import RAGPipeline
@@ -93,7 +94,16 @@ def test_entry_points_refuse_missing_card(monkeypatch, tmp_path):
                  lambda: tf.init_lm(cfg),
                  lambda: tf.init_cache(cfg, 1, 8),
                  lambda: ServeEngine(tf.init_lm(cfg, device="cpu"), cfg),
-                 lambda: serve.main(["--rag", "--requests", "1"])):
+                 lambda: serve.main(["--rag", "--requests", "1"]),
+                 lambda: encoder.init_encoder(recsys._bert4rec_enc_cfg(
+                     get_smoke_config("bert4rec"))),
+                 *(lambda kind=kind, arch=arch: recsys.INIT[kind](
+                     get_smoke_config(arch))
+                   for kind, arch in (("fm", "fm"), ("wide_deep", "wide-deep"),
+                                      ("bert4rec", "bert4rec"),
+                                      ("mind", "mind"))),
+                 lambda: gnn.init_sage(get_smoke_config("graphsage-reddit"),
+                                       8, 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asking for the CPU explicitly is the supported way to run there

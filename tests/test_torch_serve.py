@@ -143,12 +143,13 @@ def test_prefill_and_decode_logits_match_reference(lm):
         nxt = np.asarray(jl[:, 0]).argmax(-1).astype(np.int32)[:, None]
 
 
-def test_unported_model_configs_raise(lm):
-    """What the port still refuses, naming the ROADMAP item that holds
-    it: the reference's non-LM architectures. bf16 and fp16 weights and
-    the LM configs (SWA, MoE, kv_quant) build since they were ported;
-    weights of any other dtype are refused."""
+def test_model_configs_resolve_and_dtypes_are_checked(lm):
+    """Every reference architecture resolves in the port, the off-path
+    models too, equal to the reference's ``CONFIG`` and ``smoke_config()``
+    field for field; bf16 and fp16 weights and the LM configs (SWA, MoE,
+    kv_quant) build; weights of any other dtype are refused."""
     import dataclasses
+    from repro.configs import get_config as jget_config
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MoEConfig
     _, _, cfg, _ = lm
@@ -159,10 +160,10 @@ def test_unported_model_configs_raise(lm):
     with pytest.raises(ValueError, match="fp32, bf16 or fp16"):
         ttf.LM(cfg, device="cpu", dtype=torch.float64)
     for arch in ("graphsage-reddit", "mind", "wide-deep", "bert4rec", "fm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_smoke_config(arch)
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jget_config(arch))
+        assert dataclasses.asdict(get_smoke_config(arch)) == \
+            dataclasses.asdict(jget_smoke_config(arch))
     for ok in (dataclasses.replace(cfg, kv_quant=True),
                dataclasses.replace(cfg, sliding_window=8),
                dataclasses.replace(cfg, moe=MoEConfig(4, 2, 32))):
