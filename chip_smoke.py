@@ -78,7 +78,7 @@ Phases (none catches an exception; any failure exits non-zero):
    on the served rows must equal its plain version's. fp32 and bf16 flat
    indexes on the card (each run counted) must return the CPU's keys, and
    the fp32 keys must equal phase 3's ``exact_query``.
-5. The bulk builder: (a) ``bulk_build`` of 20,000 x 64 integer-valued l2
+5. The bulk builder: (a) ``bulk_build`` of 10,000 x 64 integer-valued l2
    rows (M 8, efConstruction 40, batch 1024) on the card equals the same
    call on the CPU bit for bit; (b) ``make_index("hnsw", M=5,
    ef_construction=20, use_bulk_build=True, dtype="int8")`` bulk-inserts
@@ -89,7 +89,7 @@ Phases (none catches an exception; any failure exits non-zero):
    built index's 1,024 queries; ``query_batch`` at ef 64, k 10 over
    1,024 queries must return the keys of a CPU search of the same host
    graph on >= 99 % of a 256-query sample; recall@10 against
-   ``exact_query``, and on a 10,000-row prefix the bulk and the
+   ``exact_query``, and on a 5,000-row prefix the bulk and the
    sequential builder's recall (bulk >= sequential - 0.05); (c) a
    32,768-row prefix build, timed and then traced, gives the device's
    busy and idle share of a build; (d) the durable store on (b)'s index:
@@ -99,7 +99,7 @@ Phases (none catches an exception; any failure exits non-zero):
    (the same keys on the 1,024 queries, the same ``mutation_epoch``,
    equal ``state_dict`` arrays), timing the snapshot and the restore
    (read, replay, first upload) beside (b)'s build; (e) compact with
-   secure delete on a 20,000-row int8 prefix: no deleted row's bytes in
+   secure delete on a 5,000-row int8 prefix: no deleted row's bytes in
    any file of the store, and the compacted store restores with the live
    keys.
 6. The HNSW served path over int8 rows, ``--rag --index hnsw
@@ -157,7 +157,7 @@ Phases (none catches an exception; any failure exits non-zero):
    oracle; then 1,000 deletes leave free slots in each shard's block, so
    a shard's ``distance_topk`` runs in several passes: keys against one
    shard with the same deletes, each shard's call against its plain
-   version. (b) HNSW over 10,000 x 384 seeded rows at
+   version. (b) HNSW over 5,000 x 384 seeded rows at
    4 shards (the paper's M 5, efConstruction 20; each child built by the
    host builder): keys equal the loop oracle's (each child searched on
    its own, a host merge), ``exact_query`` equals a 1-shard index's,
@@ -284,6 +284,33 @@ Phases (none catches an exception; any failure exits non-zero):
    ``sage_full_forward`` twice on the card, equal bit for bit, and near
    the CPU; molecule (128 graphs x 30 nodes) through
    ``sage_molecule_forward``, card against CPU.
+14. Training on the card (TF32 off, one model resident at a time): (a)
+   llama3-8b at its published width (d_model 4,096, 32/8 heads, d_ff
+   14,336, vocab 128,256), depth cut to 2 layers, fp32 weights from a
+   seeded CUDA generator, ``launch.train``'s optimizer
+   (``warmup_cosine(3e-4, 5, steps)``) and batch (``lm_batches``, B 8 x
+   S 128): the B 1 loss and global grad norm against a CPU copy of the
+   weights (1e-4 relative), then five ``make_train_step`` steps, each
+   with its loss, wall ms, peak GB, tokens/s and TFLOP/s against the
+   fp32 bound of its products, the kernel counters zeroed before it and
+   no hand kernel launched in it, and the device ms a step (queued);
+   (b) olmoe-1b-7b at its published width (64 experts, top 8, expert
+   d_ff 1,024, vocab 50,304), 2 layers, the same readouts, the router
+   ids of the first step against a CPU forward of the same batch where
+   the top 8 clear a tie by 1e-5; (c) one ``lm_loss(dtype=torch.bfloat16)``
+   at B 1 of (a)'s weights, card against CPU (loss within
+   ``BF16_LOSS_RTOL``, grad norm within ``BF16_GNORM_RTOL``); (d) in (a)
+   and (b) the first step run twice from the same state, the loss, grad
+   norm, weights, m and v compared bit for bit (the leaves that differ
+   logged; they must stay within 1e-5), and the same for fm at its
+   published table at B 512 (``ctr_batches``' zipf ids repeat, so the
+   table's gradient adds many rows into one) and for graphsage-reddit's
+   full-batch smoke run (``REPEAT_RUNS``); (e) ``launch.train.main`` on
+   the card: llama3-8b ``--preset small --steps 30`` (its last loss below
+   its first), fm, wide-deep, bert4rec, mind and graphsage-reddit
+   ``--preset smoke --steps 5`` and fm and wide-deep ``--preset small
+   --steps 3`` (their published tables), each one's step ms, peak GB and
+   finite losses.
 
 Each phase's seconds are logged. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -352,11 +379,11 @@ SYNTHETIC_DOCS = 2000
 # bulk build: (a) integer-valued l2 rows, card == CPU bit for bit; (b)
 # configs/mememo.py build_1m in int8; its query sample held against the
 # CPU; (c) a prefix build traced for the device's busy share
-BULK_INT = dict(rows=20_000, dim=64, M=8, ef_construction=40,
+BULK_INT = dict(rows=10_000, dim=64, M=8, ef_construction=40,
                 batch_size=1024)
 BULK_ROWS, BULK_QUERIES, BULK_SAMPLE = 1_000_000, 1024, 256
 PROFILE_ROWS = 32_768
-QUALITY_ROWS = 10_000
+QUALITY_ROWS = 5_000
 # embedding_bag at MIND's published table (src/repro/configs/mind.py:
 # n_items, embed_dim, seq_len) and the recsys serve shapes of
 # configs/base.py RECSYS_SHAPES (serve_p99, serve_bulk). No model path of
@@ -368,7 +395,7 @@ BAG_ENTRY = "ops.embedding_bag (MIND serve_p99)"
 # store phase: logged mutations on the restored 1M int8 index, and the
 # compact + secure-delete prefix
 STORE_INSERTS, STORE_UPDATES, STORE_DELETES = 32, 32, 64
-COMPACT_ROWS, COMPACT_DELETES = 20_000, 200
+COMPACT_ROWS, COMPACT_DELETES = 5_000, 200
 # IVF at the paper's scale (configs/mememo.py build_1m, int8; nlist and
 # nprobe from RetrievalConfig): the query batches timed, the sample held
 # against the CPU, and the store's logged mutations (inserts in one
@@ -380,7 +407,7 @@ IVF_INSERTS, IVF_UPDATES, IVF_DELETES = 16, 8, 8
 # 5, efConstruction 20, configs/mememo.py) take well under a minute; the
 # store round trips on a prefix of the 1M int8 rows
 SHARDS, SHARD_BATCHES, SHARD_SAMPLE = 4, (8, 128), 16
-SHARD_HNSW_ROWS, SHARD_STORE_ROWS = 10_000, 100_000
+SHARD_HNSW_ROWS, SHARD_STORE_ROWS = 5_000, 100_000
 # phase 9 deletes every this many-th key of the 1M flat indexes: about
 # 250 free slots a shard, so the fan-out over-fetches in several passes
 SHARD_CHURN_EVERY = 1000
@@ -416,6 +443,25 @@ RETRIEVAL_PATH = "mind retrieval_cand"
 # minibatch_lg: make_graph takes an integer degree; 232,965 x 492 =
 # 114,618,780 edges against the published 114,615,892
 SAGE_DEGREE = 492
+# phase 14: training. llama3-8b and olmoe-1b-7b at their published
+# widths (configs/{llama3_8b,olmoe_1b_7b}.py), depth cut to 2 layers,
+# launch.train's default batch (lm_batches, B 8 x S 128) and optimizer
+TRAIN_LMS = ("llama3-8b", "olmoe-1b-7b")
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 8, 128, 5
+TRAIN_PATH = "llama3-8b train step"
+# (e) launch.train.main's runs: (arch, preset, steps)
+TRAIN_RUNS = (("llama3-8b", "small", 30),
+              *((a, "smoke", 5) for a in ("fm", "wide-deep", "bert4rec",
+                                          "mind", "graphsage-reddit")),
+              ("fm", "small", 3), ("wide-deep", "small", 3))
+# (d) the first step twice from one state where the backward gathers
+# with repeated ids: fm at its published table at serve_p99's batch
+# (zipf ids: many repeats), and graphsage-reddit's full-batch smoke run
+REPEAT_RUNS = (("fm", "small", 512), ("graphsage-reddit", "smoke", 8))
+# (c) bf16 compute against the CPU: relative gaps of the loss and of the
+# global grad norm (bf16 roundings of activations land on either side
+# on the two devices and are carried through 2 layers)
+BF16_LOSS_RTOL, BF16_GNORM_RTOL = 1e-2, 5e-2
 # the kernels each served path must launch
 HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
              "kernel.flash_decode")
@@ -2187,7 +2233,7 @@ def store_restore(torch, live: dict, qs, build_s: float, d: Path) -> dict:
 
 
 def store_compact(torch, keys, x, qs) -> dict:
-    """Phase 5 (e): compact with secure delete on a 20,000-row int8 prefix
+    """Phase 5 (e): compact with secure delete on a 5,000-row int8 prefix
     (``_compact_impl`` rebuilds sequentially, so not at 1M): no deleted
     row's encoded bytes, fp32 decode or raw payload, and no deleted key,
     in any file under the store dir; no deleted row's scale in the stored
@@ -3161,7 +3207,7 @@ def phase_sharded(torch) -> dict:
     shards share cuda:0 (``REPRO_TORCH_SHARD_DEVICES``), so their launches
     run one after another; with two or more cards the 1M cells run again
     with one shard a card. (a) flat and IVF int8 over ``build_1m``'s rows
-    at 4 shards against 1 shard; (b) HNSW over 10,000 x 384 rows at 4
+    at 4 shards against 1 shard; (b) HNSW over 5,000 x 384 rows at 4
     shards against the loop oracle; (c) int8 flat stores written at 4
     shards restored at 1 and back; (d) the served path ``--rag --shards 4
     --index hnsw --index-dtype int8``, its keys against a CPU copy."""
@@ -4509,6 +4555,343 @@ def phase_offpath(torch, graph) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training
+# ---------------------------------------------------------------------------
+def lm_step_flops(cfg, b: int, s: int) -> float:
+    """Operations of one ``lm_loss`` train step at the shapes it computes:
+    every product's forward, twice that in the backward, and the layers'
+    forward once more under remat. Attention scores and values over the
+    full S x S rectangle (one block at S 128); an MoE layer multiplies
+    every expert's capacity buffer (E x C rows) and the router."""
+    from repro_torch.models.moe import capacity
+
+    D, H, KVH, Dh, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.dh,
+                        cfg.vocab)
+    t = b * s
+    layer = 2 * t * (2 * D * H * Dh + 2 * D * KVH * Dh) + 4 * b * H * s * s * Dh
+    if cfg.moe is None:
+        layer += 2 * t * 3 * D * cfg.d_ff
+    else:
+        rows = cfg.moe.n_slots * capacity(t, cfg.moe)
+        layer += 2 * rows * 3 * D * cfg.moe.d_ff + 2 * t * D * cfg.moe.n_slots
+    fwd = cfg.n_layers * layer + 2 * t * D * V
+    return 3 * fwd + (cfg.n_layers * layer if cfg.remat else 0)
+
+
+def loss_and_gnorm(torch, model, tokens, labels, dtype=None):
+    """-> (loss, global grad norm) of ``lm_loss`` on ``model``."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_tensors
+    from repro_torch.utils import tree_norm
+
+    leaves = tree_tensors(model.requires_grad_(True))
+    loss = tf.lm_loss(model, tokens, labels, dtype=dtype)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), tree_norm(list(grads)).item()
+
+
+def cpu_twin(torch, model):
+    """The model's weights copied into a CPU ``LM``."""
+    from repro_torch.models import transformer as tf
+
+    twin = tf.LM(model.cfg, device="cpu", dtype=model.dtype)
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def capture_routes(torch):
+    """Patch ``moe.route`` to record each call's (probs, ids) on the CPU
+    -> (the list they go to, a function that restores it)."""
+    from repro_torch.models import moe as tmoe
+
+    calls, route = [], tmoe.route
+
+    def recording(p, cfg, x):
+        out = route(p, cfg, x)
+        calls.append((out[0].detach().cpu(), out[2].cpu()))
+        return out
+
+    tmoe.route = recording
+
+    def restore():
+        tmoe.route = route
+    return calls, restore
+
+
+def routes_agree(torch, card, cpu, k: int) -> dict:
+    """Each layer's router ids, card against CPU, where the k-th
+    probability clears the (k+1)-th by 1e-5 (>= 99 % of tokens)."""
+    ok_all, equal = [], True
+    for (_, ids_d), (probs, ids) in zip(card, cpu):
+        top = torch.sort(probs, dim=-1, descending=True).values
+        ok = (top[:, k - 1] - top[:, k]) > 1e-5
+        ok_all.append(ok.float().mean().item())
+        equal &= bool(torch.equal(ids_d[ok], ids[ok]))
+    assert min(ok_all) >= 0.99, f"tokens clear of ties: {ok_all}"
+    assert equal, "routing differs from the CPU's"
+    return {"layers": len(card), "clear_of_ties": ok_all, "ids_equal": True}
+
+
+def state_snapshot(torch, model, state) -> dict:
+    """Copies of the weights, m and v."""
+    from repro_torch.models.common import named_tensors
+
+    return {"p": {n: p.detach().clone() for n, p in named_tensors(model)},
+            "m": {n: t.clone() for n, t in state.m.items()},
+            "v": {n: t.clone() for n, t in state.v.items()}}
+
+
+def restore_fresh(torch, model, state, weights: dict) -> None:
+    """Back to the start of training: ``weights``, zero m, v and step."""
+    from repro_torch.models.common import named_tensors
+
+    with torch.no_grad():
+        for n, p in named_tensors(model):
+            p.copy_(weights[n])
+        for t in itertools.chain(state.m.values(), state.v.values(),
+                                 (state.step,)):
+            t.zero_()
+
+
+def unequal_leaves(torch, model, state, snap) -> dict:
+    """Leaves whose weights, m or v differ in any bit from ``snap``."""
+    from repro_torch.models.common import named_tensors
+
+    out = {"p": [n for n, p in named_tensors(model)
+                 if not torch.equal(p.detach(), snap["p"][n])]}
+    for key in ("m", "v"):
+        out[key] = [n for n, t in getattr(state, key).items()
+                    if not torch.equal(t, snap[key][n])]
+    return out
+
+
+def train_lm_cell(torch, arch: str) -> dict:
+    """(a) / (b) One LM at its published width, 2 layers, fp32 weights
+    from a seeded CUDA generator, ``launch.train``'s optimizer:
+    the B 1 loss and grad norm card against CPU (1e-4 relative); (b) the
+    router ids of the first step against a CPU forward; (d) the first
+    step twice from one state; then five steps, each with its loss, wall
+    ms, peak GB and zero hand-kernel launches, the device ms a step
+    (queued), tokens/s and TFLOP/s against the fp32 bound; (c) for the
+    dense LM, one bf16 ``lm_loss`` step at B 1 against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import dispatch
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import count_params, named_tensors
+    from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
+    from repro_torch.train.train_loop import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(arch).model, n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    model = tf.init_lm(cfg, seed=0, device="cuda")
+    state = init_train_state(model)
+    torch.cuda.synchronize()
+    n = count_params(model)
+    out = {"layers": cfg.n_layers, "params": n, "init_s":
+           time.perf_counter() - t0,
+           "state_gb": 16 * n / 1e9, "B": TRAIN_B, "S": TRAIN_S}
+    data = lm_batches(cfg.vocab, TRAIN_B, TRAIN_S + 1, seed=0)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
+               for _ in range(TRAIN_STEPS + 1)]
+    row = {k: v[:1] for k, v in batches[0].items()}
+
+    # B 1 loss and grad norm, card against CPU (and (c) at bf16)
+    t0 = time.perf_counter()
+    twin = cpu_twin(torch, model)
+    rows = {k: v.cpu() for k, v in row.items()}
+    cells = {"fp32": None, "bf16": torch.bfloat16} if cfg.moe is None \
+        else {"fp32": None}
+    for name, dt in cells.items():
+        card = loss_and_gnorm(torch, model, row["tokens"], row["labels"], dt)
+        cpu = loss_and_gnorm(torch, twin, rows["tokens"], rows["labels"], dt)
+        gaps = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+        rec = {"loss": card[0], "cpu_loss": cpu[0], "grad_norm": card[1],
+               "cpu_grad_norm": cpu[1], "loss_rel_gap": gaps[0],
+               "grad_norm_rel_gap": gaps[1]}
+        if dt is None:
+            assert max(gaps) <= 1e-4, f"{arch} B 1 card vs CPU: {rec}"
+        else:
+            assert gaps[0] <= BF16_LOSS_RTOL and gaps[1] <= BF16_GNORM_RTOL, \
+                f"{arch} bf16 B 1 card vs CPU: {rec}"
+            rec["tolerance"] = {"loss": BF16_LOSS_RTOL,
+                                "grad_norm": BF16_GNORM_RTOL}
+            rec["gap_to_fp32_loss"] = abs(card[0] - out["b1"]["loss"])
+        out["b1" if dt is None else "bf16_b1"] = rec
+    out["cpu_s"] = time.perf_counter() - t0
+
+    opt = AdamWConfig(lr=warmup_cosine(3e-4, 5, 100))
+    step = make_train_step(lambda p, tokens, labels: tf.lm_loss(
+        p, tokens, labels, dtype=torch.float32), opt)
+    flops = lm_step_flops(cfg, TRAIN_B, TRAIN_S)
+    bound_s = flops / FP32_FLOPS_PER_S
+    weights = {n: p.detach().clone() for n, p in named_tensors(model)}
+    routes = restore = None
+    if cfg.moe is not None:
+        routes, restore = capture_routes(torch)
+    steps, repeat = [], None
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        _, state, metrics = step(model, state, batches[i])
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dispatch.snapshot()
+        launched = {k: v for k, v in counts.items()
+                    if k.startswith("kernel.") and v}
+        assert not launched, f"{arch} step {i} launched {launched}"
+        loss = metrics["loss"].item()
+        assert math.isfinite(loss), f"{arch} step {i}: loss {loss}"
+        steps.append({"loss": loss, "grad_norm": metrics["grad_norm"].item(),
+                      "lr": metrics["lr"].item(), "wall_ms": wall * 1e3,
+                      "event_ms": start.elapsed_time(end),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "tokens_per_s": TRAIN_B * TRAIN_S / wall,
+                      "tflops_wall": flops / wall / 1e12})
+        if i == 0:
+            if restore is not None:
+                restore()
+                out["routing"] = first_step_routes(
+                    torch, twin, batches[0], routes[:cfg.n_layers],
+                    cfg.moe.top_k)
+            out["counters"] = counts
+            repeat, state = repeat_first_step(
+                torch, step, model, state, batches[0], weights, metrics, arch)
+            del weights
+    del twin
+    device_ms = queued_ms(torch, lambda: step(model, state, batches[
+        TRAIN_STEPS]), 2)
+    walls = [st["wall_ms"] for st in steps[1:]]
+    out.update(
+        steps=steps, repeat=repeat, flops=flops, bound_ms=bound_s * 1e3,
+        bound_by="operations (fp32, 67 TFLOP/s)", device_ms=device_ms,
+        tflops_device=flops / device_ms / 1e9,
+        bound_share_device=bound_s * 1e3 / device_ms,
+        median_wall_ms=statistics.median(walls),
+        idle_share=1.0 - device_ms / statistics.median(walls),
+        first_loss=steps[0]["loss"], last_loss=steps[-1]["loss"])
+    return out
+
+
+def first_step_routes(torch, twin, batch, card_routes, k: int) -> dict:
+    """(b) The first step's router ids (recorded on the card) against a
+    CPU forward of the same batch and weights."""
+    from repro_torch.models import transformer as tf
+
+    calls, restore = capture_routes(torch)
+    try:
+        with torch.no_grad():
+            tf.forward_hidden(twin, batch["tokens"].cpu())
+    finally:
+        restore()
+    return routes_agree(torch, card_routes, calls, k)
+
+
+def repeat_first_step(torch, step, params, state, batch, weights: dict,
+                      first: dict, what: str) -> tuple[dict, object]:
+    """(d) ``first`` (the metrics of ``step`` from the fresh state whose
+    weights are ``weights``) against the same step again from that
+    state: the loss, grad norm, weights, m and v compared bit for bit
+    (the leaves that differ named; they must stay within 1e-5) -> (the
+    record, the optimizer state after the repeated step)."""
+    from repro_torch.models.common import named_tensors
+
+    after = state_snapshot(torch, params, state)
+    restore_fresh(torch, params, state, weights)
+    _, state, again = step(params, state, batch)
+    diff = unequal_leaves(torch, params, state, after)
+    rec = {k: again[k].item() == first[k].item()
+           for k in ("loss", "grad_norm")}
+    rec = {"loss_equal": rec["loss"], "grad_norm_equal": rec["grad_norm"],
+           "unequal_weights": diff["p"], "unequal_m (grads)": diff["m"],
+           "unequal_v": diff["v"]}
+    rec["bit_for_bit"] = (rec["loss_equal"] and rec["grad_norm_equal"]
+                          and not any(diff.values()))
+    if not rec["bit_for_bit"]:
+        rec["max_weight_gap"] = max(
+            float((p.detach() - after["p"][n]).abs().max())
+            for n, p in named_tensors(params))
+        assert rec["max_weight_gap"] <= 1e-5, f"{what}: {rec}"
+    log(f"{what} repeated first step " + json.dumps(rec))
+    return rec, state
+
+
+def repeat_step(torch, arch: str, preset: str, batch: int) -> dict:
+    """(d) ``launch.train.build``'s model and loss on the card, its first
+    step twice from the same fresh state (``repeat_first_step``)."""
+    import argparse
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.common import named_tensors
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import init_train_state, make_train_step
+
+    args = argparse.Namespace(seed=0, batch=batch, seq=TRAIN_S,
+                              device="cuda")
+    _, params, loss_fn, data = tlaunch.build(arch, preset, args)
+    step, state, b = make_train_step(loss_fn, AdamWConfig()), \
+        init_train_state(params), next(data)
+    weights = {n: p.detach().clone() for n, p in named_tensors(params)}
+    _, state, first = step(params, state, b)
+    rec, _ = repeat_first_step(torch, step, params, state, b, weights,
+                               first, f"{arch} {preset}")
+    return {"B": batch, **rec}
+
+
+def train_launch_runs(torch) -> dict:
+    """(e) ``launch.train.main`` on the card: llama3-8b small for 30 steps
+    (the last loss below the first), each other family's smoke preset
+    for 5 steps and fm and wide-deep at their published tables (the
+    small preset) for 3; finite losses, step ms and peak GB."""
+    from repro_torch.launch import train as tlaunch
+
+    out = {}
+    for arch, preset, n in TRAIN_RUNS:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = tlaunch.main(["--arch", arch, "--preset", preset, "--steps",
+                            str(n)])
+        losses = [h["loss"] for h in res["history"]]
+        assert len(losses) == n and all(map(math.isfinite, losses)), \
+            f"{arch} {preset}: {losses}"
+        rec = {"params": res["params"], "steps": n, "first_loss": losses[0],
+               "last_loss": losses[-1],
+               "step_ms": statistics.median(
+                   h["sec"] for h in res["history"][1:]) * 1e3,
+               "first_step_ms": res["history"][0]["sec"] * 1e3,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "run_s": time.perf_counter() - t0}
+        if preset == "small" and arch == "llama3-8b":
+            assert losses[-1] < losses[0], f"{arch} small: {losses}"
+        out[f"{arch} {preset}"] = rec
+        log(f"launch.train {arch} {preset} " + json.dumps(rec))
+        del res
+        release(torch)
+    return out
+
+
+def phase_train(torch) -> dict:
+    """Phase 14: training on the card, one model resident at a time."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    for arch in TRAIN_LMS:
+        out[arch] = train_lm_cell(torch, arch)
+        log(f"{arch} train " + json.dumps(out[arch]))
+        release(torch)
+    for arch, preset, batch in REPEAT_RUNS:
+        out[f"repeat {arch} {preset}"] = repeat_step(torch, arch, preset,
+                                                     batch)
+        release(torch)
+    out["launch"] = train_launch_runs(torch)
+    return out
+
+
 def release(torch) -> float:
     """Drop what the last phase left on the card -> GB still allocated."""
     gc.collect()
@@ -4628,6 +5011,7 @@ def main() -> int:
         offpath = phase("13 off-path models", phase_offpath, torch, graph)
     finally:
         stop_graph_build(graph)
+    train = phase("14 training", phase_train, torch)
     kern["distance_topk.retrieval_cand"] = offpath["mind"]["retrieval_cand"]
     kern["flash_decode.bf16"] = bf16["flash"]
     for arch, rec in other.items():
@@ -4682,7 +5066,8 @@ def main() -> int:
                  other["h2o-danube-3-4b"]["kv_quant_served"]["counters"],
              BF16_LLAMA: bf16["served"]["counters"],
              RETRIEVAL_PATH: offpath["mind"]["counters"],
-             BAG_ENTRY: bag_counts}
+             BAG_ENTRY: bag_counts,
+             TRAIN_PATH: train["llama3-8b"]["counters"]}
     for counts in paths.values():
         for c in CODECS:
             counts[f"{HOP_COUNTER}.{c}"] = hop_launches(counts, c)

@@ -11,6 +11,12 @@ The caller hands in numpy arrays (this module never imports JAX):
     GraphSAGE trees -> the port's: the same tensors in the same layout
     (``x @ W``, the encoder's blocks stacked along [L]), the encoder an
     ``models.encoder.Encoder``;
+  * ``opt_state_from_jax`` — the reference's AdamW ``OptState`` (m, v,
+    step) -> the port's ``train.optimizer.OptState`` for the parameters
+    it is given (``like``): an LM's m and v through
+    ``lm_params_from_jax``'s mapping, any other tree's by its dotted leaf
+    names (``named_from_jax``, which carries any tree shaped as the
+    parameters);
   * ``device_graph_from_host`` — any host HNSW graph with the reference's
     fields (vectors, neighbors0, upper, levels, entry, max_level, metric)
     -> a ``DeviceGraph`` on ``device``. The graph is this system's
@@ -25,8 +31,10 @@ import torch
 from repro_torch.core import hnsw as thnsw
 from repro_torch.core.hnsw_build import HNSWGraph
 from repro_torch.models import encoder as enc_lib
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import named_tensors, tree_map
 from repro_torch.models.recsys import _bert4rec_enc_cfg
+from repro_torch.models.transformer import LM
+from repro_torch.train.optimizer import OptState
 
 _ATTN = ("wq", "wk", "wv", "wo")
 _DENSE_FFN = ("w1", "w3", "w2")
@@ -95,6 +103,45 @@ def recsys_params_from_jax(kind: str, params: dict, cfg=None) -> dict:
 def sage_params_from_jax(params: dict) -> dict:
     """The reference's ``init_sage`` tree -> the port's on the CPU."""
     return _tensors(params)
+
+
+def _flat(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested dicts and lists of arrays -> {dotted name: array}, the
+    names of ``models.common.named_tensors``."""
+    if not isinstance(tree, (dict, list, tuple)):
+        return {prefix[:-1]: np.asarray(tree)}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    return {n: a for k, v in items for n, a in _flat(v, f"{prefix}{k}.")
+            .items()}
+
+
+def named_from_jax(tree, like) -> dict[str, torch.Tensor]:
+    """A reference tree of numpy arrays shaped as the parameters ``like``
+    (an ``LM`` or a recsys / GraphSAGE tree) -> {name: CPU tensor} keyed
+    as ``named_tensors(like)``: an LM's through ``lm_params_from_jax``,
+    any other tree's by its dotted leaf names."""
+    sd = (lm_params_from_jax(tree) if isinstance(like, LM) else
+          {n: torch.from_numpy(np.array(a)) for n, a in _flat(tree).items()})
+    names = [n for n, _ in named_tensors(like)]
+    if sorted(sd) != sorted(names):
+        raise ValueError("the tree does not match the parameters' leaves")
+    return {n: sd[n] for n in names}
+
+
+def opt_state_from_jax(opt_state, like) -> OptState:
+    """The reference's ``OptState`` (m, v and step, as numpy arrays) ->
+    the port's ``OptState`` for the parameters ``like``, on their device:
+    fp32 m and v keyed as ``named_tensors(like)``, the step an int32
+    scalar."""
+    m, v, step = opt_state
+    dev = named_tensors(like)[0][1].device
+
+    def conv(tree) -> dict[str, torch.Tensor]:
+        return {n: t.to(device=dev, dtype=torch.float32)
+                for n, t in named_from_jax(tree, like).items()}
+
+    return OptState(conv(m), conv(v), torch.tensor(
+        int(np.asarray(step)), dtype=torch.int32, device=dev))
 
 
 def device_graph_from_host(g, deleted: np.ndarray | None = None, *,

@@ -1,11 +1,14 @@
 """Blocked (flash-style) attention as plain torch ops, GQA-aware — the
 prefill path and the dense decode path of ``repro/models/attention.py``.
 
-  * ``blocked_attention`` — prefill: a loop over (q block, kv block) with a
-    running log-sum-exp, computing the full rectangle with causal masking
-    (the reference's ``impl="masked"``, which its prefill uses). This is
-    plain tensor code in the reference too, not a Pallas kernel, so the
-    port keeps the same math rather than calling a library attention.
+  * ``blocked_attention`` — training and prefill: a loop over (q block,
+    kv block) with a running log-sum-exp. ``impl="masked"`` (what the
+    reference's prefill uses) computes the full rectangle with causal
+    masking; ``impl="packed"`` pairs the q-block rows ``i`` and ``nb-1-i``
+    so that every step merges ``nb + 1`` causal kv blocks and no block
+    wholly above the diagonal. This is plain tensor code in the reference
+    too, not a Pallas kernel, so the port keeps the same math rather than
+    calling a library attention.
   * ``swa_blocked_attention`` — causal sliding-window attention: each q
     block scores only the in-band kv span (``window + block_q`` positions,
     block-aligned), the prefill of sliding-window configs.
@@ -68,12 +71,19 @@ def _finalize(l, acc, dtype):
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, block_q: int = 512,
-                      block_k: int = 1024) -> torch.Tensor:
-    """Flash-style attention. q [B,S,H,Dh]; k,v [B,Sk,KVH,Dh] -> [B,S,H,Dh]."""
+                      block_k: int = 1024,
+                      impl: str = "masked") -> torch.Tensor:
+    """Flash-style attention. q [B,S,H,Dh]; k,v [B,Sk,KVH,Dh] -> [B,S,H,Dh].
+    ``impl="packed"`` takes the packed causal schedule where the
+    reference does (causal, Sq == Sk, equal blocks, an even block count)
+    and the masked rectangle otherwise."""
     b, sq, h, dh = q.shape
     sk = k.shape[1]
     block_q = pick_block(sq, block_q)
     block_k = pick_block(sk, block_k)
+    if (impl == "packed" and causal and sq == sk and block_q == block_k
+            and (sq // block_q) % 2 == 0):
+        return _packed_causal_attention(q, k, v, blk=block_q)
     sm_scale = dh ** -0.5
     dev = q.device
     outs = []
@@ -96,6 +106,38 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             carry = _merge_block(carry, scores, v_j, mask)
         outs.append(_finalize(carry[1], carry[2], q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def _packed_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, blk: int) -> torch.Tensor:
+    """Causal attention with the lower triangle packed onto a rectangle:
+    q-block row ``i`` (which needs kv blocks 0..i) is paired with row
+    ``nb-1-i`` (kv blocks 0..nb-1-i), ``nb + 1`` kv-block merges a pair,
+    each in the reference's slot order (row i's blocks first)."""
+    b, s, h, dh = q.shape
+    nb = s // blk
+    sm_scale = dh ** -0.5
+    dev = q.device
+    out = [None] * nb
+    for i in range(nb // 2):
+        carries = {}
+        for row in (i, nb - 1 - i):
+            carries[row] = (torch.full((b, h, blk), NEG_INF, device=dev),
+                            torch.zeros((b, h, blk), device=dev),
+                            torch.zeros((b, blk, h, dh), device=dev))
+        for slot in range(nb + 1):
+            row, kv = (i, slot) if slot <= i else (nb - 1 - i, slot - i - 1)
+            q_i = q[:, row * blk:(row + 1) * blk] * sm_scale
+            sl = slice(kv * blk, (kv + 1) * blk)
+            q_pos = row * blk + torch.arange(blk, device=dev)
+            k_pos = kv * blk + torch.arange(blk, device=dev)
+            mask = (q_pos[:, None] >= k_pos[None, :])[None, None]
+            carries[row] = _merge_block(carries[row],
+                                        _gqa_scores(q_i, k[:, sl]),
+                                        v[:, sl], mask)
+        for row, (_, l, acc) in carries.items():
+            out[row] = _finalize(l, acc, q.dtype)
+    return torch.cat(out, dim=1)
 
 
 def swa_blocked_attention(q: torch.Tensor, k: torch.Tensor,

@@ -16,6 +16,12 @@ rounds once, as the fp32 product and a cast would, in one launch less;
 ``scripts/time_bf16_products.py``), elsewhere ``linear_f32`` and the
 cast. fp32 operands take the plain fp32 product, so an fp32 model runs
 as before.
+
+PyTorch gives the ``out_dtype`` overload no derivative, so on the card
+that product runs inside ``_ProductF32``, an autograd ``Function`` whose
+backward computes what autograd computes on the widened operands: the
+fp32 gradient of the fp32 result multiplied by the other operand widened
+to fp32, then rounded to the operand's own dtype.
 """
 from __future__ import annotations
 
@@ -89,13 +95,35 @@ def _f32_out(a: torch.Tensor, b: torch.Tensor) -> bool:
         a.dtype in (torch.bfloat16, torch.float16)
 
 
+class _ProductF32(torch.autograd.Function):
+    """``a @ b`` of two 16-bit operands as one ``torch.mm`` (2-D) or
+    ``torch.bmm`` (3-D) with an fp32 output. The backward is the widened
+    path's: grad_a = (g @ b.float()ᵀ) in a's dtype, grad_b = (a.float()ᵀ
+    @ g) in b's dtype, the products in fp32."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (a.float().transpose(-1, -2) @ g).to(b.dtype)
+        return ga, gb
+
+
 def linear_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., in] times w [out, in] transposed -> [..., out] fp32."""
     if x.dtype == w.dtype == torch.float32:
         return F.linear(x, w)
     if _f32_out(x, w):
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
-                       out_dtype=torch.float32)
+        out = _ProductF32.apply(x.reshape(-1, x.shape[-1]), w.t())
         return out.reshape(*x.shape[:-1], w.shape[0])
     return F.linear(x.float(), w.float())
 
@@ -113,7 +141,7 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == b.dtype == torch.float32:
         return torch.bmm(a, b)
     if _f32_out(a, b):
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _ProductF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 
 
@@ -144,15 +172,24 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
     return (xf / torch.clamp_min(n, eps)).to(x.dtype)
 
 
+def named_tensors(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """(name, tensor) for each tensor of a parameter tree, in order: an
+    ``nn.Module``'s named parameters (an ``LM``'s names are its
+    ``state_dict`` keys), the leaves of nested dicts and lists named by
+    their keys and indices joined with dots (``deep.0.w``)."""
+    if isinstance(tree, torch.nn.Module):
+        return [(prefix + n, p) for n, p in tree.named_parameters()]
+    if isinstance(tree, torch.Tensor):
+        return [(prefix[:-1], tree)]
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    return [nt for k, v in items
+            for nt in named_tensors(v, f"{prefix}{k}.")]
+
+
 def tree_tensors(tree) -> list[torch.Tensor]:
     """The tensors of a parameter tree: an ``nn.Module``'s parameters, or
     the leaves of nested dicts and lists (of tensors and modules)."""
-    if isinstance(tree, torch.nn.Module):
-        return list(tree.parameters())
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    items = tree.values() if isinstance(tree, dict) else tree
-    return [t for v in items for t in tree_tensors(v)]
+    return [t for _, t in named_tensors(tree)]
 
 
 def count_params(tree) -> int:

@@ -9,7 +9,10 @@ Two consumers:
 stacked along a leading [L] axis, matrices laid out for ``x @ W``.
 ``encoder_forward`` computes at ``dtype`` as the reference does: each
 weight cast to it where it is used, the products summed in fp32 and cast
-back, the norms in fp32, the FFN's hidden layer in fp32.
+back, the norms in fp32, the FFN's hidden layer in fp32. Each block runs
+under ``torch.utils.checkpoint`` (the reference's per-block
+``jax.checkpoint``): a backward recomputes a block's activations rather
+than holding every block's attention intermediates.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import dataclasses
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import blocked_attention
 from repro_torch.models.common import (
@@ -111,27 +115,36 @@ def _mm_f32(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
     return linear_f32(x, weight(w, dtype).T)
 
 
+def _block(model: Encoder, cfg: EncoderConfig, dtype, i: int,
+           x: torch.Tensor) -> torch.Tensor:
+    """Block ``i`` on x [B,S,D]."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    lp = {name: w[i] for name, w in model.layers.items()}
+    h = layer_norm(x, lp["ln1_g"], lp["ln1_b"], cfg.norm_eps)
+    q, k, v = torch.chunk(_mm(h, lp["wqkv"], dtype), 3, dim=-1)
+    attn = blocked_attention(q.reshape(B, S, H, D // H),
+                             k.reshape(B, S, H, D // H),
+                             v.reshape(B, S, H, D // H), causal=False,
+                             block_q=min(256, S), block_k=min(256, S))
+    x = x + _mm(attn.reshape(B, S, D), lp["wo"], dtype)
+    h = layer_norm(x, lp["ln2_g"], lp["ln2_b"], cfg.norm_eps)
+    # jax.nn.gelu's default is the tanh approximation
+    g = F.gelu(_mm_f32(h, lp["w1"], dtype) + lp["b1"].float(),
+               approximate="tanh")
+    return x + _mm(g.to(dtype), lp["w2"], dtype) + lp["b2"].to(dtype)
+
+
 def encoder_forward(model: Encoder, cfg: EncoderConfig, tokens: torch.Tensor,
                     mask: torch.Tensor | None = None,
                     dtype=torch.float32) -> torch.Tensor:
     """tokens [B,S] -> hidden [B,S,D] (or pooled [B,D] per cfg.pool)."""
-    B, S = tokens.shape
-    D, H = cfg.d_model, cfg.n_heads
+    S = tokens.shape[1]
     x = (model.embed[tokens.long()] + model.pos[None, :S]).to(dtype)
+    remat = torch.is_grad_enabled()     # a served forward keeps nothing
     for i in range(cfg.n_blocks):
-        lp = {name: w[i] for name, w in model.layers.items()}
-        h = layer_norm(x, lp["ln1_g"], lp["ln1_b"], cfg.norm_eps)
-        q, k, v = torch.chunk(_mm(h, lp["wqkv"], dtype), 3, dim=-1)
-        attn = blocked_attention(q.reshape(B, S, H, D // H),
-                                 k.reshape(B, S, H, D // H),
-                                 v.reshape(B, S, H, D // H), causal=False,
-                                 block_q=min(256, S), block_k=min(256, S))
-        x = x + _mm(attn.reshape(B, S, D), lp["wo"], dtype)
-        h = layer_norm(x, lp["ln2_g"], lp["ln2_b"], cfg.norm_eps)
-        # jax.nn.gelu's default is the tanh approximation
-        g = F.gelu(_mm_f32(h, lp["w1"], dtype) + lp["b1"].float(),
-                   approximate="tanh")
-        x = x + _mm(g.to(dtype), lp["w2"], dtype) + lp["b2"].to(dtype)
+        x = (checkpoint(_block, model, cfg, dtype, i, x, use_reentrant=False)
+             if remat else _block(model, cfg, dtype, i, x))
     x = layer_norm(x, model.final_g, model.final_b, cfg.norm_eps)
     if cfg.pool == "none":
         return x

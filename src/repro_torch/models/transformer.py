@@ -4,6 +4,7 @@ window attention, + MoE, + an int8 KV cache), ported from
 
 Entry points:
   init_lm(cfg, seed, device, dtype)       random weights from a torch.Generator
+  lm_loss(model, tokens, labels, dtype=)  training loss (full or chunked vocab)
   init_cache(cfg, batch, seq_len, dtype)  empty KV cache (a ring under SWA)
   prefill(model, tokens, dtype=)          build the KV cache, last logits
   decode_step(model, token, cache, dtype=)  one token through the cache
@@ -30,14 +31,27 @@ and silu(h1)·h3, the MoE's expert products and combine, and the head's
 logits stay fp32 as there. The reference defaults ``dtype`` to bf16; the
 port's ``dtype=None`` is the weights' own, so an fp32 model computes in
 fp32 unless asked.
+
+Training (``lm_loss``, ``forward_hidden``) runs each layer through the
+body ``prefill`` uses, on the whole sequence, and keeps the MoE's aux
+loss. Under ``cfg.remat`` (the default) each layer runs under
+``torch.utils.checkpoint`` and its activations are recomputed in the
+backward, as the reference's ``jax.checkpoint``; ``cfg.chunked_loss``
+computes the vocab loss a sequence chunk at a time, each chunk
+checkpointed. At a compute dtype other than the weights', the whole
+parameter tree is cast once at entry (``cast_params_for_compute``, the
+reference's), norms and router included. ``cfg.scan_layers`` changes
+nothing here: the layers are a Python loop either way.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels import ops
@@ -51,6 +65,7 @@ from repro_torch.models.common import (
     linear,
     linear_f32,
     rms_norm,
+    softmax_xent,
     weight,
 )
 from repro_torch.models.moe import MoE, moe_ffn
@@ -139,7 +154,9 @@ def init_lm(cfg: LMConfig, seed: int = 0, device=None,
             dtype=torch.float32) -> LM:
     """A serving LM with random weights drawn on ``device`` (default cuda)
     from a ``torch.Generator`` seeded with ``seed``. The weights are
-    allocated once, directly on the device."""
+    allocated once, directly on the device, and frozen; a train step
+    (``train.train_loop.make_train_step``) enables the gradients of what
+    it trains."""
     dev = resolve_device(device)
     model = LM(cfg, device="meta", dtype=dtype).to_empty(device=dev)
     model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
@@ -148,7 +165,7 @@ def init_lm(cfg: LMConfig, seed: int = 0, device=None,
 
 
 # ---------------------------------------------------------------------------
-# Layer pieces (shared by prefill / decode)
+# Layer pieces (shared by train / prefill / decode)
 # ---------------------------------------------------------------------------
 def _proj(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``x @ W`` at ``x``'s dtype: the weight cast to it, the product
@@ -167,18 +184,49 @@ def _qkv(blk: Block, cfg: LMConfig, h: torch.Tensor, positions: torch.Tensor):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _ffn(blk: Block, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
-    """The FFN residual (the MoE's aux loss is dropped: serving only).
-    The dense FFN keeps h1, h3 and silu(h1)·h3 in fp32 and casts once."""
+def _ffn(blk: Block, cfg: LMConfig, x: torch.Tensor
+         ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The FFN residual and the MoE's aux loss (None for the dense FFN,
+    where the reference's is a zero). The dense FFN keeps h1, h3 and
+    silu(h1)·h3 in fp32 and casts once."""
     h = rms_norm(x, blk.ffn_norm, cfg.norm_eps)
     if cfg.moe is not None:
         B, S, D = h.shape
-        out, _ = moe_ffn(blk.moe, cfg.moe, h.reshape(B * S, D))
-        return x + out.reshape(B, S, D)
+        out, aux = moe_ffn(blk.moe, cfg.moe, h.reshape(B * S, D))
+        return x + out.reshape(B, S, D), aux
     dt = h.dtype
     g = F.silu(linear_f32(h, weight(blk.w1.weight, dt))) \
         * linear_f32(h, weight(blk.w3.weight, dt))
-    return x + _proj(blk.w2, g.to(dt))
+    return x + _proj(blk.w2, g.to(dt)), None
+
+
+def _layer(blk: Block, cfg: LMConfig, x: torch.Tensor,
+           positions: torch.Tensor, impl: str = "masked"):
+    """One decoder layer on a full sequence x [B,S,D] -> (x, aux, k, v):
+    the MoE aux loss (or None) and the layer's K/V [B,S,KVH,Dh] after
+    RoPE. Sliding-window configs take the reference's banded attention
+    (its kv block is ``attn_block_q``)."""
+    B, S, _ = x.shape
+    h = rms_norm(x, blk.attn_norm, cfg.norm_eps)
+    q, k, v = _qkv(blk, cfg, h, positions)
+    if cfg.sliding_window is not None:
+        attn = swa_blocked_attention(q, k, v, window=cfg.sliding_window,
+                                     block_q=cfg.attn_block_q,
+                                     block_k=cfg.attn_block_q)
+    else:
+        attn = blocked_attention(q, k, v, causal=True, impl=impl,
+                                 block_q=cfg.attn_block_q,
+                                 block_k=cfg.attn_block_k)
+    x = x + _proj(blk.wo, attn.reshape(B, S, -1))
+    x, aux = _ffn(blk, cfg, x)
+    return x, aux, k, v
+
+
+def _train_layer(cfg: LMConfig, impl: str, blk: Block, x: torch.Tensor):
+    """One decoder layer on a full sequence (no cache) -> (x, aux)."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, aux, _, _ = _layer(blk, cfg, x, positions, impl)
+    return x, aux
 
 
 def _embed(model: LM, tokens: torch.Tensor, dtype) -> torch.Tensor:
@@ -186,10 +234,85 @@ def _embed(model: LM, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return model.embed(tokens).to(dtype)
 
 
+def _head_weight(model: LM, dtype) -> torch.Tensor:
+    """The vocab projection [V, D] (the tied embedding or ``out_head``)
+    in ``dtype``."""
+    w = model.embed.weight if model.out_head is None else model.out_head.weight
+    return weight(w, dtype)
+
+
 def _head(model: LM, x: torch.Tensor) -> torch.Tensor:
     """Logits in fp32 from ``x`` at its dtype (never cast back)."""
-    w = model.embed.weight if model.out_head is None else model.out_head.weight
-    return linear_f32(x, weight(w, x.dtype))
+    return linear_f32(x, _head_weight(model, x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Full forward / loss (training)
+# ---------------------------------------------------------------------------
+def cast_params_for_compute(model: LM, dtype) -> LM:
+    """The model with every parameter cast to ``dtype`` once (the
+    reference's step-entry cast): itself when ``dtype`` is None or the
+    weights' own, else a structural copy holding the casts, through which
+    gradients reach the original parameters."""
+    if dtype is None or model.dtype == dtype:
+        return model
+    memo = {id(p): p.to(dtype) for p in model.parameters()}
+    return copy.deepcopy(model, memo)
+
+
+def forward_hidden(model: LM, tokens: torch.Tensor, dtype=None,
+                   impl: str = "masked"
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token ids [B,S] -> (final hidden states [B,S,D] at the compute
+    dtype, the MoE aux loss summed over layers, an fp32 scalar).
+    ``dtype``: the compute dtype (default the weights')."""
+    model = cast_params_for_compute(model, dtype)
+    cfg = model.cfg
+    x = _embed(model, tokens.to(model.device).long(), model.dtype)
+    aux = torch.zeros((), device=x.device)
+    for blk in model.layers:
+        if cfg.remat:
+            x, a = checkpoint(_train_layer, cfg, impl, blk, x,
+                              use_reentrant=False)
+        else:
+            x, a = _train_layer(cfg, impl, blk, x)
+        if a is not None:
+            aux = aux + a
+    return rms_norm(x, model.final_norm, cfg.norm_eps), aux
+
+
+def _chunk_nll(x_c: torch.Tensor, y_c: torch.Tensor,
+               w: torch.Tensor) -> torch.Tensor:
+    """Summed NLL of one sequence chunk's fp32 logits."""
+    logits = linear_f32(x_c, w)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, y_c[..., None])[..., 0]
+    return torch.sum(lse - ll)
+
+
+def lm_loss(model: LM, tokens: torch.Tensor, labels: torch.Tensor,
+            dtype=None, impl: str = "masked") -> torch.Tensor:
+    """Causal LM loss (mean NLL plus the MoE aux loss), an fp32 scalar.
+    ``cfg.chunked_loss`` > 0 computes the vocab projection a sequence
+    chunk at a time under ``checkpoint``: the [B,S,V] logits are never
+    held. ``dtype``: the compute dtype (default the weights')."""
+    model = cast_params_for_compute(model, dtype)
+    cfg = model.cfg
+    x, aux = forward_hidden(model, tokens, impl=impl)
+    labels = labels.to(x.device).long()
+    if cfg.chunked_loss <= 0:
+        return softmax_xent(_head(model, x), labels) + aux
+    B, S, _ = x.shape
+    cs = min(cfg.chunked_loss, S)
+    if S % cs:
+        raise ValueError(f"chunked_loss {cs} does not divide S {S}")
+    w = _head_weight(model, x.dtype)
+    tot = torch.zeros((), device=x.device)
+    for i in range(S // cs):
+        sl = slice(i * cs, (i + 1) * cs)
+        tot = tot + checkpoint(_chunk_nll, x[:, sl], labels[:, sl], w,
+                               use_reentrant=False)
+    return tot / torch.tensor(float(B * S), device=x.device) + aux
 
 
 # ---------------------------------------------------------------------------
@@ -279,18 +402,7 @@ def prefill(model: LM, tokens: torch.Tensor, max_len: int | None = None,
     positions = torch.arange(S, device=dev)[None, :]
     ks, vs, kss, vss = [], [], [], []
     for blk in model.layers:
-        h = rms_norm(x, blk.attn_norm, cfg.norm_eps)
-        q, k, v = _qkv(blk, cfg, h, positions)
-        if cfg.sliding_window is not None:
-            attn = swa_blocked_attention(q, k, v, window=cfg.sliding_window,
-                                         block_q=cfg.attn_block_q,
-                                         block_k=cfg.attn_block_q)
-        else:
-            attn = blocked_attention(q, k, v, causal=True,
-                                     block_q=cfg.attn_block_q,
-                                     block_k=cfg.attn_block_k)
-        x = x + _proj(blk.wo, attn.reshape(B, S, -1))
-        x = _ffn(blk, cfg, x)
+        x, _, k, v = _layer(blk, cfg, x, positions)
         k, v = _ring(k, Sc), _ring(v, Sc)
         if cfg.kv_quant:
             (k, k_s), (v, v_s) = _quantize_kv(k), _quantize_kv(v)
@@ -372,7 +484,7 @@ def decode_step(model: LM, token: torch.Tensor, cache: KVCache,
         else:
             attn = decode_attention(q, k_att, v_att, n_valid)
         x = x + _proj(blk.wo, attn.reshape(B, 1, -1))
-        x = _ffn(blk, cfg, x)
+        x, _ = _ffn(blk, cfg, x)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     logits = _head(model, x)
     return logits, KVCache(cache.k, cache.v, pos + 1, cache.k_scale,

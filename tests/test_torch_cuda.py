@@ -1827,3 +1827,138 @@ def test_graphsage_on_card_matches_cpu(cuda_device):
                                      _t(mol["adj"]).to(cuda_device)),
           tgnn.sage_molecule_forward(mcpu, cfg, _t(mol["feats"]),
                                      _t(mol["adj"])))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("fn", ["linear_f32", "linear", "bmm_f32"])
+def test_products_train_on_card_as_on_cpu(cuda_device, fn, dtype):
+    """The 16-bit products with fp32 sums (``models.common``): on the card
+    one ``out_dtype`` product (``linear_f32``, ``bmm_f32``: the autograd
+    ``_ProductF32``) or a 16-bit ``F.linear`` (``linear``), on the CPU
+    the widened operands. Outputs and both gradients near the CPU's: the
+    fp32 results within 1e-5 relative of the largest, the 16-bit ones
+    (rounded once) within two of their ulps of the largest."""
+    from repro_torch.models import common
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = (((4, 33, 64), (4, 64, 48)) if fn == "bmm_f32" else
+              ((2, 33, 64), (48, 64)))
+    a, b = (torch.randn(s, generator=gen).to(dtype) for s in shapes)
+
+    def run(dev):
+        x = a.to(dev).requires_grad_(True)
+        w = b.to(dev).requires_grad_(True)
+        out = getattr(common, fn)(x, w)
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+            1)).to(dev, out.dtype)
+        return (out,) + torch.autograd.grad(out, (x, w), g)
+
+    ulp = 2.0 ** (-7 if dtype == torch.bfloat16 else -10)
+    for got, want in zip(run(cuda_device), run("cpu")):
+        assert got.dtype == want.dtype
+        rel = 1e-5 if got.dtype == torch.float32 else 2 * ulp
+        scale = want.float().abs().max().item()
+        assert (got.cpu().float() - want.float()).abs().max().item() \
+            <= rel * scale
+
+
+def _train_pair(cuda_device, arch):
+    """(step, CPU LM, card LM with the same weights, batches)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = get_smoke_config(arch)
+    cpu = tf.init_lm(cfg, seed=0, device="cpu")
+    card = tf.LM(cfg, device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    step = make_train_step(lambda p, tokens, labels: tf.lm_loss(
+        p, tokens, labels), AdamWConfig(lr=warmup_cosine(1e-3, 2, 10)))
+    data = lm_batches(cfg.vocab, 4, 33, seed=1)
+    return step, cpu, card, [next(data) for _ in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "olmoe-1b-7b"])
+def test_train_steps_on_card_match_cpu(cuda_device, arch):
+    """Two ``make_train_step`` steps of a dense and an MoE smoke LM on the
+    card and on the CPU from the same weights: losses and grad norms
+    within 1e-5 relative; after the first step (the same weights, so m
+    and v are the gradients' own) m and v within 1e-4 x max|leaf|; after
+    the second the weights within 5e-2 x lr + 1e-6 x |p|
+    (``tests/test_torch_train.py``'s bound against the reference)."""
+    from repro_torch.models.common import named_tensors
+    from repro_torch.train.train_loop import init_train_state
+
+    step, cpu, card, batches = _train_pair(cuda_device, arch)
+    sc, sd = init_train_state(cpu), init_train_state(card)
+    for i, batch in enumerate(batches):
+        _, sc, mc = step(cpu, sc, batch)
+        _, sd, md = step(card, sd, batch)
+        for key in ("loss", "grad_norm"):
+            want = mc[key].item()
+            assert abs(md[key].item() - want) <= 1e-5 * abs(want)
+        for name in sc.m if i == 0 else ():
+            for got, ref in ((sd.m[name], sc.m[name]),
+                             (sd.v[name], sc.v[name])):
+                assert (got.cpu() - ref).abs().max().item() <= \
+                    1e-4 * ref.abs().max().item() + 1e-30, name
+    want = dict(named_tensors(cpu))
+    for name, p in named_tensors(card):
+        w = want[name].detach()
+        assert bool(((p.detach().cpu() - w).abs()
+                     <= 5e-2 * 1e-3 + 1e-6 * w.abs()).all()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "olmoe-1b-7b"])
+def test_train_step_on_card_is_bit_for_bit(cuda_device, arch):
+    """The same step twice on the card from the same state: the same loss
+    and grad norm, weights, m and v, bit for bit."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import named_tensors
+    from repro_torch.train.train_loop import init_train_state
+
+    step, cpu, card, batches = _train_pair(cuda_device, arch)
+    twin = tf.LM(card.cfg, device=cuda_device)
+    twin.load_state_dict(cpu.state_dict())
+    runs = [step(m, init_train_state(m), batches[0]) for m in (card, twin)]
+    (_, s0, m0), (_, s1, m1) = runs
+    assert torch.equal(m0["loss"], m1["loss"])
+    assert torch.equal(m0["grad_norm"], m1["grad_norm"])
+    for (name, p), (_, q) in zip(named_tensors(card), named_tensors(twin)):
+        assert torch.equal(p, q), name
+        assert torch.equal(s0.m[name], s1.m[name]), name
+        assert torch.equal(s0.v[name], s1.v[name]), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["fm", "wide-deep", "bert4rec", "mind",
+                                  "graphsage-reddit"])
+def test_family_train_step_on_card_is_bit_for_bit(cuda_device, arch):
+    """``launch.train.build``'s smoke run of each other family on the
+    card, its first step twice from the same fresh state (the lookups'
+    and gathers' gradients add repeated ids): the same loss, weights, m
+    and v, bit for bit."""
+    import argparse
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.common import named_tensors
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import init_train_state, make_train_step
+
+    args = argparse.Namespace(seed=0, batch=64, seq=32, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        _, params, loss_fn, data = tlaunch.build(arch, "smoke", args)
+        _, state, metrics = make_train_step(loss_fn, AdamWConfig())(
+            params, init_train_state(params), next(data))
+        runs.append((params, state, metrics))
+    (p0, s0, m0), (p1, s1, m1) = runs
+    assert torch.equal(m0["loss"], m1["loss"])
+    for (name, a), (_, b) in zip(named_tensors(p0), named_tensors(p1)):
+        assert torch.equal(a, b), name
+        assert torch.equal(s0.m[name], s1.m[name]), name
+        assert torch.equal(s0.v[name], s1.v[name]), name
