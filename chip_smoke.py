@@ -93,8 +93,8 @@ Phases (none catches an exception; any failure exits non-zero):
    sequential builder's recall (bulk >= sequential - 0.05); (c) a
    32,768-row prefix build, timed and then traced, gives the device's
    busy and idle share of a build; (d) the durable store on (b)'s index:
-   attach an ``IndexStore`` and snapshot, apply 32 inserts, 32 updates
-   and 64 deletes (WAL-logged), drop the index, warm-restore it with
+   attach an ``IndexStore`` and snapshot, apply 8 inserts, 8 updates
+   and 16 deletes (WAL-logged), drop the index, warm-restore it with
    ``make_index("hnsw", store=...)`` and hold it against the live one
    (the same keys on the 1,024 queries, the same ``mutation_epoch``,
    equal ``state_dict`` arrays), timing the snapshot and the restore
@@ -311,6 +311,35 @@ Phases (none catches an exception; any failure exits non-zero):
    ``--preset smoke --steps 5`` and fm and wide-deep ``--preset small
    --steps 3`` (their published tables), each one's step ms, peak GB and
    finite losses.
+15. Checkpoints, fault tolerance and the distributed training layer: (a)
+   phase 14 (a)'s llama3-8b state (published width, 2 layers, one step
+   taken) saved once through ``CheckpointManager(keep=1,
+   async_save=True)`` into ``build/scratch/`` (the caller's stall, then
+   the write's seconds, GB/s and the file's bytes, the write overlapping
+   (b) to (f)), restored onto the card (seconds, GB/s, peak GB), every
+   leaf bit for bit the live state's, and one step from the restored
+   state bit for bit the live state's step (loss, grad norm, weights, m,
+   v); (b) the reference's ``examples/fault_tolerant_training.py`` on
+   ``launch.train``'s small llama3-8b: 24 steps, a checkpoint every 8
+   (async), failures at 9 and 17 (two restarts) with a
+   ``StragglerWatchdog``, against a failure-free run and a failure at
+   step 3 (restart from scratch), every loss and the final state bit for
+   bit; each save's stall and the stragglers logged; (c)
+   ``launch.train.main --preset small --steps 20 --ckpt-every 10
+   --ckpt-dir D``, then ``--steps 30`` resumes at step 20 (its first
+   loss logged); (d) ``pipeline_apply``: four stages of one llama3-8b
+   layer each at its published width (``transformer.layer_stage``), 8
+   microbatches of 1 x 128 tokens on a 4-stage mesh (``cuda:0`` repeated
+   on one card), the output and the gradients of its sum against the
+   sequential oracle, bit for bit where the stages share a card (1e-5
+   otherwise), the ticks (11), the bubble fraction and the ms; (e)
+   ``compressed_psum`` over 4 replicas of a seeded [128,256 x 4,096]
+   fp32 tensor (the llama3-8b embedding gradient's shape): within the
+   reference's 3 % of the exact sum, every replica equal, the int8 bytes
+   moved against an fp32 ring all-reduce's and the ms; (f) (b)'s final
+   state placed on a (4, 2) mesh, saved, and ``restore_sharded`` onto
+   (2, 4): every block of ``spec_for``'s shape, the blocks joined equal
+   to the saved leaves.
 
 Each phase's seconds are logged. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -392,9 +421,10 @@ QUALITY_ROWS = 5_000
 BAG_ROWS, BAG_DIM, BAG_LEN = 1_000_000, 64, 50
 BAG_BATCHES = (512, 262_144)
 BAG_ENTRY = "ops.embedding_bag (MIND serve_p99)"
-# store phase: logged mutations on the restored 1M int8 index, and the
-# compact + secure-delete prefix
-STORE_INSERTS, STORE_UPDATES, STORE_DELETES = 32, 32, 64
+# store phase: logged mutations on the restored 1M int8 index (kept few:
+# each insert or update copies the 1M encoded rows, live and again in
+# the replay), and the compact + secure-delete prefix
+STORE_INSERTS, STORE_UPDATES, STORE_DELETES = 8, 8, 16
 COMPACT_ROWS, COMPACT_DELETES = 5_000, 200
 # IVF at the paper's scale (configs/mememo.py build_1m, int8; nlist and
 # nprobe from RetrievalConfig): the query batches timed, the sample held
@@ -462,6 +492,16 @@ REPEAT_RUNS = (("fm", "small", 512), ("graphsage-reddit", "smoke", 8))
 # global grad norm (bf16 roundings of activations land on either side
 # on the two devices and are carried through 2 layers)
 BF16_LOSS_RTOL, BF16_GNORM_RTOL = 1e-2, 5e-2
+# phase 15: checkpoints, fault tolerance and the distributed training
+# layer. (b) examples/fault_tolerant_training.py's run; (c) launch.train's
+# --ckpt-dir run and its rerun (--steps); (d) the pipeline's stages,
+# microbatches and their shape; (e) compressed_psum's replicas; (f) the
+# meshes a state is saved from and restored onto
+FT_STEPS, FT_EVERY, FT_FAILS, FT_SCRATCH_FAIL = 24, 8, (9, 17), 3
+CKPT_STEPS, CKPT_EVERY = (20, 30), 10
+PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_S = 4, 8, 1, 128
+PSUM_REPLICAS, PSUM_BOUND = 4, 0.03
+MESH_SAVE, MESH_RESTORE = (4, 2), (2, 4)
 # the kernels each served path must launch
 HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
              "kernel.flash_decode")
@@ -4892,6 +4932,436 @@ def phase_train(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: checkpoints, fault tolerance and the distributed training layer
+# ---------------------------------------------------------------------------
+def lm_config(arch: str, **replace):
+    """A published LM config (``configs/``), fields replaced."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch).model, **replace)
+
+
+def state_bytes(torch, tree) -> int:
+    from repro_torch.train.checkpoint import tree_leaves
+
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves(tree))
+
+
+def unequal(torch, a, b) -> list[str]:
+    """The leaves of two trees of one structure that differ in any bit."""
+    from repro_torch.train.checkpoint import tree_leaves
+
+    want = dict(tree_leaves(b))
+    return [k for k, t in tree_leaves(a)
+            if not torch.equal(t.detach(), want[k].detach())]
+
+
+def logged_ckpt(directory, **kw):
+    """A ``CheckpointManager`` that keeps each save's step and stall."""
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    class Logged(CheckpointManager):
+        def save(self, step, state, meta=None):
+            path = super().save(step, state, meta)
+            self.stalls.append({"step": step, "stall_ms":
+                                self.last_save["stall_s"] * 1e3})
+            return path
+
+    mgr = Logged(str(directory), **kw)
+    mgr.stalls = []
+    return mgr
+
+
+def ckpt_save_full(torch) -> dict:
+    """(a), first half: llama3-8b at its published width, 2 layers, one
+    ``make_train_step`` step (m and v hold its moments), then one async
+    save of {params, opt}: the caller's stall."""
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
+    from repro_torch.train.train_loop import init_train_state, make_train_step
+
+    cfg = lm_config("llama3-8b", n_layers=TRAIN_LAYERS)
+    model = tf.init_lm(cfg, seed=0, device="cuda")
+    state = init_train_state(model)
+    step = make_train_step(lambda p, tokens, labels: tf.lm_loss(
+        p, tokens, labels, dtype=torch.float32),
+        AdamWConfig(lr=warmup_cosine(3e-4, 5, 100)))
+    data = lm_batches(cfg.vocab, TRAIN_B, TRAIN_S + 1, seed=0)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in next(data).items()}
+               for _ in range(2)]
+    _, state, _ = step(model, state, batches[0])
+    torch.cuda.synchronize()
+    d = store_dir("ckpt_full")
+    ckpt = logged_ckpt(d, keep=1, async_save=True)
+    live = {"params": model, "opt": state}
+    t0 = time.perf_counter()
+    ckpt.save(1, live)
+    stall = time.perf_counter() - t0
+    rec = {"layers": cfg.n_layers, "state_bytes": state_bytes(torch, live),
+           "stall_s": stall}
+    rec["stall_gb_per_s"] = rec["state_bytes"] / stall / 1e9
+    log("checkpoint (a) async save of llama3-8b's state: " + json.dumps(rec))
+    return {"rec": rec, "live": live, "step": step, "batch": batches[1],
+            "ckpt": ckpt, "dir": d, "t_save": time.perf_counter()}
+
+
+def ckpt_restore_full(torch, saved: dict) -> dict:
+    """(a), second half: the write's seconds, GB/s and bytes; the restore
+    onto the card (seconds, GB/s, peak GB); every leaf and one step from
+    the restored state bit for bit the live state's."""
+    from repro_torch.core import dispatch
+
+    rec, ckpt, live = saved["rec"], saved["ckpt"], saved["live"]
+    t0 = time.perf_counter()
+    ckpt.wait()
+    rec["waited_s"] = time.perf_counter() - t0
+    rec["write_overlapped_s"] = t0 - saved["t_save"]
+    rec["write_s"] = ckpt.last_save["write_s"]
+    rec["file_bytes"] = ckpt.last_save["bytes"]
+    rec["write_gb_per_s"] = rec["file_bytes"] / rec["write_s"] / 1e9
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    got, meta = ckpt.restore(live)
+    torch.cuda.synchronize()
+    rec["restore_s"] = time.perf_counter() - t0
+    rec["restore_gb_per_s"] = rec["file_bytes"] / rec["restore_s"] / 1e9
+    rec["restore_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["allocated_before_restore_gb"] = base
+    rec["read"] = "warm (the file was just written; page cache not dropped)"
+    assert meta == {"step": 1}, meta
+    bad = unequal(torch, got, live)
+    assert not bad, f"restored leaves differ: {bad[:5]}"
+    rec["leaves_bit_for_bit"] = True
+    step, batch = saved["step"], saved["batch"]
+    dispatch.reset()
+    _, s_live, m_live = step(live["params"], live["opt"], batch)
+    _, s_got, m_got = step(got["params"], got["opt"], batch)
+    launched = {k: v for k, v in dispatch.snapshot().items()
+                if k.startswith("kernel.") and v}
+    assert not launched, f"a train step launched {launched}"
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(m_live[k], m_got[k]), (k, m_live[k], m_got[k])
+    bad = unequal(torch, {"params": got["params"], "opt": s_got},
+                  {"params": live["params"], "opt": s_live})
+    assert not bad, f"the step from the restored state differs: {bad[:5]}"
+    rec.update(step_loss=m_got["loss"].item(), step_bit_for_bit=True)
+    shutil.rmtree(saved["dir"], ignore_errors=True)
+    log("checkpoint (a) restore " + json.dumps(rec))
+    return rec
+
+
+def ft_example(torch) -> tuple[dict, dict]:
+    """(b) ``examples/fault_tolerant_training.py`` on the card, at
+    ``launch.train``'s small llama3-8b -> (record, the failure-free
+    run's final state)."""
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.train import small_lm
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.checkpoint import tree_leaves
+    from repro_torch.train.fault_tolerance import (StragglerWatchdog,
+                                                   run_resilient)
+    from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = small_lm(lm_config("llama3-8b"))
+    step = make_train_step(lambda p, tokens, labels: tf.lm_loss(
+        p, tokens, labels, dtype=torch.float32),
+        AdamWConfig(lr=warmup_cosine(1e-3, 5, 40)))
+
+    def batch_fn(s):                      # deterministic in (seed, step)
+        return next(lm_batches(cfg.vocab, 8, 33, seed=0, start_step=s))
+
+    model = tf.init_lm(cfg, seed=0, device="cuda")
+    out, finals = {}, {}
+    for name, fails, async_save, wd in (
+            ("two failures", FT_FAILS, True,
+             StragglerWatchdog(min_samples=5, factor=4.0)),
+            ("failure-free", (), False, None),
+            ("failure at 3", (FT_SCRATCH_FAIL,), True, None)):
+        d = store_dir("ft")
+        ckpt = logged_ckpt(d, keep=3, async_save=async_save)
+        t0 = time.perf_counter()
+        params, state, info = run_resilient(
+            model, step, batch_fn, steps=FT_STEPS, ckpt=ckpt,
+            ckpt_every=FT_EVERY, watchdog=wd, fail_at=list(fails))
+        ckpt.wait()
+        wall = time.perf_counter() - t0
+        shutil.rmtree(d, ignore_errors=True)
+        finals[name] = {"params": params, "opt": state}
+        out[name] = {"restarts": info["restarts"], "wall_s": wall,
+                     "final_loss": info["losses"][FT_STEPS - 1],
+                     "losses": info["losses"], "saves": ckpt.stalls,
+                     "stragglers": [dataclasses.asdict(e)
+                                    for e in info["stragglers"]]}
+    clean = out["failure-free"]
+    assert [out[k]["restarts"] for k in out] == [2, 0, 1], out
+    for name in ("two failures", "failure at 3"):
+        assert out[name]["losses"] == clean["losses"], \
+            f"{name}: losses differ from the failure-free run"
+        bad = unequal(torch, finals[name], finals["failure-free"])
+        assert not bad, f"{name}: final state differs: {bad[:5]}"
+        out[name]["bit_for_bit"] = True
+    for rec in out.values():
+        rec["losses"] = [rec["losses"][s] for s in range(FT_STEPS)]
+    out["params"] = sum(t.numel() for _, t in tree_leaves(model))
+    log("checkpoint (b) fault-tolerant example " + json.dumps(out))
+    return out, {"cfg": cfg, **finals["failure-free"]}
+
+
+def ckpt_launch_train(torch) -> dict:
+    """(c) ``launch.train.main --ckpt-dir``: the small llama3-8b for 20
+    steps (a checkpoint every 10), then the same command for 30, which
+    resumes at step 20."""
+    from repro_torch.launch import train as tlaunch
+
+    d = store_dir("launch_ckpt")
+    out = {}
+    try:
+        for steps in CKPT_STEPS:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() / 1e9
+            t0 = time.perf_counter()
+            res = tlaunch.main(
+                ["--arch", "llama3-8b", "--preset", "small", "--steps",
+                 str(steps), "--ckpt-every", str(CKPT_EVERY), "--ckpt-dir",
+                 str(d), "--device", "cuda"])
+            hist = res["history"]
+            out[f"--steps {steps}"] = {
+                "start_step": res["start_step"], "steps_run": len(hist),
+                "first_step": hist[0]["step"], "first_loss": hist[0]["loss"],
+                "last_loss": hist[-1]["loss"],
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "allocated_before_gb": base,
+                "run_s": time.perf_counter() - t0,
+                "on_disk": sorted(p.name for p in d.glob("step_*"))}
+        first, second = (out[f"--steps {n}"] for n in CKPT_STEPS)
+        assert first["start_step"] == 0 and first["steps_run"] == 20
+        assert second["start_step"] == 20 and second["first_step"] == 20 \
+            and second["steps_run"] == 10, second
+        assert math.isfinite(second["first_loss"])
+        assert second["on_disk"] == ["step_00000010.npz", "step_00000020.npz",
+                                     "step_00000030.npz"], second
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log("checkpoint (c) launch.train --ckpt-dir " + json.dumps(out))
+    return out
+
+
+def pipeline_cell(torch) -> dict:
+    """(d) four full-width llama3-8b layers as four pipeline stages, 8
+    microbatches of 1 x 128 tokens: output and gradients against the
+    sequential oracle, the ticks, the bubble and the ms."""
+    from repro_torch.distributed.pipeline import (pipeline_apply,
+                                                  pipeline_bubble_fraction,
+                                                  pipeline_schedule,
+                                                  stage_devices)
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.models import transformer as tf
+
+    cfg = lm_config("llama3-8b", n_layers=PIPE_STAGES)
+    model = tf.init_lm(cfg, seed=1, device="cuda")
+    stacked = tf.stack_layers(model)
+    del model
+    release(torch)
+    stage = tf.layer_stage(cfg)
+    mesh = Mesh((PIPE_STAGES,), ("pp",))
+    devs = stage_devices(mesh, "pp")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(PIPE_MICRO, PIPE_MB, PIPE_S, cfg.d_model, device="cuda",
+                    generator=gen)
+
+    def sequential(p, x):
+        ps = [{k: v[s] for k, v in p.items()} for s in range(PIPE_STAGES)]
+        out = []
+        for m in range(x.shape[0]):
+            h = x[m]
+            for s in range(PIPE_STAGES):
+                h = stage(ps[s], h)
+            out.append(h)
+        return torch.stack(out)
+
+    def run(fn):
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in stacked.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(leaves, x)
+        grads = torch.autograd.grad(out.sum(), list(leaves.values()))
+        torch.cuda.synchronize()
+        return out.detach(), grads, (time.perf_counter() - t0) * 1e3
+
+    pipe = lambda p, x: pipeline_apply(mesh, "pp", stage, p, x)
+    run(pipe)                                       # warm-up
+    want = run(sequential)
+    got = run(pipe)
+    same_card = len(set(devs)) == 1
+    pairs = [(got[0], want[0])] + list(zip(got[1], want[1]))
+    if same_card:
+        assert all(torch.equal(a, b) for a, b in pairs), \
+            "pipeline != sequential oracle on one card"
+        err = 0.0
+    else:
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        assert all(torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+                   for a, b in pairs), f"pipeline vs oracle {err}"
+    rec = {"stages": PIPE_STAGES, "micro": PIPE_MICRO,
+           "micro_shape": [PIPE_MB, PIPE_S, cfg.d_model],
+           "devices": [str(d) for d in devs],
+           "ticks": len(pipeline_schedule(PIPE_STAGES, PIPE_MICRO)),
+           "bubble_fraction": pipeline_bubble_fraction(PIPE_STAGES,
+                                                       PIPE_MICRO),
+           "bit_for_bit": same_card, "max_abs_err": err,
+           "pipeline_fwd_bwd_ms": got[2], "sequential_fwd_bwd_ms": want[2],
+           "stage_params": sum(v[0].numel() for v in stacked.values())}
+    assert rec["ticks"] == PIPE_MICRO + PIPE_STAGES - 1
+    log("checkpoint (d) pipeline " + json.dumps(rec))
+    return rec
+
+
+def compressed_psum_cell(torch) -> dict:
+    """(e) ``compressed_psum`` over 4 replicas of a seeded fp32 tensor of
+    the llama3-8b embedding gradient's shape, on the mesh's devices."""
+    from repro_torch.distributed.collectives import compressed_psum
+    from repro_torch.distributed.sharding import Mesh
+
+    cfg = lm_config("llama3-8b")
+    shape = (cfg.vocab, cfg.d_model)
+    mesh = Mesh((PSUM_REPLICAS,), ("data",))
+    devs = list(mesh.devices.flat)
+    parts = [torch.randn(shape, device=d, generator=torch.Generator(
+        device=d).manual_seed(10 + r)) for r, d in enumerate(devs)]
+    exact = parts[0].clone()
+    for p in parts[1:]:
+        exact += p.to(devs[0])
+    compressed_psum(parts)                          # warm-up
+    for d in set(devs):
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    out = compressed_psum(parts)
+    for d in set(devs):
+        torch.cuda.synchronize(d)
+    ms = (time.perf_counter() - t0) * 1e3
+    rel = float((out[0] - exact).abs().max() / exact.abs().max())
+    assert rel < PSUM_BOUND, f"compressed_psum: {rel} of the exact sum"
+    assert all(torch.equal(o.to(devs[0]), out[0]) for o in out), \
+        "replicas differ"
+    n, s = exact.numel(), PSUM_REPLICAS
+    rec = {"replicas": s, "shape": list(shape),
+           "devices": [str(d) for d in devs], "max_rel_err": rel,
+           "bound": PSUM_BOUND, "replicas_equal": True, "ms": ms,
+           # reduce-scatter + all-gather of the int8 chunks, their fp32
+           # scales; an fp32 ring all-reduce moves 2 (S - 1) n 4 bytes
+           "int8_bytes_moved": 2 * (s - 1) * n + 4 * (s - 1) * (s + 1),
+           "fp32_ring_bytes": 2 * (s - 1) * n * 4}
+    rec["bytes_ratio"] = rec["fp32_ring_bytes"] / rec["int8_bytes_moved"]
+    log("checkpoint (e) compressed_psum " + json.dumps(rec))
+    return rec
+
+
+def restore_sharded_cell(torch, final: dict) -> dict:
+    """(f) (b)'s final state placed on a (4, 2) mesh, saved, restored onto
+    (2, 4): each block of ``spec_for``'s shape, the blocks joined equal to
+    the saved leaves."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.checkpoint import tree_leaves
+    from repro_torch.train.optimizer import OptState, opt_state_axes
+
+    mesh_a, mesh_b = (sh.Mesh(m, ("data", "model"))
+                      for m in (MESH_SAVE, MESH_RESTORE))
+    p_axes = tf.lm_param_axes(final["cfg"])
+    axes = {"params": p_axes, "opt": opt_state_axes(p_axes)}
+    params, opt = final["params"], final["opt"]
+    with sh.axis_rules(mesh_a):
+        def put(t, ax):
+            return sh.device_put(t.detach(), sh.named_sharding(t.shape, *ax))
+        placed = {"params": {n: put(p, p_axes[n])
+                             for n, p in params.named_parameters()},
+                  "opt": OptState(
+                      {n: put(t, axes["opt"].m[n]) for n, t in opt.m.items()},
+                      {n: put(t, axes["opt"].v[n]) for n, t in opt.v.items()},
+                      put(opt.step, ()))}
+    d = store_dir("sharded")
+    try:
+        ckpt = logged_ckpt(d)
+        ckpt.save(FT_STEPS, placed)
+        t0 = time.perf_counter()
+        got, _ = ckpt.restore_sharded({"params": params, "opt": opt}, axes,
+                                      mesh_b)
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    saved = dict(tree_leaves({"params": params, "opt": opt}))
+    split, leaves = 0, 0
+    with sh.axis_rules(mesh_b):
+        for key, arr in tree_leaves(got):
+            spec = arr.sharding.spec
+            assert spec == sh.spec_for(arr.shape, ax_of(axes, key)), key
+            block = [dim // math.prod(mesh_b.shape[a] for a in (
+                () if e is None else (e,) if isinstance(e, str) else e))
+                for dim, e in zip(arr.shape, spec + (None,) * (
+                    len(arr.shape) - len(spec)))]
+            assert len(arr.addressable_shards) == math.prod(MESH_RESTORE)
+            assert all(list(s.data.shape) == block
+                       for s in arr.addressable_shards), (key, block)
+            assert torch.equal(arr.gather(), saved[key].detach()), key
+            split += list(block) != list(arr.shape)
+            leaves += 1
+    rec = {"save_mesh": MESH_SAVE, "restore_mesh": MESH_RESTORE,
+           "leaves": leaves, "leaves_split": split,
+           "blocks_a_leaf": math.prod(MESH_RESTORE), "restore_s": restore_s,
+           "blocks_joined_equal": True}
+    log("checkpoint (f) restore_sharded " + json.dumps(rec))
+    return rec
+
+
+def ax_of(axes: dict, key: str) -> tuple:
+    """A leaf's logical axes by its checkpoint key."""
+    top, rest = key.split("/", 1)
+    if top == "params":
+        return axes["params"][rest]
+    field, _, name = rest.partition("/")
+    return axes["opt"].step if field == "step" else \
+        getattr(axes["opt"], field)[name]
+
+
+def phase_ckpt(torch) -> dict:
+    """Phase 15: (a)'s async save overlaps (b) to (f); then (a)'s
+    restore."""
+    out, seconds = {}, {}
+    t = time.perf_counter()
+    saved = ckpt_save_full(torch)
+    seconds["a save"] = time.perf_counter() - t
+    final = None
+    for name, fn in (("b fault tolerance", ft_example),
+                     ("c launch.train --ckpt-dir", ckpt_launch_train),
+                     ("d pipeline", pipeline_cell),
+                     ("e compressed_psum", compressed_psum_cell)):
+        t = time.perf_counter()
+        res = fn(torch)
+        if name.startswith("b"):
+            res, final = res
+        out[name] = res
+        seconds[name] = time.perf_counter() - t
+        release(torch)
+    t = time.perf_counter()
+    out["f restore_sharded"] = restore_sharded_cell(torch, final)
+    seconds["f restore_sharded"] = time.perf_counter() - t
+    del final
+    release(torch)
+    t = time.perf_counter()
+    out["a checkpoint"] = ckpt_restore_full(torch, saved)
+    seconds["a restore"] = time.perf_counter() - t
+    del saved
+    out["seconds"] = seconds
+    log("phase 15 seconds " + json.dumps(seconds))
+    return out
+
+
 def release(torch) -> float:
     """Drop what the last phase left on the card -> GB still allocated."""
     gc.collect()
@@ -5012,6 +5482,7 @@ def main() -> int:
     finally:
         stop_graph_build(graph)
     train = phase("14 training", phase_train, torch)
+    phase("15 checkpoints and distributed training", phase_ckpt, torch)
     kern["distance_topk.retrieval_cand"] = offpath["mind"]["retrieval_cand"]
     kern["flash_decode.bf16"] = bf16["flash"]
     for arch, rec in other.items():

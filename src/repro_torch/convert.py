@@ -17,6 +17,10 @@ The caller hands in numpy arrays (this module never imports JAX):
     ``lm_params_from_jax``'s mapping, any other tree's by its dotted leaf
     names (``named_from_jax``, which carries any tree shaped as the
     parameters);
+  * ``tree_from_checkpoint`` — the members of a reference checkpoint
+    (``repro.train.checkpoint``'s ``step_N.npz``: "/"-joined leaf paths)
+    -> the nested tree, which ``lm_params_from_jax``,
+    ``opt_state_from_jax`` and the other converters then carry over;
   * ``device_graph_from_host`` — any host HNSW graph with the reference's
     fields (vectors, neighbors0, upper, levels, entry, max_level, metric)
     -> a ``DeviceGraph`` on ``device``. The graph is this system's
@@ -142,6 +146,24 @@ def opt_state_from_jax(opt_state, like) -> OptState:
 
     return OptState(conv(m), conv(v), torch.tensor(
         int(np.asarray(step)), dtype=torch.int32, device=dev))
+
+
+def tree_from_checkpoint(members) -> dict:
+    """{"a/b/c": array} (an ``np.load`` of a reference checkpoint; its
+    ``__meta__`` member is left out) -> {"a": {"b": {"c": array}}}. List
+    indices stay string keys ("0", "1"), which the dotted leaf names of
+    ``named_from_jax`` read as the reference's; ``opt`` holds the
+    ``OptState``'s fields ``m``, ``v`` and ``step``."""
+    tree: dict = {}
+    for key in members:
+        if key == "__meta__":
+            continue
+        *path, leaf = key.split("/")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.asarray(members[key])
+    return tree
 
 
 def device_graph_from_host(g, deleted: np.ndarray | None = None, *,

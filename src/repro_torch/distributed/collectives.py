@@ -1,4 +1,5 @@
-"""Top-k merge of per-shard candidates, ported from
+"""Top-k merge of per-shard candidates and the int8 compressed
+all-reduce (``compressed_psum``), ported from
 ``repro/distributed/collectives.py``.
 
 The reference runs these inside ``shard_map``: every shard holds its own
@@ -116,3 +117,52 @@ def hierarchical_topk(parts: list[tuple[torch.Tensor, torch.Tensor]],
         parts = [(d.to(torch.bfloat16), i) for d, i in parts]
     d, i = topk_merge_axis(parts, k, tie_break_ids=tie_break_ids, tree=tree)
     return d.to(out_dtype), i
+
+
+def compressed_psum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The reference's int8 chunk-quantized all-reduce over the shards'
+    tensors (one a shard, each on its own device) -> every shard's sum,
+    on its own device: a reduce-scatter and an all-gather with int8
+    payloads, 4x fewer wire bytes than an fp32 ring all-reduce; the
+    per-chunk scales travel as fp32 scalars.
+
+    Step by step as the reference: each shard pads its flat tensor to a
+    multiple of S and splits it into S chunks, scales each by
+    ``max|chunk| / 127 + 1e-20`` and rounds half to even into int8 (clip
+    to ±127); chunk s of every shard goes to shard s, which dequantizes
+    and sums them; that sum is quantized again, every shard gathers the
+    S int8 chunks, dequantizes and unpads. The sum runs in shard order
+    and divisions are by tensors, so the card rounds as the CPU does."""
+    s = len(parts)
+    shape, dtype = parts[0].shape, parts[0].dtype
+    devs = [p.device for p in parts]
+    n = parts[0].numel()
+    pad = (-n) % s
+
+    def quantize(x):
+        amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+        scale = amax / amax.new_tensor(127.0) + 1e-20
+        q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+        return q, scale
+
+    q, scale = zip(*(quantize(torch.nn.functional.pad(
+        x.reshape(-1), (0, pad)).reshape(s, -1)) for x in parts))
+    # reduce-scatter: chunk r of every shard to shard r, dequantize + sum
+    pq, psc = [], []
+    for r, dev in enumerate(devs):
+        part = None                     # [n/S] f32, summed in shard order
+        for qi, si in zip(q, scale):
+            term = qi[r].to(dev, non_blocking=True).to(torch.float32) \
+                * si[r].to(dev, non_blocking=True)
+            part = term if part is None else part + term
+        a, b = quantize(part)
+        pq.append(a)
+        psc.append(b)
+    # all-gather the reduced chunks, int8-quantized again
+    out = []
+    for dev in devs:
+        all_q = torch.stack([a.to(dev, non_blocking=True) for a in pq])
+        all_sc = torch.stack([b.to(dev, non_blocking=True) for b in psc])
+        y = (all_q.to(torch.float32) * all_sc).reshape(-1)[:n]
+        out.append(y.reshape(shape).to(dtype))
+    return out

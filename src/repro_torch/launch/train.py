@@ -9,8 +9,11 @@ d_model 256, ~15M parameters; the other families' published config),
 registry trains: the LMs on ``lm_batches`` through ``lm_loss`` in fp32,
 GraphSAGE full-batch on a 2,000-node synthetic graph, and the recsys
 models on their synthetic streams. The run is on the card unless
-``--device cpu``. ``--ckpt-dir`` (checkpoints and resuming) is ROADMAP
-§1 item 6b, not ported yet, and raises.
+``--device cpu``. Any run is resumable: with ``--ckpt-dir`` it saves
+every ``--ckpt-every`` steps, and rerun with the same directory it
+restores the newest checkpoint into the live parameters and optimizer
+state (one copy of the state) and goes on from that step. As in the
+reference, the resumed run draws its batches from the stream's start.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import recsys as rs
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import count_params
-from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.optimizer import AdamWConfig, adamw_init, warmup_cosine
 from repro_torch.train.train_loop import fit, make_train_step
 from repro_torch.utils import human_count, logger, resolve_device
 
@@ -112,12 +116,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     """Train ``--arch`` for ``--steps`` steps -> {arch, preset, device,
-    params, history} (history: fit's {step, loss, sec} a step)."""
+    params, start_step, history} (history: fit's {step, loss, sec} a
+    step; start_step: the step a resumed run went on from, else 0)."""
     args = parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir (checkpoints, resuming) is ROADMAP §1 item 6b, "
-            "not ported yet")
     mcfg, params, loss_fn, data = build(args.arch, args.preset, args)
     n_params = count_params(params)
     logger.info(f"arch={args.arch} preset={args.preset} "
@@ -127,16 +128,31 @@ def main(argv=None) -> dict:
         lr=warmup_cosine(args.lr, max(args.steps // 20, 5), args.steps))
     step_fn = make_train_step(loss_fn, opt_cfg, microbatches=args.microbatches)
 
+    ckpt = None
+    start, opt_state = 0, None
+    if args.ckpt_dir:
+        ckpt = CheckpointManager(args.ckpt_dir, keep=3, async_save=True)
+        latest = ckpt.latest_step()
+        if latest:
+            opt_state = adamw_init(params)
+            ckpt.restore({"params": params, "opt": opt_state}, inplace=True)
+            start = latest
+            logger.info(f"resumed from step {latest}")
+
     t0 = time.time()
-    params, _, hist = fit(params, step_fn, data, steps=args.steps)
+    params, opt_state, hist = fit(
+        params, step_fn, data, steps=args.steps, ckpt=ckpt,
+        ckpt_every=args.ckpt_every, opt_state=opt_state, start_step=start)
     if hist:
         dt = time.time() - t0
         logger.info(f"done: loss {hist[0]['loss']:.4f} -> "
                     f"{hist[-1]['loss']:.4f} ({len(hist)} steps, {dt:.0f}s, "
                     f"{len(hist)/dt:.2f} steps/s)")
+    if ckpt:
+        ckpt.wait()
     return {"arch": args.arch, "preset": args.preset,
             "device": str(resolve_device(args.device)), "params": n_params,
-            "history": hist}
+            "start_step": start, "history": hist}
 
 
 if __name__ == "__main__":

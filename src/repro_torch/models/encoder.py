@@ -95,6 +95,20 @@ class Encoder(nn.Module):
         self.final_b.zero_()
 
 
+def encoder_param_axes(cfg: EncoderConfig) -> dict:
+    """The reference's logical axes, keyed as ``Encoder``'s parameters
+    (its layers stacked along [L], as there)."""
+    layer = {"ln1_g": ("layers", "embed"), "ln1_b": ("layers", "embed"),
+             "ln2_g": ("layers", "embed"), "ln2_b": ("layers", "embed"),
+             "wqkv": ("layers", "embed", "heads"),
+             "wo": ("layers", "heads", "embed"),
+             "w1": ("layers", "embed", "mlp"), "b1": ("layers", "mlp"),
+             "w2": ("layers", "mlp", "embed"), "b2": ("layers", "embed")}
+    return {"embed": ("vocab", "embed"), "pos": (None, "embed"),
+            **{f"layers.{n}": a for n, a in layer.items()},
+            "final_g": ("embed",), "final_b": ("embed",)}
+
+
 def init_encoder(cfg: EncoderConfig, seed: int = 0, device=None) -> Encoder:
     """An encoder with random weights drawn on ``device`` (default cuda)
     from a ``torch.Generator`` seeded with ``seed``."""

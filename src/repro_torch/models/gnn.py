@@ -14,7 +14,8 @@
     per graph.
 
 Parameters are the reference's tree (``init_sage``; matrices laid out for
-``x @ W``), drawn from a ``torch.Generator``.
+``x @ W``), drawn from a ``torch.Generator``; ``sage_param_axes`` gives
+the reference's logical axes, keyed as ``models.common.named_tensors``.
 """
 from __future__ import annotations
 
@@ -44,6 +45,16 @@ def init_sage(cfg: GNNConfig, d_feat: int, n_classes: int, seed: int = 0,
         })
     return {"layers": layers,
             "w_out": normal_init(g, (cfg.d_hidden, n_classes), 0.02)}
+
+
+def sage_param_axes(cfg: GNNConfig) -> dict:
+    axes = {}
+    for i in range(cfg.n_layers):
+        axes.update({f"layers.{i}.w_self": ("node_feat", None),
+                     f"layers.{i}.w_neigh": ("node_feat", None),
+                     f"layers.{i}.b": (None,)})
+    axes["w_out"] = (None, None)
+    return axes
 
 
 def _sage_layer(lp: dict, h_self: torch.Tensor, h_agg: torch.Tensor,

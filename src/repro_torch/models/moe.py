@@ -66,6 +66,17 @@ class MoE(nn.Module):
                          generator=generator)
 
 
+def moe_layer_axes() -> dict:
+    """The reference's logical axes of one layer's ``MoE`` weights, keyed
+    as its parameters: one module a layer, so without ``layers``."""
+    return {
+        "router": ("embed", "expert"),
+        "we1": ("expert", "embed", "expert_mlp"),
+        "we3": ("expert", "embed", "expert_mlp"),
+        "we2": ("expert", "expert_mlp", "embed"),
+    }
+
+
 def capacity(n_tokens: int, cfg: MoEConfig) -> int:
     c = int(cfg.capacity_factor * n_tokens * cfg.top_k / cfg.n_experts)
     return max(8 * ((c + 7) // 8), 8)

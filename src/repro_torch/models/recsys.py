@@ -8,11 +8,13 @@ field (the reference's too: neither calls ``embedding_bag``).
 Parameters are the reference's trees of tensors (``init_*``, drawn from
 a ``torch.Generator``; ``convert.recsys_params_from_jax`` carries the
 reference's own), matrices laid out for ``x @ W``; BERT4Rec's backbone
-is a ``models.encoder.Encoder``. Every model also exposes its user
-embedding, so the ``retrieval_cand`` cell routes through the retrieval
-core: one user's queries against the 1M-item table through
-``core.flat.FlatIndex(metric="ip")`` and so ``ops.flat_topk``
-(MeMemo's own workload).
+is a ``models.encoder.Encoder``. The trees have the reference's shapes,
+so each ``*_param_axes`` gives the reference's logical axes, keyed as
+``models.common.named_tensors`` (``deep.0.w``). Every model also exposes
+its user embedding, so the ``retrieval_cand`` cell routes through the
+retrieval core: one user's queries against the 1M-item table through
+``core.flat.FlatIndex(metric="ip")`` and so ``ops.flat_topk`` (MeMemo's
+own workload).
 """
 from __future__ import annotations
 
@@ -76,6 +78,13 @@ def init_fm(cfg: RecsysConfig, seed: int = 0, device=None) -> dict:
     }
 
 
+def fm_param_axes(cfg: RecsysConfig) -> dict:
+    return {"table": ("fields", "table_rows", "feature_dim"),
+            "w_sparse": ("fields", "table_rows"),
+            "w_dense": (None, None), "v_dense": (None, "feature_dim"),
+            "bias": ()}
+
+
 def fm_forward(params: dict, cfg: RecsysConfig, sparse_ids: torch.Tensor,
                dense: torch.Tensor) -> torch.Tensor:
     """sparse_ids [B,F] int, dense [B,n_dense] -> logits [B]."""
@@ -110,6 +119,18 @@ def init_wide_deep(cfg: RecsysConfig, seed: int = 0, device=None) -> dict:
         "deep": _mlp_init(g, mlp_dims),
         "bias": torch.zeros((), device=g.device),
     }
+
+
+def wide_deep_param_axes(cfg: RecsysConfig) -> dict:
+    n_mlp = len(cfg.mlp_dims) + 1
+    axes = {"table": ("fields", "table_rows", "feature_dim"),
+            "wide": ("fields", "table_rows"),
+            "wide_dense": (None, None)}
+    for i in range(n_mlp):
+        axes[f"deep.{i}.w"] = (None, "mlp") if i == 0 else ("mlp", None)
+        axes[f"deep.{i}.b"] = ("mlp",) if i == 0 else (None,)
+    axes["bias"] = ()
+    return axes
 
 
 def wide_deep_forward(params: dict, cfg: RecsysConfig,
@@ -151,6 +172,11 @@ def _bert4rec_enc_cfg(cfg: RecsysConfig) -> enc_lib.EncoderConfig:
 def init_bert4rec(cfg: RecsysConfig, seed: int = 0, device=None) -> dict:
     return {"encoder": enc_lib.init_encoder(_bert4rec_enc_cfg(cfg), seed,
                                             device)}
+
+
+def bert4rec_param_axes(cfg: RecsysConfig) -> dict:
+    return {f"encoder.{n}": axes for n, axes in
+            enc_lib.encoder_param_axes(_bert4rec_enc_cfg(cfg)).items()}
 
 
 def _bert4rec_hidden(params, cfg: RecsysConfig, item_seq) -> torch.Tensor:
@@ -202,6 +228,14 @@ def init_mind(cfg: RecsysConfig, seed: int = 0, device=None) -> dict:
         "s_matrix": normal_init(g, (K, K), 0.02),       # bilinear routing map
         "mlp": _mlp_init(g, (K,) + tuple(cfg.mlp_dims) + (K,)),
     }
+
+
+def mind_param_axes(cfg: RecsysConfig) -> dict:
+    axes = {"items": ("table_rows", "feature_dim"), "s_matrix": (None, None)}
+    for i in range(len(cfg.mlp_dims) + 1):
+        axes[f"mlp.{i}.w"] = (None, None)
+        axes[f"mlp.{i}.b"] = (None,)
+    return axes
 
 
 def _squash(x: torch.Tensor) -> torch.Tensor:
@@ -263,3 +297,5 @@ def mind_user_embedding(params, cfg: RecsysConfig, behavior,
 # ---------------------------------------------------------------------------
 INIT = {"fm": init_fm, "wide_deep": init_wide_deep,
         "bert4rec": init_bert4rec, "mind": init_mind}
+AXES = {"fm": fm_param_axes, "wide_deep": wide_deep_param_axes,
+        "bert4rec": bert4rec_param_axes, "mind": mind_param_axes}

@@ -4,6 +4,7 @@ window attention, + MoE, + an int8 KV cache), ported from
 
 Entry points:
   init_lm(cfg, seed, device, dtype)       random weights from a torch.Generator
+  lm_param_axes(cfg)                      logical sharding axes by leaf name
   lm_loss(model, tokens, labels, dtype=)  training loss (full or chunked vocab)
   init_cache(cfg, batch, seq_len, dtype)  empty KV cache (a ring under SWA)
   prefill(model, tokens, dtype=)          build the KV cache, last logits
@@ -68,7 +69,7 @@ from repro_torch.models.common import (
     softmax_xent,
     weight,
 )
-from repro_torch.models.moe import MoE, moe_ffn
+from repro_torch.models.moe import MoE, moe_ffn, moe_layer_axes
 from repro_torch.utils import resolve_device
 
 
@@ -164,6 +165,35 @@ def init_lm(cfg: LMConfig, seed: int = 0, device=None,
     return model.eval()
 
 
+# the reference's axes of the stacked leaves [L, in, out], less "layers"
+# and transposed to nn.Linear's [out, in]
+_LINEAR_AXES = {"wq": ("heads", "embed"), "wk": ("kv_heads", "embed"),
+                "wv": ("kv_heads", "embed"), "wo": ("embed", "heads"),
+                "w1": ("mlp", "embed"), "w3": ("mlp", "embed"),
+                "w2": ("embed", "mlp")}
+
+
+def lm_param_axes(cfg: LMConfig) -> dict[str, tuple]:
+    """Logical sharding axes keyed as ``LM``'s parameters: the
+    reference's, without its ``layers`` axis (one module a layer here)
+    and transposed where ``nn.Linear`` holds a weight as [out, in]; an
+    MoE layer's weights keep the reference's layout (``moe_layer_axes``)."""
+    axes = {"embed.weight": ("vocab", "embed"), "final_norm": ("embed",)}
+    for i in range(cfg.n_layers):
+        pre = f"layers.{i}."
+        axes[pre + "attn_norm"] = ("embed",)
+        axes[pre + "ffn_norm"] = ("embed",)
+        names = ("wq", "wk", "wv", "wo") + (
+            () if cfg.moe is not None else ("w1", "w3", "w2"))
+        axes.update({f"{pre}{n}.weight": _LINEAR_AXES[n] for n in names})
+        if cfg.moe is not None:
+            axes.update({f"{pre}moe.{n}": a
+                         for n, a in moe_layer_axes().items()})
+    if not cfg.tie_embeddings:
+        axes["out_head.weight"] = ("vocab", "embed")
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # Layer pieces (shared by train / prefill / decode)
 # ---------------------------------------------------------------------------
@@ -227,6 +257,30 @@ def _train_layer(cfg: LMConfig, impl: str, blk: Block, x: torch.Tensor):
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x, aux, _, _ = _layer(blk, cfg, x, positions, impl)
     return x, aux
+
+
+def stack_layers(model: LM) -> dict[str, torch.Tensor]:
+    """The layers' weights stacked along a leading [L] axis, keyed as a
+    ``Block``'s parameters (the stage parameters of
+    ``distributed.pipeline.pipeline_apply``)."""
+    names = [n for n, _ in model.layers[0].named_parameters()]
+    return {n: torch.stack([dict(blk.named_parameters())[n].detach()
+                            for blk in model.layers]) for n in names}
+
+
+def layer_stage(cfg: LMConfig, impl: str = "masked"):
+    """A pipeline stage of one decoder layer: ``stage(p, x)`` runs
+    ``_train_layer`` on x [B,S,D] with the weights ``p`` (one layer's
+    slice of ``stack_layers``), through which gradients flow; the MoE aux
+    loss is dropped."""
+    template = Block(cfg, device="meta")
+    params = list(template.named_parameters())
+
+    def stage(p: dict, x: torch.Tensor) -> torch.Tensor:
+        blk = copy.deepcopy(template, {id(t): p[n] for n, t in params})
+        return _train_layer(cfg, impl, blk, x)[0]
+
+    return stage
 
 
 def _embed(model: LM, tokens: torch.Tensor, dtype) -> torch.Tensor:

@@ -1,2 +1,3 @@
 """Training: AdamW and its schedules (``optimizer``), the train step and
-the loop (``train_loop``), ported from ``repro/train``."""
+the loop (``train_loop``), checkpoints (``checkpoint``) and the
+fault-tolerant loop (``fault_tolerance``), ported from ``repro/train``."""

@@ -12,14 +12,14 @@ schedules return fp32 scalars on the step's device, and every division
 is by a tensor, so the card divides as the CPU does (PyTorch on the card
 turns a division by a Python scalar into a product with its reciprocal).
 
-The reference's ``opt_state_axes`` (ZeRO-1 sharding axes) belongs to
-ROADMAP §1 item 6c.
+``opt_state_axes`` gives m and v the parameters' logical axes with
+``layers`` -> ``zero`` (ZeRO-1), keyed as the state.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -141,3 +141,13 @@ def adamw_update(cfg: AdamWConfig, params: PyTree,
         p.copy_((p.float() - lr * delta).to(p.dtype))
     return params, OptState(state.m, state.v, step), {"grad_norm": g_norm,
                                                       "lr": lr}
+
+
+def opt_state_axes(param_axes: dict[str, tuple]) -> Any:
+    """Logical axes for (m, v): param axes with 'layers' -> 'zero' (ZeRO-1:
+    the stacked-layer dim shards across the data axis). ``param_axes`` is
+    a model's ``*_param_axes`` (keyed as ``named_tensors``); an ``LM``'s
+    leaves have no stacked dim here (``lm_param_axes``)."""
+    mapped = {n: tuple("zero" if a == "layers" else a for a in axes)
+              for n, axes in param_axes.items()}
+    return OptState(m=mapped, v=mapped, step=())

@@ -13,9 +13,10 @@ theirs for serving) and moves the batch's numpy arrays to the
 parameters' device; it waits for nothing on the card (the metrics are
 device tensors).
 
-``fit`` is the reference's single-controller loop without checkpoints:
-a ``CheckpointManager`` and the fault-tolerant loop are ROADMAP §1 item
-6b, not ported yet.
+``fit`` is the reference's single-controller loop, a checkpoint every
+``ckpt_every`` steps when given a ``CheckpointManager``
+(``train/checkpoint.py``); the fault-tolerant wrapper is
+``train/fault_tolerance.py:run_resilient``.
 """
 from __future__ import annotations
 
@@ -93,10 +94,8 @@ def fit(params: PyTree, train_step: Callable, batches: Iterator[dict], *,
         on_step=None) -> tuple[PyTree, OptState, list[dict]]:
     """The reference's plain loop: ``steps - start_step`` train steps, a
     history of {step, loss, sec} (each step waited for through its
-    loss). Checkpoints (``ckpt``) are ROADMAP §1 item 6b and raise."""
-    if ckpt is not None:
-        raise NotImplementedError(
-            "checkpoints are ROADMAP §1 item 6b, not ported yet")
+    loss); with ``ckpt``, {params, opt} saved after step i where
+    (i + 1) % ckpt_every == 0, as step i + 1."""
     opt_state = opt_state if opt_state is not None else adamw_init(params)
     history = []
     for i in range(start_step, steps):
@@ -112,4 +111,6 @@ def fit(params: PyTree, train_step: Callable, batches: Iterator[dict], *,
             logger.info(f"step {i}: loss={loss:.4f} "
                         f"gnorm={float(metrics['grad_norm']):.3f} "
                         f"{dt*1e3:.0f}ms")
+        if ckpt is not None and ckpt_every and (i + 1) % ckpt_every == 0:
+            ckpt.save(i + 1, {"params": params, "opt": opt_state})
     return params, opt_state, history

@@ -1962,3 +1962,132 @@ def test_family_train_step_on_card_is_bit_for_bit(cuda_device, arch):
         assert torch.equal(a, b), name
         assert torch.equal(s0.m[name], s1.m[name]), name
         assert torch.equal(s0.v[name], s1.v[name]), name
+
+
+# ---------------------------------------------------------------------------
+# checkpoints, fault tolerance and the distributed training layer
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_checkpoint_of_card_tensors_restores_bit_equal(cuda_device,
+                                                       tmp_path):
+    """A smoke LM and its optimizer state on the card (fp32, and a bf16
+    copy of the weights) saved async and restored onto the card: every
+    leaf bit-equal, new tensors on the card; ``inplace`` into a fresh LM
+    keeps its storage."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.checkpoint import CheckpointManager, tree_leaves
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = get_smoke_config("llama3-8b")
+    model = tf.init_lm(cfg, seed=1, device=cuda_device)
+    state = adamw_init(model)
+    for t in state.m.values():
+        t.normal_()
+    half = tf.init_lm(cfg, seed=2, device=cuda_device, dtype=torch.bfloat16)
+    tree = {"params": model, "opt": state, "half": half}
+    ckpt = CheckpointManager(str(tmp_path), async_save=True)
+    ckpt.save(3, tree)
+    got, meta = ckpt.restore(tree)
+    assert meta["step"] == 3 and meta["dtypes"]
+    for (k, a), (_, b) in zip(tree_leaves(tree), tree_leaves(got)):
+        assert b.is_cuda and b.dtype == a.dtype and torch.equal(a, b), k
+        assert a.data_ptr() != b.data_ptr(), k
+    fresh = tf.init_lm(cfg, seed=9, device=cuda_device)
+    ptr = fresh.embed.weight.data_ptr()
+    ckpt.restore({"params": fresh, "opt": adamw_init(fresh),
+                  "half": tf.init_lm(cfg, seed=9, device=cuda_device,
+                                     dtype=torch.bfloat16)}, inplace=True)
+    assert fresh.embed.weight.data_ptr() == ptr
+    assert torch.equal(fresh.embed.weight, model.embed.weight)
+
+
+@pytest.mark.cuda
+def test_run_resilient_on_card_is_bit_for_bit(cuda_device, tmp_path):
+    """The reference's smoke setup on the card: failures at 3 (from
+    scratch) and 7 (restored from step 5, async saves) replay to every
+    loss, weight, m and v of the failure-free run, bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.checkpoint import CheckpointManager, tree_leaves
+    from repro_torch.train.fault_tolerance import run_resilient
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import make_train_step
+
+    cfg = get_smoke_config("llama3-8b")
+    model = tf.init_lm(cfg, seed=0, device=cuda_device)
+    step = make_train_step(lambda p, tokens, labels: tf.lm_loss(
+        p, tokens, labels), AdamWConfig(lr=1e-3))
+
+    def batch_fn(s):
+        return next(lm_batches(cfg.vocab, 8, 33, seed=0, start_step=s))
+
+    runs = []
+    for name, fail in (("clean", []), ("fail", [3, 7])):
+        p, s, info = run_resilient(
+            model, step, batch_fn, steps=12, ckpt_every=5, fail_at=fail,
+            ckpt=CheckpointManager(str(tmp_path / name), async_save=True))
+        runs.append((dict(tree_leaves({"params": p, "opt": s})), info))
+    (a, ia), (b, ib) = runs
+    assert ia["restarts"] == 0 and ib["restarts"] == 2
+    assert ia["losses"] == ib["losses"]
+    for k, t in a.items():
+        assert t.is_cuda and torch.equal(t, b[k]), k
+
+
+@pytest.mark.cuda
+def test_pipeline_on_card_equals_sequential_oracle(cuda_device):
+    """Four llama smoke layers as four stages on ``cuda:0`` x 4 (stages
+    sharing the card), 6 microbatches: the output and the gradients of
+    its sum bit for bit against the layers run one after another."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b"), n_layers=4)
+    model = tf.init_lm(cfg, seed=3, device=cuda_device)
+    stacked, stage = tf.stack_layers(model), tf.layer_stage(cfg)
+    x = torch.randn(6, 2, 16, cfg.d_model, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0))
+    mesh = Mesh((4,), ("pp",), device=cuda_device)
+
+    def sequential(p, x):
+        ps = [{k: v[s] for k, v in p.items()} for s in range(4)]
+        out = []
+        for m in range(x.shape[0]):
+            h = x[m]
+            for s in range(4):
+                h = stage(ps[s], h)
+            out.append(h)
+        return torch.stack(out)
+
+    def run(fn):
+        leaves = {k: v.clone().requires_grad_(True)
+                  for k, v in stacked.items()}
+        out = fn(leaves, x)
+        return out.detach(), torch.autograd.grad(out.sum(),
+                                                 list(leaves.values()))
+
+    got = run(lambda p, x: pipeline_apply(mesh, "pp", stage, p, x))
+    want = run(sequential)
+    assert got[0].is_cuda and torch.equal(got[0], want[0])
+    for g, w in zip(got[1], want[1]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 1003])
+def test_compressed_psum_on_card_equals_cpu(cuda_device, n):
+    """8 replicas on ``cuda:0``: every replica's result equal to the
+    CPU's, bit for bit (the divisions are by tensors)."""
+    from repro_torch.distributed.collectives import compressed_psum
+
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(8, n)).astype(np.float32))
+    cpu = compressed_psum(list(x))
+    card = compressed_psum([r.to(cuda_device) for r in x])
+    for c in card:
+        assert c.is_cuda and torch.equal(c.cpu(), cpu[0])

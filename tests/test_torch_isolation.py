@@ -57,6 +57,18 @@ def test_store_package_is_covered():
         assert m in mods
 
 
+def test_training_layer_is_covered():
+    """The checkpoints, fault tolerance and the distributed training layer
+    are modules of the port, read by the checks above."""
+    mods = _port_modules()
+    for m in ("repro_torch.train.checkpoint",
+              "repro_torch.train.fault_tolerance",
+              "repro_torch.distributed.sharding",
+              "repro_torch.distributed.pipeline",
+              "repro_torch.distributed.collectives"):
+        assert m in mods
+
+
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     code = ("import importlib, sys\n"
@@ -75,6 +87,8 @@ def test_entry_points_refuse_missing_card(monkeypatch, tmp_path):
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.index import make_index
     from repro_torch.core.interface import HNSW
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.distributed.sharding import Mesh
     from repro_torch.launch import serve
     from repro_torch.models import encoder, gnn, recsys
     from repro_torch.models import transformer as tf
@@ -103,7 +117,10 @@ def test_entry_points_refuse_missing_card(monkeypatch, tmp_path):
                                       ("bert4rec", "bert4rec"),
                                       ("mind", "mind"))),
                  lambda: gnn.init_sage(get_smoke_config("graphsage-reddit"),
-                                       8, 2)):
+                                       8, 2),
+                 lambda: Mesh((2, 2), ("data", "model")),
+                 lambda: pipeline_apply(Mesh((4,), ("pp",)), "pp",
+                                        lambda p, x: x, {}, torch.ones(2, 1))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asking for the CPU explicitly is the supported way to run there
@@ -111,6 +128,7 @@ def test_entry_points_refuse_missing_card(monkeypatch, tmp_path):
     idx.insert("a", np.ones(4, np.float32))
     assert idx.query(np.ones(4, np.float32), k=1)[0] == ["a"]
     assert idx.exact_query(np.ones(4, np.float32), k=1)[0] == ["a"]
+    assert Mesh((2,), ("pp",), device="cpu").devices[1] == torch.device("cpu")
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -478,9 +478,67 @@ def test_fit_losses_match_reference():
     assert int(ts.step) == 4
 
 
-def test_fit_with_a_checkpoint_manager_raises():
+def test_fit_with_a_checkpoint_manager_raises(tmp_path, monkeypatch):
+    """A checkpoint that cannot be written stops ``fit`` with the
+    writer's error (a full disk) at that step's save; nothing is
+    published."""
+    from repro_torch.train import checkpoint as tckpt
+
     _, _, _, model, data = _builds("llama3-8b")
     step = tloop.make_train_step(
         lambda p, tokens, labels: ttf.lm_loss(p, tokens, labels), _opt(topt))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tloop.fit(model, step, data, steps=1, ckpt=object())
+
+    def full_disk(*a, **kw):
+        raise OSError(28, "No space left on device")
+
+    monkeypatch.setattr(tckpt.np, "savez", full_disk)
+    ckpt = tckpt.CheckpointManager(str(tmp_path))
+    with pytest.raises(OSError, match="No space"):
+        tloop.fit(model, step, data, steps=3, ckpt=ckpt, ckpt_every=2,
+                  log_every=0)
+    assert ckpt.all_steps() == []
+
+
+def test_fit_with_a_checkpoint_manager_saves_the_references_steps(
+        tmp_path):
+    """``fit(ckpt=)`` saves after step i where (i + 1) % ckpt_every == 0,
+    as the reference's: 5 steps, a checkpoint every 2, keep 2 -> the
+    same steps on disk and the same ``__meta__`` bytes; the port's state
+    at step 4 (restored into a fresh LM) against the reference's file at
+    the module docstring's tolerances."""
+    from repro.train import checkpoint as jckpt
+    from repro_torch.convert import tree_from_checkpoint
+    from repro_torch.train import checkpoint as tckpt
+
+    jcfg, jparams, cfg, model, _ = _builds("llama3-8b")
+    jstep = jloop.make_train_step(
+        lambda p, tokens, labels: jtf.lm_loss(p, jcfg, tokens, labels,
+                                              dtype=jnp.float32),
+        _opt(jopt), donate=False)
+    tstep = tloop.make_train_step(
+        lambda p, tokens, labels: ttf.lm_loss(p, tokens, labels), _opt(topt))
+
+    def data():
+        return synthetic.lm_batches(cfg.vocab, 4, 17, seed=5)
+
+    jck = jckpt.CheckpointManager(str(tmp_path / "ref"), keep=2)
+    tck = tckpt.CheckpointManager(str(tmp_path / "port"), keep=2,
+                                  async_save=True)
+    jloop.fit(jparams, jstep, data(), steps=5, ckpt=jck, ckpt_every=2,
+              log_every=0)
+    tloop.fit(model, tstep, data(), steps=5, ckpt=tck, ckpt_every=2,
+              log_every=0)
+    tck.wait()
+    assert tck.all_steps() == jck.all_steps() == [2, 4]
+    for s in (2, 4):
+        with np.load(tck._path(s)) as a, np.load(jck._path(s)) as b:
+            assert a["__meta__"].tobytes() == b["__meta__"].tobytes()
+    fresh = ttf.LM(cfg, device="cpu").requires_grad_(False)
+    got, _ = tck.restore({"params": fresh, "opt": topt.adamw_init(fresh)},
+                         step=4)
+    with np.load(jck._path(4)) as z:
+        ref = tree_from_checkpoint(z)
+    opt = ref["opt"]
+    assert_state_close(got["params"], got["opt"], ref["params"],
+                       jopt.OptState(opt["m"], opt["v"], opt["step"]),
+                       jparams, PEAK_LR)

@@ -14,6 +14,7 @@ elementwise and the weights' gap within 1e-4 of the update's norm.
 import argparse
 import dataclasses
 import math
+import os
 
 import jax
 import numpy as np
@@ -93,10 +94,65 @@ def test_launch_train_small_lm_loss_falls():
             jlaunch.get_config("llama3-8b").model))
 
 
+@pytest.mark.parametrize("arch", ["fm", "llama3-8b"])
+def test_launch_train_ckpt_dir_resumes_as_the_reference(arch, tmp_path,
+                                                        monkeypatch):
+    """``--ckpt-dir``: ``--steps 4 --ckpt-every 2``, then the same command
+    with ``--steps 6`` resumes at step 4 (restored into the live state)
+    and, as the reference's, draws its batches from the stream's start;
+    both runs' losses within 1e-5 of the reference's ``main`` on the
+    same directory layout, the port on the reference's initial weights."""
+    from repro_torch.convert import lm_params_from_jax
+
+    build = tlaunch.build
+
+    def ref_weights(arch, preset, args):
+        cfg, params, loss, data = build(arch, preset, args)
+        _, jparams, _, _ = jlaunch.build(arch, preset, args)
+        if arch == "fm":
+            params = recsys_params_from_jax("fm", _np(jparams), cfg)
+        else:
+            params.load_state_dict(lm_params_from_jax(_np(jparams)))
+        return cfg, params, loss, data
+
+    histories = []
+
+    def recording_fit(*a, **kw):
+        out = jloop.fit(*a, **kw)
+        histories.append(out[2])
+        return out
+
+    monkeypatch.setattr(tlaunch, "build", ref_weights)
+    monkeypatch.setattr(jlaunch, "fit", recording_fit)
+    for steps in ("4", "6"):
+        argv = ["--arch", arch, "--preset", "smoke", "--steps", steps,
+                "--batch", "4", "--seq", "16", "--ckpt-every", "2"]
+        got = tlaunch.main(argv + ["--device", "cpu", "--ckpt-dir",
+                                   str(tmp_path / "port")])
+        monkeypatch.setattr("sys.argv", ["train"] + argv + [
+            "--ckpt-dir", str(tmp_path / "ref")])
+        jlaunch.main()
+        want = histories[-1]
+        assert got["start_step"] == (0 if steps == "4" else 4)
+        assert [h["step"] for h in got["history"]] == \
+            [h["step"] for h in want] == list(range(got["start_step"],
+                                                    int(steps)))
+        for g, w in zip(got["history"], want):
+            assert _rel(g["loss"], w["loss"]) <= 1e-5
+    assert sorted(os.listdir(tmp_path / "port")) == \
+        sorted(os.listdir(tmp_path / "ref"))
+
+
 def test_launch_train_ckpt_dir_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tlaunch.main(["--arch", "fm", "--steps", "1", "--device", "cpu",
-                      "--ckpt-dir", str(tmp_path)])
+    """``--ckpt-dir`` holding another architecture's checkpoint: the
+    resume raises the restore's ``KeyError`` for a leaf the file lacks
+    rather than train from a state it did not save."""
+    argv = ["--preset", "smoke", "--batch", "4", "--seq", "16",
+            "--ckpt-every", "1", "--device", "cpu", "--ckpt-dir",
+            str(tmp_path)]
+    tlaunch.main(["--arch", "fm", "--steps", "2"] + argv)
+    with pytest.raises(KeyError, match="checkpoint missing leaf"):
+        tlaunch.main(["--arch", "mind", "--steps", "3"] + argv)
 
 
 def test_launch_train_and_the_step_refuse_a_missing_card(monkeypatch):
