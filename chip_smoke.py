@@ -13,8 +13,13 @@ Phases (none catches an exception; any failure exits non-zero):
    compile, and after phase 2 every compile has finished (its seconds
    logged).
 2. Kernels against their plain PyTorch versions at the main paths' real
-   sizes — MeMemo's 1M x 384 cosine corpus (configs/mememo.py) and the
-   llama3-8b decode geometry — each timed with CUDA events beside its
+   sizes, in two parts: (a) ``gather_distance``, the descent and
+   ``beam_search``, whose sources compile first, then phase 5 (whose
+   bulk build needs only those until its ``exact_query``) while
+   ``flash_decode``'s and ``distance_topk``'s sources compile, then (b)
+   ``flash_decode``, ``distance_topk`` and ``embedding_bag`` — MeMemo's
+   1M x 384 cosine corpus (configs/mememo.py) and the llama3-8b decode
+   geometry — each timed with CUDA events beside its
    plain version, its bound and, where PyTorch computes the same function,
    that call. ``gather_distance``, the greedy descent and
    ``beam_search`` run on the same rows and queries under each row codec
@@ -340,6 +345,19 @@ Phases (none catches an exception; any failure exits non-zero):
    state placed on a (4, 2) mesh, saved, and ``restore_sharded`` onto
    (2, 4): every block of ``spec_for``'s shape, the blocks joined equal
    to the saved leaves.
+16. The dry-run tooling (``launch/{mesh,model_costs,op_analysis,steps,
+   dryrun}.py``): (a) ``launch.dryrun``'s CLI counts MeMemo's
+   ``query_1m`` and ``query_rt``, llama3-8b's ``decode_32k`` and fm's
+   ``serve_bulk`` at their published configs on ``meta`` (pod mesh), each
+   row logged; (b) the same cells on the card at their published widths
+   (llama3-8b cut to 2 layers: B 128 and a bf16 cache of S 32,768 with
+   every slot attending all of it), each counted once under
+   ``op_analysis`` (FLOPs and bytes equal to the same cell's count on
+   ``meta``, no hand kernel uncosted, flash_decode's bf16 instance once
+   a layer and distance_topk once a search launched) and timed with CUDA
+   events beside its bound (counted operations over the card's peaks or
+   counted bytes over its HBM rate, the larger); a time under 0.95 x its
+   bound fails (a count too high).
 
 Each phase's seconds are logged. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -502,6 +520,13 @@ CKPT_STEPS, CKPT_EVERY = (20, 30), 10
 PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_S = 4, 8, 1, 128
 PSUM_REPLICAS, PSUM_BOUND = 4, 0.03
 MESH_SAVE, MESH_RESTORE = (4, 2), (2, 4)
+# phase 16: the dry-run tooling. (a) launch.dryrun's cells on the pod mesh
+# at their published configs on meta; (b) the same cells on the card at
+# their published widths (llama3-8b cut to DRY_LAYERS layers), each counted
+# once, on the card and on meta, and timed (reps after a warm-up)
+DRY_CELLS = (("mememo", "query_1m", None, 5), ("mememo", "query_rt", None, 20),
+             ("llama3-8b", "decode_32k", 2, 8), ("fm", "serve_bulk", None, 10))
+DRY_MIN_SHARE_OF_BOUND = 0.95
 # the kernels each served path must launch
 HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
              "kernel.flash_decode")
@@ -1117,12 +1142,13 @@ def ptxas_report(name: str) -> list[str]:
     return out
 
 
-def phase_kernels(torch) -> dict:
-    """Each kernel against its plain version at the main path's sizes."""
-    from repro_torch.kernels import ops, ref
-
+def phase_kernels(torch, gen) -> dict:
+    """Each kernel against its plain version at the main path's sizes:
+    (a) ``gather_distance``, the descent and ``beam_search``, whose
+    sources compile first; ``phase_kernels_late`` holds the rest, after
+    phase 5, which runs while the longer sources compile. ``gen`` draws
+    the inputs of both, in this order."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
 
     def unit(x):
@@ -1168,8 +1194,14 @@ def phase_kernels(torch) -> dict:
         torch.cuda.empty_cache()
     del nbrs, vec, q, vint, qint, ups, wide_up, wide_nbrs
     torch.cuda.empty_cache()
+    return out
 
-    out["flash_decode"] = check_flash_decode(torch, dev, gen)
+
+def phase_kernels_late(torch, gen) -> dict:
+    """Phase 2 (b): ``flash_decode``, ``distance_topk`` and
+    ``embedding_bag`` against their plain versions."""
+    dev = torch.device("cuda")
+    out = {"flash_decode": check_flash_decode(torch, dev, gen)}
     out.update(check_distance_topk(torch, dev, gen))
     out.update(check_embedding_bag(torch, dev, gen))
     return out
@@ -1177,12 +1209,14 @@ def phase_kernels(torch) -> dict:
 
 def flash_bound(cur_len: list[int], b: int, h: int, kvh: int,
                 dh: int, elem: int = 4) -> tuple[float, str]:
-    """Live K and V rows and q of ``elem`` bytes an element, the fp32
-    output once each, cur_len; 4 H Dh flops a live position at the fp32
-    rate (the CUDA cores; 2-byte elements are widened)."""
-    live = sum(cur_len)
-    return bound(live * kvh * dh * elem * 2 + b * h * dh * (elem + 4) + b * 4,
-                 4.0 * live * h * dh)
+    """``op_analysis.flash_decode_work``: live K and V rows and q of
+    ``elem`` bytes an element, the fp32 output once each, cur_len; 4 H Dh
+    flops a live position at the fp32 rate (the CUDA cores; 2-byte
+    elements are widened)."""
+    from repro_torch.launch.op_analysis import flash_decode_work
+
+    nbytes, flops = flash_decode_work(b, h, kvh, dh, sum(cur_len), elem)
+    return bound(nbytes, flops["fp32"])
 
 
 def check_flash_decode(torch, dev, gen) -> dict:
@@ -1471,21 +1505,20 @@ def device_split(torch, fn, kernel: str, reps: int = 5) -> dict:
 
 
 def topk_bound(db, scales, b: int, k: int) -> tuple[float, str]:
-    """Each input read once (rows, scales, queries), each output written
-    once (k f32 distances + k i32 ids per query). Operations: 2 B N D
-    fp32 flops on the CUDA cores at B <= 8 (the streaming path); above,
-    the tensor-core path's split-TF32 products, 3 x 2 B N D for fp32 rows
-    and 2 x for bf16 and int8 rows (exact in TF32), at the TF32 rate."""
-    from repro_torch.kernels import ops
+    """``op_analysis.flat_topk_work``: each input read once (rows, scales,
+    queries), each output written once (k f32 distances + k i32 ids per
+    query). Operations: 2 B N D fp32 flops on the CUDA cores at B <= 8
+    (the streaming path); above, the tensor-core path's split-TF32
+    products, 3 x 2 B N D for fp32 rows and 2 x for bf16 and int8 rows
+    (exact in TF32), at the TF32 rate."""
+    from repro_torch.launch.op_analysis import flat_topk_work
 
     n, d = db.shape
-    nbytes = (db.numel() * db.element_size()
-              + (0 if scales is None else n * 4) + b * d * 4 + b * k * 8)
-    if b <= ops.TOPK_SMALL_B:
-        return bound(nbytes, 2.0 * b * n * d)
-    products = 3 if db.dtype.is_floating_point and db.element_size() == 4 \
-        else 2
-    return bound(nbytes, products * 2.0 * b * n * d, TF32_FLOPS_PER_S)
+    nbytes, flops = flat_topk_work(n, d, db.element_size(),
+                                   scales is not None, b, k)
+    if "tf32" in flops:
+        return bound(nbytes, flops["tf32"], TF32_FLOPS_PER_S)
+    return bound(nbytes, flops["fp32"])
 
 
 def assert_topk_agree(torch, got, want, what: str) -> float:
@@ -5362,6 +5395,117 @@ def phase_ckpt(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry-run tooling on the card
+# ---------------------------------------------------------------------------
+def dryrun_rows() -> list[dict]:
+    """(a) ``launch.dryrun``'s CLI on ``DRY_CELLS`` (pod mesh, published
+    configs, baseline, on meta): every row ok, no hand kernel uncosted."""
+    from repro_torch.launch import dryrun
+
+    d = store_dir("dryrun")
+    try:
+        argv = ["--mesh", "pod", "--out", str(d / "dryrun.json")]
+        for arch in dict.fromkeys(a for a, _, _, _ in DRY_CELLS):
+            argv += ["--arch", arch]
+        for shape in dict.fromkeys(sh for _, sh, _, _ in DRY_CELLS):
+            argv += ["--shape", shape]
+        assert dryrun.main(argv) == 0, "launch.dryrun failed a cell"
+        rows = json.loads((d / "dryrun.json").read_text())
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    assert sorted((r["arch"], r["shape"]) for r in rows) == sorted(
+        (a, sh) for a, sh, _, _ in DRY_CELLS), rows
+    for r in rows:
+        assert r["status"] == "ok" and r["uncosted"] == {}, r
+        log("dryrun (a) " + json.dumps({k: r[k] for k in (
+            "arch", "shape", "mesh", "count_s", "op_flops_per_dev",
+            "op_bytes_per_dev", "model_bytes_per_dev", "t_compute_s",
+            "t_memory_s", "t_memory_ops_s", "t_collective_s", "bottleneck",
+            "roofline_fraction", "useful_ratio", "total_bytes_per_dev",
+            "fits_hbm", "kernels")}))
+    return rows
+
+
+def dryrun_card_cell(torch, arch: str, shape: str, layers, reps: int,
+                     smi: str) -> tuple[dict, dict]:
+    """(b) One cell on the card at its published widths (depth cut to
+    ``layers``) on a one-card host mesh: counted once under
+    ``op_analysis`` (FLOPs and bytes equal to the same cell's count on
+    meta; no hand kernel uncosted; the launch counters zeroed just before
+    and read just after), then timed without the counter (CUDA events
+    over ``reps`` steps after a warm-up) beside its bound, the larger of
+    the counted operations over the card's peaks and the counted bytes
+    over its HBM rate. -> (record, launch counters)."""
+    from repro_torch.core import dispatch
+    from repro_torch.launch import dryrun, op_analysis, steps
+    from repro_torch.launch.mesh import make_host_mesh
+
+    meta = dryrun.count_cell(arch, shape, make_host_mesh(1, 1, device="meta"),
+                             n_layers=layers)
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cell = steps.make_cell(arch, shape, make_host_mesh(1, 1), device="cuda",
+                           n_layers=layers)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    dispatch.reset()
+    card = op_analysis.analyze(cell.fn, *cell.args)
+    torch.cuda.synchronize()
+    counts = dispatch.snapshot()
+    out = card.pop("out")
+    for key in ("flops", "flops_by_dtype", "bytes", "kernels"):
+        assert card[key] == meta[key], (arch, shape, key, card[key],
+                                        meta[key])
+    assert card["uncosted"] == {} and meta["uncosted"] == {}, (card, meta)
+    vals = [out[0]] if isinstance(out, tuple) else [out]
+    assert all(bool(torch.isfinite(v.float()).all()) for v in vals), \
+        f"{arch} {shape}: non-finite output"
+    del out, vals
+    ms = time_ms(torch, lambda: cell.fn(*cell.args), reps, warmup=1)
+    compute_ms = dryrun.compute_seconds(card["flops_by_dtype"]) * 1e3
+    memory_ms = card["bytes"] / dryrun.HBM_BW * 1e3
+    bound_ms = max(compute_ms, memory_ms)
+    rec = {"arch": arch, "shape": shape, "layers": layers, "ms": ms,
+           "bound_ms": bound_ms,
+           "bound_by": "bytes" if memory_ms >= compute_ms else "operations",
+           "share_of_bound": bound_ms / ms, "compute_ms": compute_ms,
+           "memory_ops_ms": memory_ms, "flops": card["flops"],
+           "flops_by_dtype": card["flops_by_dtype"], "bytes": card["bytes"],
+           "kernels": card["kernels"],
+           "input_gb": steps.arg_bytes(cell) / 1e9, "build_s": build_s,
+           "count_s_meta": meta["count_s"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi}
+    assert ms >= DRY_MIN_SHARE_OF_BOUND * bound_ms, \
+        f"{arch} {shape}: {ms:.4f} ms under its bound {bound_ms:.4f} ms"
+    log("dryrun (b) " + json.dumps(rec))
+    return rec, counts
+
+
+def phase_dryrun(torch, smi: str) -> dict:
+    """Phase 16: (a) the dry run's rows; (b) each cell on the card:
+    llama3-8b decode launches flash_decode's bf16 instance once a layer,
+    the retrieval cells distance_topk once a search."""
+    out, seconds = {"counters": {}}, {}
+    t = time.perf_counter()
+    out["rows"] = dryrun_rows()
+    seconds["a dryrun"] = time.perf_counter() - t
+    for arch, shape, layers, reps in DRY_CELLS:
+        t = time.perf_counter()
+        rec, counts = dryrun_card_cell(torch, arch, shape, layers, reps, smi)
+        if arch == "llama3-8b":
+            assert counts.get("kernel.flash_decode.bf16", 0) == layers, counts
+        if arch == "mememo":
+            assert counts.get("kernel.distance_topk", 0) == 1, counts
+        out[f"{arch} {shape}"] = rec
+        out["counters"][f"{arch} {shape} cell"] = counts
+        seconds[f"b {arch} {shape}"] = time.perf_counter() - t
+        release(torch)
+    out["seconds"] = seconds
+    log("phase 16 seconds " + json.dumps(seconds))
+    return out
+
+
 def release(torch) -> float:
     """Drop what the last phase left on the card -> GB still allocated."""
     gc.collect()
@@ -5458,13 +5602,17 @@ def main() -> int:
         return res
 
     smi = phase("1 environment", phase_environment, torch)
-    kern = phase("2 kernels", phase_kernels, torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kern = phase("2 kernels (a)", phase_kernels, torch, gen)
+    # the bulk build needs only (a)'s kernels until its exact_query, so it
+    # runs while flash_decode's and distance_topk's sources compile
+    bulk_out = phase("5 bulk build and store", phase_bulk, torch)
+    kern.update(phase("2 kernels (b)", phase_kernels_late, torch, gen))
     build_s = build_report()
     bag_counts = phase("2 embedding_bag entry", bag_entry_run, torch)
     serve_out = phase("3 serve hnsw", phase_serve, torch)
     flat_out = phase("4 serve flat", phase_serve_flat, torch,
                      serve_out["exact_keys"])
-    bulk_out = phase("5 bulk build and store", phase_bulk, torch)
     int8_out = phase("6 serve hnsw int8", phase_serve_int8, torch)
     store_out = phase("7 serve hnsw int8 with a store", phase_serve_store,
                       torch)
@@ -5483,6 +5631,7 @@ def main() -> int:
         stop_graph_build(graph)
     train = phase("14 training", phase_train, torch)
     phase("15 checkpoints and distributed training", phase_ckpt, torch)
+    dry = phase("16 dry-run tooling", phase_dryrun, torch, smi)
     kern["distance_topk.retrieval_cand"] = offpath["mind"]["retrieval_cand"]
     kern["flash_decode.bf16"] = bf16["flash"]
     for arch, rec in other.items():
@@ -5538,7 +5687,8 @@ def main() -> int:
              BF16_LLAMA: bf16["served"]["counters"],
              RETRIEVAL_PATH: offpath["mind"]["counters"],
              BAG_ENTRY: bag_counts,
-             TRAIN_PATH: train["llama3-8b"]["counters"]}
+             TRAIN_PATH: train["llama3-8b"]["counters"],
+             **dry["counters"]}
     for counts in paths.values():
         for c in CODECS:
             counts[f"{HOP_COUNTER}.{c}"] = hop_launches(counts, c)

@@ -19,10 +19,21 @@ per row type; ``greedy_descent`` is a second entry point of
 K and V of one float type (fp32, bf16 or fp16).
 ``select_neighbors`` is plain PyTorch on either device (the JAX package
 keeps it jnp-only too).
+
+Tensors on ``meta`` launch nothing: they have no device to compute on,
+so the plain version runs there and allocates nothing. While an op
+counter counts (``counting``; ``launch/op_analysis.py``), each entry
+point reports its call to it with its arguments, and the counter costs
+the call by the formula of the kernel's work and ignores the ops the
+call runs inside (the plain version's, or the wrapper's own), so a
+program counts the same on ``meta``, the CPU and the card; each launch
+is reported too, so a launch outside a costed call cannot pass unseen.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -97,13 +108,44 @@ def _launch(name: str, codec: str, *args) -> None:
     kernel = _KERNEL_OF.get(name, name)
     dispatch.bump(f"kernel.{kernel}")
     dispatch.bump(f"kernel.{kernel}.{codec}")
+    if _COUNTER is not None:
+        _COUNTER.launch(kernel)
+
+
+# the op counter told of every entry point's call and every launch, while
+# one counts (``counting``)
+_COUNTER = None
+
+
+@contextlib.contextmanager
+def counting(counter):
+    """Report the entry points' calls (``counter.call(name, fn, args,
+    kwargs)``, which runs the call) and the launches
+    (``counter.launch(kernel)``) to ``counter`` inside the block."""
+    global _COUNTER
+    prev, _COUNTER = _COUNTER, counter
+    try:
+        yield counter
+    finally:
+        _COUNTER = prev
+
+
+def _costed(fn):
+    """An entry point whose calls go through the counting op counter."""
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        if _COUNTER is None:
+            return fn(*args, **kwargs)
+        return _COUNTER.call(fn.__name__, fn, args, kwargs)
+    return entry
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on one CUDA device, False when all lie
-    on the CPU; anything else raises."""
+    on the CPU or all on ``meta`` (no launch: the plain version computes
+    nothing there); anything else raises."""
     types = {t.device.type for t in tensors}
-    if types == {"cpu"}:
+    if types == {"cpu"} or types == {"meta"}:
         return False
     devs = {t.device for t in tensors}
     if types == {"cuda"} and len(devs) == 1:
@@ -173,6 +215,7 @@ def _aligned_q(q: torch.Tensor) -> torch.Tensor:
     return q if q.data_ptr() % 16 == 0 else q.clone()
 
 
+@_costed
 def gather_distance(vectors: torch.Tensor, q: torch.Tensor, ids: torch.Tensor,
                     *, metric: str = "cosine",
                     scales: torch.Tensor | None = None) -> torch.Tensor:
@@ -222,6 +265,7 @@ def _gather_plan(b: int, k: int, sm_count: int) -> tuple[int, int]:
     return 32 * w, -(-warps // w)
 
 
+@_costed
 def greedy_descent(vectors: torch.Tensor, upper: torch.Tensor,
                    q: torch.Tensor, ep: torch.Tensor, ep_dist: torch.Tensor,
                    *, max_level: int, metric: str = "cosine",
@@ -324,6 +368,7 @@ def _descent_plan(d: int, codec: str, m: int, vec: int
     return threads, ring, smem, per_sm
 
 
+@_costed
 def beam_search(vectors: torch.Tensor, neighbors0: torch.Tensor,
                 q: torch.Tensor, ep: torch.Tensor, ep_dist: torch.Tensor, *,
                 ef: int, metric: str = "cosine",
@@ -509,6 +554,7 @@ _FLASH_HEAD = 16          # floats before a partial's acc: m[8], l[8]
 FLASH_WIDE_MAX_DH = (_SMEM_BLOCK // 4 - 16) // 2
 
 
+@_costed
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  cur_len) -> torch.Tensor:
     """Decode attention: q [B,H,Dh], k/v [B,S,KVH,Dh] -> [B,H,Dh] f32.
@@ -686,6 +732,7 @@ def topk_in_passes(run_pass, b: int, k: int, device
     return out_d, out_i
 
 
+@_costed
 def flat_topk(db: torch.Tensor, q: torch.Tensor, k: int, *,
               metric: str = "cosine", scales: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -734,6 +781,7 @@ def flat_topk(db: torch.Tensor, q: torch.Tensor, k: int, *,
     return topk_in_passes(run_pass, b, k, q.device)
 
 
+@_costed
 def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
                   weights: torch.Tensor | None = None, *,
                   combine: str = "sum") -> torch.Tensor:

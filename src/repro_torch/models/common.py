@@ -90,8 +90,10 @@ def weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _f32_out(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """True when ``a @ b`` can run as one product with an fp32 output."""
-    return a.is_cuda and _OUT_DTYPE and a.dtype == b.dtype and \
+    """True when ``a @ b`` can run as one product with an fp32 output: on
+    the card, and on ``meta``, where a dry run counts the card's ops."""
+    return a.device.type in ("cuda", "meta") and _OUT_DTYPE and \
+        a.dtype == b.dtype and \
         a.dtype in (torch.bfloat16, torch.float16)
 
 

@@ -32,7 +32,7 @@ from repro_torch.models.common import (
     normal_init,
     weight,
 )
-from repro_torch.utils import resolve_device
+from repro_torch.utils import generator, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +114,7 @@ def init_encoder(cfg: EncoderConfig, seed: int = 0, device=None) -> Encoder:
     from a ``torch.Generator`` seeded with ``seed``."""
     dev = resolve_device(device)
     model = Encoder(cfg, device="meta").to_empty(device=dev)
-    model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    model.reset_parameters(generator(seed, dev))
     model.requires_grad_(False)
     return model.eval()
 

@@ -25,7 +25,7 @@ from torch.nn import functional as F
 from repro_torch.configs.base import GNNConfig
 from repro_torch.models.common import l2_normalize, normal_init, softmax_xent
 from repro_torch.models.sampler import sample_neighbors
-from repro_torch.utils import resolve_device
+from repro_torch.utils import generator
 
 
 # ---------------------------------------------------------------------------
@@ -33,7 +33,7 @@ from repro_torch.utils import resolve_device
 # ---------------------------------------------------------------------------
 def init_sage(cfg: GNNConfig, d_feat: int, n_classes: int, seed: int = 0,
               device=None) -> dict:
-    g = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    g = generator(seed, device)
     dims = [d_feat] + [cfg.d_hidden] * cfg.n_layers
     layers = []
     for i in range(cfg.n_layers):
@@ -74,7 +74,11 @@ def sage_full_forward(params: dict, cfg: GNNConfig, feats: torch.Tensor,
     n = feats.shape[0]
     order = torch.argsort(edge_dst, stable=True)
     src = edge_src.long()[order]
-    deg = torch.bincount(edge_dst.long(), minlength=n)               # [N]
+    # in-degrees from the sorted destinations (bincount's, without its
+    # data-dependent length, so the forward also runs on ``meta``)
+    bounds = torch.searchsorted(edge_dst.long()[order],
+                                torch.arange(n + 1, device=edge_dst.device))
+    deg = bounds[1:] - bounds[:-1]                                   # [N]
     inv_deg = 1.0 / torch.clamp_min(deg.float(), 1.0)
     h = feats
     for lp in params["layers"]:

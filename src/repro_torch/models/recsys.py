@@ -29,11 +29,7 @@ from repro_torch.models.common import (
     sigmoid_xent,
     softmax_xent,
 )
-from repro_torch.utils import resolve_device
-
-
-def _generator(seed: int, device) -> torch.Generator:
-    return torch.Generator(device=resolve_device(device)).manual_seed(seed)
+from repro_torch.utils import generator
 
 
 # ---------------------------------------------------------------------------
@@ -67,7 +63,7 @@ def _mlp_apply(layers: list[dict], x: torch.Tensor,
 # FM — pairwise interactions via the O(nk) sum-square trick (Rendle ICDM'10)
 # ---------------------------------------------------------------------------
 def init_fm(cfg: RecsysConfig, seed: int = 0, device=None) -> dict:
-    g = _generator(seed, device)
+    g = generator(seed, device)
     F_, R, K = cfg.n_sparse, cfg.rows_per_field, cfg.embed_dim
     return {
         "table": normal_init(g, (F_, R, K), 0.01),
@@ -109,7 +105,7 @@ def fm_loss(params, cfg, sparse_ids, dense, labels):
 # Wide & Deep
 # ---------------------------------------------------------------------------
 def init_wide_deep(cfg: RecsysConfig, seed: int = 0, device=None) -> dict:
-    g = _generator(seed, device)
+    g = generator(seed, device)
     F_, R, K = cfg.n_sparse, cfg.rows_per_field, cfg.embed_dim
     mlp_dims = (F_ * K + cfg.n_dense,) + tuple(cfg.mlp_dims) + (1,)
     return {
@@ -221,7 +217,7 @@ def bert4rec_user_embedding(params, cfg: RecsysConfig,
 # MIND — multi-interest extraction via B2I dynamic (capsule) routing
 # ---------------------------------------------------------------------------
 def init_mind(cfg: RecsysConfig, seed: int = 0, device=None) -> dict:
-    g = _generator(seed, device)
+    g = generator(seed, device)
     K = cfg.embed_dim
     return {
         "items": normal_init(g, (cfg.n_items, K), 0.02),

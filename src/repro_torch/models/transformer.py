@@ -70,7 +70,7 @@ from repro_torch.models.common import (
     weight,
 )
 from repro_torch.models.moe import MoE, moe_ffn, moe_layer_axes
-from repro_torch.utils import resolve_device
+from repro_torch.utils import generator, resolve_device
 
 
 class Block(nn.Module):
@@ -160,7 +160,7 @@ def init_lm(cfg: LMConfig, seed: int = 0, device=None,
     it trains."""
     dev = resolve_device(device)
     model = LM(cfg, device="meta", dtype=dtype).to_empty(device=dev)
-    model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+    model.reset_parameters(generator(seed, dev))
     model.requires_grad_(False)
     return model.eval()
 

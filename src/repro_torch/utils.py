@@ -41,6 +41,27 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+class _MetaDraws(torch.Generator):
+    """A CPU generator that names the ``meta`` device: a draw into a meta
+    tensor computes nothing, so its state is never read."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def generator(seed: int, device=None) -> torch.Generator:
+    """A ``torch.Generator`` seeded with ``seed`` on ``device`` (default
+    cuda, as ``resolve_device``), whose ``.device`` the initializers draw
+    on. On ``meta``, which has no generator, one that draws nothing: a
+    model built there (``launch/steps.py``'s dry-run cells) has shapes
+    and dtypes and no values."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return _MetaDraws().manual_seed(seed)
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
 # ---------------------------------------------------------------------------
 # Tree helpers
 # ---------------------------------------------------------------------------

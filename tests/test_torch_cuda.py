@@ -2091,3 +2091,47 @@ def test_compressed_psum_on_card_equals_cpu(cuda_device, n):
     card = compressed_psum([r.to(cuda_device) for r in x])
     for c in card:
         assert c.is_cuda and torch.equal(c.cpu(), cpu[0])
+
+
+def _count(arch_id, shape, device, n_layers=None):
+    """``op_analysis``'s count of a dry-run cell at its published width on
+    ``device`` (a one-card host mesh on the card)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_analysis, steps
+    from repro_torch.launch.mesh import make_host_mesh
+
+    arch = dataclasses.replace(get_config(arch_id), shapes=(shape,))
+    mesh = make_host_mesh(1, 1, device=None if device == "cuda" else device)
+    cell = steps.cell_for(arch, shape, mesh, device=device,
+                          n_layers=n_layers)
+    return op_analysis.analyze(cell.fn, *cell.args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id,kind,dims,layers", [
+    ("llama3-8b", "decode", {"seq_len": 2048, "global_batch": 8}, 1),
+    ("mememo", "retrieval", {"batch": 16, "n_candidates": 100_000,
+                             "dim": 384, "k": 10}, None),
+    ("mememo", "retrieval", {"batch": 1, "n_candidates": 100_000,
+                             "dim": 384, "k": 10}, None)])
+def test_cell_counts_the_same_on_the_card_as_on_meta(cuda_device, arch_id,
+                                                     kind, dims, layers):
+    """A decode cell (bf16 flash_decode, every slot attending S) and the
+    retrieval cells (distance_topk at both paths): the card's count of
+    FLOPs and bytes equals the meta count exactly, each hand kernel is
+    costed by its formula and launched, and nothing is uncosted."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import dispatch
+
+    shape = ShapeSpec("cell", kind, dims)
+    meta = _count(arch_id, shape, "meta", layers)
+    dispatch.reset()
+    card = _count(arch_id, shape, "cuda", layers)
+    kernel = "flash_decode" if kind == "decode" else "distance_topk"
+    assert dispatch.get(f"kernel.{kernel}") >= 1
+    for key in ("flops", "flops_by_dtype", "bytes", "kernels", "uncosted",
+                "collective_bytes"):
+        assert card[key] == meta[key], key
+    assert card["uncosted"] == {}

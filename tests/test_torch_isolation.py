@@ -69,6 +69,17 @@ def test_training_layer_is_covered():
         assert m in mods
 
 
+def test_tooling_is_covered():
+    """The dry-run tooling (the reference's ``launch/`` modules that read
+    XLA's artifacts, and the op counter in place of its HLO parser) is
+    made of modules of the port, read by the checks above."""
+    mods = _port_modules()
+    for m in ("repro_torch.launch.mesh", "repro_torch.launch.model_costs",
+              "repro_torch.launch.op_analysis", "repro_torch.launch.steps",
+              "repro_torch.launch.dryrun"):
+        assert m in mods
+
+
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     code = ("import importlib, sys\n"
