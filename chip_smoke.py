@@ -94,7 +94,7 @@ Phases (none catches an exception; any failure exits non-zero):
    built index's 1,024 queries; ``query_batch`` at ef 64, k 10 over
    1,024 queries must return the keys of a CPU search of the same host
    graph on >= 99 % of a 256-query sample; recall@10 against
-   ``exact_query``, and on a 5,000-row prefix the bulk and the
+   ``exact_query``, and on a 2,500-row prefix the bulk and the
    sequential builder's recall (bulk >= sequential - 0.05); (c) a
    32,768-row prefix build, timed and then traced, gives the device's
    busy and idle share of a build; (d) the durable store on (b)'s index:
@@ -104,7 +104,7 @@ Phases (none catches an exception; any failure exits non-zero):
    (the same keys on the 1,024 queries, the same ``mutation_epoch``,
    equal ``state_dict`` arrays), timing the snapshot and the restore
    (read, replay, first upload) beside (b)'s build; (e) compact with
-   secure delete on a 5,000-row int8 prefix: no deleted row's bytes in
+   secure delete on a 2,500-row int8 prefix: no deleted row's bytes in
    any file of the store, and the compacted store restores with the live
    keys.
 6. The HNSW served path over int8 rows, ``--rag --index hnsw
@@ -162,7 +162,7 @@ Phases (none catches an exception; any failure exits non-zero):
    oracle; then 1,000 deletes leave free slots in each shard's block, so
    a shard's ``distance_topk`` runs in several passes: keys against one
    shard with the same deletes, each shard's call against its plain
-   version. (b) HNSW over 5,000 x 384 seeded rows at
+   version. (b) HNSW over 2,500 x 384 seeded rows at
    4 shards (the paper's M 5, efConstruction 20; each child built by the
    host builder): keys equal the loop oracle's (each child searched on
    its own, a host merge), ``exact_query`` equals a 1-shard index's,
@@ -324,8 +324,8 @@ Phases (none catches an exception; any failure exits non-zero):
    (b) to (f)), restored onto the card (seconds, GB/s, peak GB), every
    leaf bit for bit the live state's, and one step from the restored
    state bit for bit the live state's step (loss, grad norm, weights, m,
-   v); (b) the reference's ``examples/fault_tolerant_training.py`` on
-   ``launch.train``'s small llama3-8b: 24 steps, a checkpoint every 8
+   v); (b) ``examples/torch_fault_tolerant_training.py``'s supervised
+   run (``resilient_run``) on ``launch.train``'s small llama3-8b: 24 steps, a checkpoint every 8
    (async), failures at 9 and 17 (two restarts) with a
    ``StragglerWatchdog``, against a failure-free run and a failure at
    step 3 (restart from scratch), every loss and the final state bit for
@@ -358,6 +358,28 @@ Phases (none catches an exception; any failure exits non-zero):
    events beside its bound (counted operations over the card's peaks or
    counted bytes over its HBM rate, the larger); a time under 0.95 x its
    bound fails (a count too high).
+17. The examples and the legacy builder: (a) ``bulk_build_legacy`` on
+   phase 5 (a)'s integer-valued l2 rows (``BULK_INT``) on the card, every
+   array bit for bit the CPU's (each built in a process started before
+   phase 14, so that their host loops overlap phases 14 to 16), one
+   descent and one ``beam_search`` launch a batch;
+   (b) ``bulk_build_legacy`` and the resident ``bulk_build`` at MeMemo's
+   build widths (configs/mememo.py: D 384, M 5, efC 20, cosine; fp32,
+   bootstrap 256, batch 1,024) on the same ``LEGACY_ROWS`` rows
+   (``make_corpus`` rows and Gaussian queries, as ``bench_build`` draws
+   them), run alone: each build's wall, rows/s, ``hnsw.h2d_bytes`` and
+   their ratio (``bench_build``'s ``h2d_vs_legacy``, under 0.5), launches,
+   and recall@10 at ef 64 against the exact top 10; (c) the four examples'
+   ``main(device="cuda")`` with their asserts: quickstart (HNSW CRUD,
+   export and load, every backend, the two-tier traffic), the RAG
+   Playground at every ``--index``, each in a process of its own beside
+   (a) and the other examples (host-bound: its engine prefills 127
+   positions in attention blocks of 1; ``flash_decode`` every tick; the 12
+   documents' keys through hnsw and tiered equal the flat scan's),
+   distributed retrieval (8 shards on the mesh's devices, each one
+   ``distance_topk`` launch, 0 bytes between cards on one card) and
+   fault-tolerant training (2 restarts, exact replay); each run's
+   launches go into the kernels line.
 
 Each phase's seconds are logged. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the
@@ -365,6 +387,7 @@ repository around it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import gc
@@ -430,7 +453,7 @@ BULK_INT = dict(rows=10_000, dim=64, M=8, ef_construction=40,
                 batch_size=1024)
 BULK_ROWS, BULK_QUERIES, BULK_SAMPLE = 1_000_000, 1024, 256
 PROFILE_ROWS = 32_768
-QUALITY_ROWS = 5_000
+QUALITY_ROWS = 2_500
 # embedding_bag at MIND's published table (src/repro/configs/mind.py:
 # n_items, embed_dim, seq_len) and the recsys serve shapes of
 # configs/base.py RECSYS_SHAPES (serve_p99, serve_bulk). No model path of
@@ -443,7 +466,7 @@ BAG_ENTRY = "ops.embedding_bag (MIND serve_p99)"
 # each insert or update copies the 1M encoded rows, live and again in
 # the replay), and the compact + secure-delete prefix
 STORE_INSERTS, STORE_UPDATES, STORE_DELETES = 8, 8, 16
-COMPACT_ROWS, COMPACT_DELETES = 5_000, 200
+COMPACT_ROWS, COMPACT_DELETES = 2_500, 200
 # IVF at the paper's scale (configs/mememo.py build_1m, int8; nlist and
 # nprobe from RetrievalConfig): the query batches timed, the sample held
 # against the CPU, and the store's logged mutations (inserts in one
@@ -455,7 +478,7 @@ IVF_INSERTS, IVF_UPDATES, IVF_DELETES = 16, 8, 8
 # 5, efConstruction 20, configs/mememo.py) take well under a minute; the
 # store round trips on a prefix of the 1M int8 rows
 SHARDS, SHARD_BATCHES, SHARD_SAMPLE = 4, (8, 128), 16
-SHARD_HNSW_ROWS, SHARD_STORE_ROWS = 5_000, 100_000
+SHARD_HNSW_ROWS, SHARD_STORE_ROWS = 2_500, 100_000
 # phase 9 deletes every this many-th key of the 1M flat indexes: about
 # 250 free slots a shard, so the fan-out over-fetches in several passes
 SHARD_CHURN_EVERY = 1000
@@ -511,11 +534,12 @@ REPEAT_RUNS = (("fm", "small", 512), ("graphsage-reddit", "smoke", 8))
 # on the two devices and are carried through 2 layers)
 BF16_LOSS_RTOL, BF16_GNORM_RTOL = 1e-2, 5e-2
 # phase 15: checkpoints, fault tolerance and the distributed training
-# layer. (b) examples/fault_tolerant_training.py's run; (c) launch.train's
+# layer. (b) a failure at step 3 beside the run of
+# examples/torch_fault_tolerant_training.py; (c) launch.train's
 # --ckpt-dir run and its rerun (--steps); (d) the pipeline's stages,
 # microbatches and their shape; (e) compressed_psum's replicas; (f) the
 # meshes a state is saved from and restored onto
-FT_STEPS, FT_EVERY, FT_FAILS, FT_SCRATCH_FAIL = 24, 8, (9, 17), 3
+FT_SCRATCH_FAIL = 3
 CKPT_STEPS, CKPT_EVERY = (20, 30), 10
 PIPE_STAGES, PIPE_MICRO, PIPE_MB, PIPE_S = 4, 8, 1, 128
 PSUM_REPLICAS, PSUM_BOUND = 4, 0.03
@@ -527,6 +551,15 @@ MESH_SAVE, MESH_RESTORE = (4, 2), (2, 4)
 DRY_CELLS = (("mememo", "query_1m", None, 5), ("mememo", "query_rt", None, 20),
              ("llama3-8b", "decode_32k", 2, 8), ("fm", "serve_bulk", None, 10))
 DRY_MIN_SHARE_OF_BOUND = 0.95
+# phase 17: the examples and the legacy builder. (a) bulk_build_legacy on
+# BULK_INT's integer l2 rows, on the card and on the CPU, each built in a
+# process of its own; (b) bulk_build_legacy and bulk_build at MeMemo's build
+# widths (configs/mememo.py: D 384, M 5, efC 20, cosine; fp32, bootstrap
+# 256, batch 1,024) on LEGACY_ROWS make_corpus rows (bench_build's draw;
+# 30,000 keep phase 17 near 90 s), recall@10 of LEGACY_QUERIES Gaussian
+# queries; (c) the examples, the playground at every index
+LEGACY_ROWS, LEGACY_QUERIES = 30_000, 200
+PLAYGROUND_INDEXES = ("flat", "ivf", "hnsw", "tiered")
 # the kernels each served path must launch
 HNSW_PATH = ("kernel.gather_distance", "kernel.beam_search",
              "kernel.flash_decode")
@@ -2306,7 +2339,7 @@ def store_restore(torch, live: dict, qs, build_s: float, d: Path) -> dict:
 
 
 def store_compact(torch, keys, x, qs) -> dict:
-    """Phase 5 (e): compact with secure delete on a 5,000-row int8 prefix
+    """Phase 5 (e): compact with secure delete on a 2,500-row int8 prefix
     (``_compact_impl`` rebuilds sequentially, so not at 1M): no deleted
     row's encoded bytes, fp32 decode or raw payload, and no deleted key,
     in any file under the store dir; no deleted row's scale in the stored
@@ -3280,7 +3313,7 @@ def phase_sharded(torch) -> dict:
     shards share cuda:0 (``REPRO_TORCH_SHARD_DEVICES``), so their launches
     run one after another; with two or more cards the 1M cells run again
     with one shard a card. (a) flat and IVF int8 over ``build_1m``'s rows
-    at 4 shards against 1 shard; (b) HNSW over 5,000 x 384 rows at 4
+    at 4 shards against 1 shard; (b) HNSW over 2,500 x 384 rows at 4
     shards against the loop oracle; (c) int8 flat stores written at 4
     shards restored at 1 and back; (d) the served path ``--rag --shards 4
     --index hnsw --index-dtype int8``, its keys against a CPU copy."""
@@ -4321,22 +4354,29 @@ def build_sage_graph(out_dir: str) -> None:
          "save_s": time.perf_counter() - t0 - build_s}))
 
 
-def start_graph_build():
-    """-> (process, directory) of ``build_sage_graph``."""
+def spawn(name: str, jobs: list[tuple]) -> tuple[list, Path]:
+    """Start each ``(fn, *args)`` of ``jobs`` as ``fn(directory, *args)``
+    in a spawned process, ``directory`` a new store dir -> (processes,
+    directory)."""
     import multiprocessing
 
-    d = store_dir("sage_graph")
-    proc = multiprocessing.get_context("spawn").Process(
-        target=build_sage_graph, args=(str(d),))
-    proc.start()
-    return proc, d
+    d = store_dir(name)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=(str(d), *args))
+             for fn, *args in jobs]
+    for p in procs:
+        p.start()
+    return procs, d
 
 
-def stop_graph_build(graph) -> None:
-    proc, d = graph
-    if proc.is_alive():
-        proc.terminate()
-    proc.join(timeout=30)
+def stop_spawned(handle) -> None:
+    """Stop the processes of ``spawn`` that still run, and remove their
+    directory."""
+    procs, d = handle
+    for proc in procs:
+        if proc.is_alive():
+            proc.terminate()
+        proc.join(timeout=30)
     shutil.rmtree(d, ignore_errors=True)
 
 
@@ -4561,7 +4601,7 @@ def sage_minibatch_lg(torch, cfg, shape, graph) -> dict:
     from repro_torch.models import gnn as tgnn
     from repro_torch.models.common import tree_to
 
-    proc, d = graph
+    (proc,), d = graph
     t0 = time.perf_counter()
     proc.join()
     assert proc.exitcode == 0, f"graph build exited {proc.exitcode}"
@@ -5088,45 +5128,34 @@ def ckpt_restore_full(torch, saved: dict) -> dict:
 
 
 def ft_example(torch) -> tuple[dict, dict]:
-    """(b) ``examples/fault_tolerant_training.py`` on the card, at
-    ``launch.train``'s small llama3-8b -> (record, the failure-free
-    run's final state)."""
-    from repro_torch.data.synthetic import lm_batches
+    """(b) ``examples/torch_fault_tolerant_training.py``'s supervised run
+    on the card, at ``launch.train``'s small llama3-8b -> (record, the
+    failure-free run's final state)."""
     from repro_torch.launch.train import small_lm
     from repro_torch.models import transformer as tf
     from repro_torch.train.checkpoint import tree_leaves
-    from repro_torch.train.fault_tolerance import (StragglerWatchdog,
-                                                   run_resilient)
-    from repro_torch.train.optimizer import AdamWConfig, warmup_cosine
-    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.train.fault_tolerance import StragglerWatchdog
 
+    ex = load_example("torch_fault_tolerant_training")
     cfg = small_lm(lm_config("llama3-8b"))
-    step = make_train_step(lambda p, tokens, labels: tf.lm_loss(
-        p, tokens, labels, dtype=torch.float32),
-        AdamWConfig(lr=warmup_cosine(1e-3, 5, 40)))
-
-    def batch_fn(s):                      # deterministic in (seed, step)
-        return next(lm_batches(cfg.vocab, 8, 33, seed=0, start_step=s))
-
     model = tf.init_lm(cfg, seed=0, device="cuda")
     out, finals = {}, {}
     for name, fails, async_save, wd in (
-            ("two failures", FT_FAILS, True,
+            ("two failures", ex.FAIL_AT, True,
              StragglerWatchdog(min_samples=5, factor=4.0)),
             ("failure-free", (), False, None),
             ("failure at 3", (FT_SCRATCH_FAIL,), True, None)):
         d = store_dir("ft")
         ckpt = logged_ckpt(d, keep=3, async_save=async_save)
         t0 = time.perf_counter()
-        params, state, info = run_resilient(
-            model, step, batch_fn, steps=FT_STEPS, ckpt=ckpt,
-            ckpt_every=FT_EVERY, watchdog=wd, fail_at=list(fails))
+        params, state, info = ex.resilient_run(model, cfg, ckpt,
+                                               fail_at=fails, watchdog=wd)
         ckpt.wait()
         wall = time.perf_counter() - t0
         shutil.rmtree(d, ignore_errors=True)
         finals[name] = {"params": params, "opt": state}
         out[name] = {"restarts": info["restarts"], "wall_s": wall,
-                     "final_loss": info["losses"][FT_STEPS - 1],
+                     "final_loss": info["losses"][ex.STEPS - 1],
                      "losses": info["losses"], "saves": ckpt.stalls,
                      "stragglers": [dataclasses.asdict(e)
                                     for e in info["stragglers"]]}
@@ -5139,10 +5168,10 @@ def ft_example(torch) -> tuple[dict, dict]:
         assert not bad, f"{name}: final state differs: {bad[:5]}"
         out[name]["bit_for_bit"] = True
     for rec in out.values():
-        rec["losses"] = [rec["losses"][s] for s in range(FT_STEPS)]
+        rec["losses"] = [rec["losses"][s] for s in range(ex.STEPS)]
     out["params"] = sum(t.numel() for _, t in tree_leaves(model))
     log("checkpoint (b) fault-tolerant example " + json.dumps(out))
-    return out, {"cfg": cfg, **finals["failure-free"]}
+    return out, {"cfg": cfg, "steps": ex.STEPS, **finals["failure-free"]}
 
 
 def ckpt_launch_train(torch) -> dict:
@@ -5321,7 +5350,7 @@ def restore_sharded_cell(torch, final: dict) -> dict:
     d = store_dir("sharded")
     try:
         ckpt = logged_ckpt(d)
-        ckpt.save(FT_STEPS, placed)
+        ckpt.save(final["steps"], placed)
         t0 = time.perf_counter()
         got, _ = ckpt.restore_sharded({"params": params, "opt": opt}, axes,
                                       mesh_b)
@@ -5506,6 +5535,286 @@ def phase_dryrun(torch, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the examples and the legacy builder
+# ---------------------------------------------------------------------------
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def legacy_int_rows():
+    """(a)'s rows: phase 5 (a)'s size, integer-valued (exact in fp32)."""
+    import numpy as np
+
+    return np.random.default_rng(17).integers(
+        -3, 4, size=(BULK_INT["rows"], BULK_INT["dim"])).astype(np.float32)
+
+
+def legacy_int_kw() -> dict:
+    return dict(M=BULK_INT["M"], ef_construction=BULK_INT["ef_construction"],
+                batch_size=BULK_INT["batch_size"], metric="l2", seed=0)
+
+
+def build_legacy_int(out_dir: str, device: str) -> None:
+    """(a)'s build on ``device`` in a process of its own (started before
+    phase 14, so that its host loops overlap phases 14 to 16; on the card
+    it launches 10 searches): ``bulk_build_legacy``'s graph saved under
+    ``out_dir``, with the build's seconds and launch counters."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import dispatch
+    from repro_torch.core import hnsw_build as tb
+
+    dispatch.reset()
+    t0 = time.perf_counter()
+    g = tb.bulk_build_legacy(legacy_int_rows(), device=device,
+                             **legacy_int_kw())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    np.savez(Path(out_dir) / f"{device}.npz", neighbors0=g.neighbors0,
+             upper=g.upper, levels=g.levels, vectors=g.vectors,
+             entry=g.entry, max_level=g.max_level)
+    (Path(out_dir) / f"{device}.json").write_text(json.dumps(
+        {"seconds": secs, "counts": dispatch.snapshot()}))
+
+
+def legacy_bit_identical(torch, builds) -> dict:
+    """(a) ``bulk_build_legacy``'s card graph against the CPU's on
+    integer-valued l2 rows: every array bit for bit, one descent and one
+    beam launch a batch."""
+    import numpy as np
+
+    procs, d = builds
+    t0 = time.perf_counter()
+    for p in procs:
+        p.join(timeout=600)
+        assert p.exitcode == 0, f"a legacy build failed ({p.exitcode})"
+    waited_s = time.perf_counter() - t0
+    card, cpu = (np.load(d / f"{dev}.npz") for dev in ("cuda", "cpu"))
+    for name in ("neighbors0", "upper", "levels", "vectors"):
+        assert np.array_equal(card[name], cpu[name]), \
+            f"bulk_build_legacy on the card: {name} differs from the CPU's"
+    assert (int(card["entry"]), int(card["max_level"])) == (
+        int(cpu["entry"]), int(cpu["max_level"]))
+    run = {dev: json.loads((d / f"{dev}.json").read_text())
+           for dev in ("cuda", "cpu")}
+    counts = collections.Counter(run["cuda"]["counts"])
+    batches = -(-(BULK_INT["rows"] - 256) // BULK_INT["batch_size"])
+    assert counts["kernel.beam_search.fp32"] == batches, counts
+    assert counts["hnsw.descent_launches.fp32"] == batches, counts
+    assert not any(run["cpu"]["counts"].get(c) for c in (
+        "kernel.beam_search", "kernel.gather_distance")), run["cpu"]
+    rec = dict(BULK_INT, card_s=run["cuda"]["seconds"],
+               cpu_s=run["cpu"]["seconds"], waited_s=waited_s,
+               max_level=int(card["max_level"]), batches=batches,
+               h2d_bytes=counts["hnsw.h2d_bytes"],
+               beam_search_launches=counts["kernel.beam_search.fp32"],
+               descent_launches=counts["hnsw.descent_launches.fp32"])
+    log("legacy (a) card == CPU bit for bit on integer l2 rows "
+        + json.dumps(rec))
+    return rec, counts
+
+
+def legacy_vs_resident(torch) -> tuple[dict, dict]:
+    """(b) ``bulk_build_legacy`` and the resident ``bulk_build`` at MeMemo's
+    build widths on the same ``LEGACY_ROWS`` rows, drawn as
+    ``benchmarks/bench_build.py`` draws them (``make_corpus`` rows,
+    Gaussian queries): wall, rows/s, h2d bytes and their ratio
+    (``bench_build``'s ``h2d_vs_legacy``), the kernels' launches, and
+    recall@10 of ``LEGACY_QUERIES`` queries (ef 64) against the exact top
+    10 -> (record, each build's counters)."""
+    import numpy as np
+    from repro_torch.configs.mememo import CONFIG
+    from repro_torch.core import dispatch
+    from repro_torch.core import hnsw as thnsw
+    from repro_torch.core import hnsw_build as tb
+    from repro_torch.data.synthetic import make_corpus
+
+    cfg = CONFIG.model
+    x = make_corpus(LEGACY_ROWS, cfg.dim, seed=0)
+    q = np.random.default_rng(7).normal(
+        size=(LEGACY_QUERIES, cfg.dim)).astype(np.float32)
+    xn, qn = (torch.nn.functional.normalize(torch.from_numpy(a).cuda(),
+                                            dim=1) for a in (x, q))
+    exact = torch.topk(qn @ xn.T, 10, dim=1).indices.cpu().numpy()
+    del xn, qn
+    kw = dict(M=cfg.M, ef_construction=cfg.ef_construction,
+              metric=cfg.metric, seed=0, bootstrap=256, batch_size=1024)
+    batches = -(-(LEGACY_ROWS - 256) // 1024)
+    out, paths = {"rows": LEGACY_ROWS, "dim": cfg.dim, **kw,
+                  "dtype": "fp32", "batches": batches}, {}
+    for name, fn in (("legacy", tb.bulk_build_legacy),
+                     ("resident", tb.bulk_build)):
+        dispatch.reset()
+        t0 = time.perf_counter()
+        g = fn(x, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = collections.Counter(dispatch.snapshot())
+        assert counts["kernel.beam_search.fp32"] == batches, (name, counts)
+        assert counts["hnsw.descent_launches.fp32"] == batches, (name, counts)
+        ids, _ = thnsw.search_graph(thnsw.to_device_graph(g, device="cuda"),
+                                    q, k=10, ef=64)
+        out[name] = {"wall_s": wall, "rows_per_s": LEGACY_ROWS / wall,
+                     "h2d_bytes": counts["hnsw.h2d_bytes"],
+                     "recall_at_10": thnsw.recall_at_k(ids.cpu().numpy(),
+                                                       exact),
+                     "beam_search_launches": counts["kernel.beam_search.fp32"],
+                     "descent_launches": counts["hnsw.descent_launches.fp32"],
+                     "max_level": g.max_level}
+        paths[f"{name} build fp32 D384"] = counts
+    out["h2d_vs_legacy"] = (out["resident"]["h2d_bytes"]
+                            / out["legacy"]["h2d_bytes"])
+    out["wall_legacy_over_resident"] = (out["legacy"]["wall_s"]
+                                        / out["resident"]["wall_s"])
+    assert out["h2d_vs_legacy"] < 0.5, out
+    for name in ("legacy", "resident"):
+        assert 0.0 < out[name]["recall_at_10"] <= 1.0, out
+    log("legacy (b) against the resident build " + json.dumps(out))
+    return out, paths
+
+
+def run_example(torch, name: str, **kw) -> tuple[dict, dict, float]:
+    """One example's ``main(device="cuda")`` with its asserts -> (what it
+    returned, the launch counters of the run, seconds)."""
+    from repro_torch.core import dispatch
+
+    mod = load_example(name)
+    dispatch.reset()
+    t0 = time.perf_counter()
+    out = mod.main(device="cuda", **kw)
+    torch.cuda.synchronize()
+    return (out, collections.Counter(dispatch.snapshot()),
+            time.perf_counter() - t0)
+
+
+def example_child(out_dir: str, i: int, name: str, kw: dict) -> None:
+    """``run_example`` in a process of its own -> ``out_dir/<i>.json``
+    (what ``main`` returned, its launch counters and seconds)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+
+    out, counts, secs = run_example(torch, name, **kw)
+    (Path(out_dir) / f"{i}.json").write_text(json.dumps(
+        {"out": out, "counts": counts, "seconds": secs}))
+
+
+def join_examples(handle, timeout: float = 900) -> list[tuple]:
+    """The spawned ``example_child`` runs -> [(what main returned,
+    counters, seconds)] in their order."""
+    procs, d = handle
+    got = []
+    for i, p in enumerate(procs):
+        p.join(timeout=timeout)
+        assert p.exitcode == 0, f"example run {i} failed ({p.exitcode})"
+        rec = json.loads((d / f"{i}.json").read_text())
+        got.append((rec["out"], collections.Counter(rec["counts"]),
+                    rec["seconds"]))
+    return got
+
+
+def check_playground(torch, index: str, res: dict, counts, flat_keys):
+    """One ``--index`` run of the playground: the path's kernels launched,
+    the stats and responses the reference's script prints, and (hnsw,
+    tiered) the flat scan's keys -> its record."""
+    assert counts["kernel.flash_decode"] > 0, (index, counts)
+    if index == "hnsw":
+        assert counts["kernel.beam_search"] > 0 and counts[
+            "hnsw.descent_launches"] > 0, counts
+    if index == "flat":
+        assert counts["kernel.distance_topk"] > 0, counts
+    if index == "ivf":
+        assert hop_launches(counts, "fp32") > 0, counts
+    assert res["stats"]["hit_rate"] == 0.25, res["stats"]
+    assert all(a["response"].startswith("<") for a in res["answers"])
+    keys = [a["keys"] for a in res["answers"]]
+    if index in ("hnsw", "tiered"):
+        # 12 documents: the graph reaches every one, as the scan does
+        assert keys == flat_keys, (index, keys, flat_keys)
+    rec = {"keys": keys, "stats": res["stats"],
+           "responses": [a["response"] for a in res["answers"]]}
+    log(f"example playground --index {index} " + json.dumps(rec))
+    return rec
+
+
+def phase_examples(torch, builds) -> dict:
+    """Phase 17: (c)'s four playground runs, host-bound (the engine
+    prefills 127 positions in attention blocks of 1), each in a process
+    of its own, while this process checks (a) (the legacy builder's card
+    and CPU graphs, built since phase 14) and runs (c) quickstart,
+    distributed retrieval and fault-tolerant training; then (b) the
+    legacy builder against the resident one at MeMemo's widths, alone,
+    for its walls."""
+    out, seconds, paths = {}, {}, {}
+    play = spawn("examples", [
+        (example_child, i, "torch_rag_playground", {"index": index})
+        for i, index in enumerate(PLAYGROUND_INDEXES)])
+    try:
+        t = time.perf_counter()
+        out["a legacy int l2"], paths["legacy build int l2"] = \
+            legacy_bit_identical(torch, builds)
+        seconds["a legacy int l2, waited"] = time.perf_counter() - t
+
+        res, counts, seconds["c quickstart"] = run_example(
+            torch, "torch_quickstart")
+        assert counts["kernel.beam_search"] > 0 and counts[
+            "hnsw.descent_launches"] > 0, counts
+        assert counts["kernel.distance_topk"] > 0, counts
+        assert hop_launches(counts, "fp32") > 0, counts
+        out["c quickstart"] = res
+        paths["example quickstart"] = counts
+        log("example quickstart " + json.dumps(res))
+
+        res, counts, seconds["c distributed"] = run_example(
+            torch, "torch_distributed_retrieval")
+        assert counts["kernel.distance_topk"] == 8, counts
+        assert res["match"] >= 0.99, res["match"]
+        if torch.cuda.device_count() == 1:
+            assert res["collective_bytes"] == 0, res
+        out["c distributed"] = {k: res[k] for k in (
+            "mesh", "devices", "match", "collective_bytes", "collectives",
+            "kernels")}
+        paths["example distributed"] = counts
+        log("example distributed " + json.dumps(out["c distributed"]))
+
+        res, counts, seconds["c fault-tolerant"] = run_example(
+            torch, "torch_fault_tolerant_training")
+        assert res["restarts"] == 2 and res["diff"] < 2e-3, res
+        out["c fault-tolerant"] = res
+        paths["example fault-tolerant"] = counts
+        log("example fault-tolerant " + json.dumps(res))
+
+        t = time.perf_counter()
+        played = join_examples(play)
+        seconds["c playground, waited"] = time.perf_counter() - t
+    finally:
+        stop_spawned(play)
+    flat_keys = [a["keys"] for a in played[0][0]["answers"]]
+    for index, (res, counts, secs) in zip(PLAYGROUND_INDEXES, played):
+        out[f"c playground {index}"] = check_playground(
+            torch, index, res, counts, flat_keys)
+        seconds[f"c playground {index}"] = secs
+        paths[f"example playground {index}"] = counts
+    release(torch)
+
+    t = time.perf_counter()
+    out["b legacy vs resident"], built = legacy_vs_resident(torch)
+    paths.update(built)
+    seconds["b legacy vs resident"] = time.perf_counter() - t
+    out["seconds"], out["counters"] = seconds, paths
+    log("phase 17 seconds " + json.dumps(seconds))
+    return out
+
+
 def release(torch) -> float:
     """Drop what the last phase left on the card -> GB still allocated."""
     gc.collect()
@@ -5619,7 +5928,8 @@ def main() -> int:
     ivf_out = phase("8 serve ivf and tiered", phase_serve_ivf, torch)
     ivf_1m = phase("8 ivf 1M int8", phase_ivf_1m, torch)
     shard_out = phase("9 sharded", phase_sharded, torch)
-    graph = start_graph_build()
+    # minibatch_lg's graph builds on the host while phases 10 to 12 run
+    graph = spawn("sage_graph", [(build_sage_graph,)])
     try:
         pool_out = phase("10 tenancy", phase_tenancy, torch)
         other = phase("11 other LMs", phase_other_lms, torch,
@@ -5628,10 +5938,18 @@ def main() -> int:
                      flat_out["keys"]["int8 served"])
         offpath = phase("13 off-path models", phase_offpath, torch, graph)
     finally:
-        stop_graph_build(graph)
-    train = phase("14 training", phase_train, torch)
-    phase("15 checkpoints and distributed training", phase_ckpt, torch)
-    dry = phase("16 dry-run tooling", phase_dryrun, torch, smi)
+        stop_spawned(graph)
+    # (17 a)'s legacy builds, host-bound, run while phases 14 to 16 do
+    builds = spawn("legacy_int", [(build_legacy_int, dev)
+                                  for dev in ("cuda", "cpu")])
+    try:
+        train = phase("14 training", phase_train, torch)
+        phase("15 checkpoints and distributed training", phase_ckpt, torch)
+        dry = phase("16 dry-run tooling", phase_dryrun, torch, smi)
+        examples = phase("17 examples and the legacy builder",
+                         phase_examples, torch, builds)
+    finally:
+        stop_spawned(builds)
     kern["distance_topk.retrieval_cand"] = offpath["mind"]["retrieval_cand"]
     kern["flash_decode.bf16"] = bf16["flash"]
     for arch, rec in other.items():
@@ -5688,7 +6006,8 @@ def main() -> int:
              RETRIEVAL_PATH: offpath["mind"]["counters"],
              BAG_ENTRY: bag_counts,
              TRAIN_PATH: train["llama3-8b"]["counters"],
-             **dry["counters"]}
+             **dry["counters"],
+             **examples["counters"]}
     for counts in paths.values():
         for c in CODECS:
             counts[f"{HOP_COUNTER}.{c}"] = hop_launches(counts, c)

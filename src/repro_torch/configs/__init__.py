@@ -37,6 +37,8 @@ _MODULES = {
     "mememo": "mememo",
 }
 
+# every model configuration; mememo is the retrieval setting, not a model
+ASSIGNED_ARCHS = tuple(a for a in _MODULES if a != "mememo")
 ALL_ARCHS = tuple(_MODULES)
 
 

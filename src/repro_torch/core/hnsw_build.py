@@ -14,6 +14,10 @@ Two builders, both emitting the same dense ``HNSWGraph``:
   the resident graph (``gather_distance`` + ``beam_search`` on the card),
   the batched ``select_neighbors`` op for forward edges, a grouped
   reciprocal connect, and an adjacency-only device sync.
+
+``bulk_build_legacy``, the builder ``bulk_build`` replaced, stays as the
+build benchmark's baseline: a full graph upload and per-node host
+connect loops every batch.
 """
 from __future__ import annotations
 
@@ -537,6 +541,94 @@ def bulk_build(vectors: np.ndarray, *, M: int = 16, ef_construction: int = 200,
         # 5. adjacency-only copy of the dirty rows
         thnsw.apply_adjacency_updates(dg, host_g,
                                       set(range(lo, hi)) | set(dirty))
+
+    return _permute_graph(b.graph(), order)
+
+
+def bulk_build_legacy(vectors: np.ndarray, *, M: int = 16,
+                      ef_construction: int = 200,
+                      metric: str = "cosine", seed: int = 0,
+                      bootstrap: int = 256, batch_size: int = 1024,
+                      prenormalized: bool = False,
+                      device=None) -> HNSWGraph:
+    """The reference's pre-resident bulk builder, kept verbatim as the
+    build benchmark's baseline (``h2d_vs_legacy``), on ``device``
+    (default: the card). Every batch re-uploads the whole capacity graph
+    (``to_device_graph``, counted in ``hnsw.h2d_bytes``: O(N²/batch)
+    bytes), runs one ``search_graph`` over it (one ``greedy_descent`` and
+    one ``beam_search`` launch on the card) and connects every edge in
+    per-node, per-layer host loops. It also keeps the bootstrap-capped
+    ``k_cand`` that :func:`bulk_build` fixed: this is the measured old
+    behaviour, not a semantics to improve."""
+    from repro_torch.core import hnsw as thnsw   # hnsw imports this module
+
+    dev = resolve_device(device)
+    v = (np.ascontiguousarray(vectors, dtype=np.float32) if prenormalized
+         else _prep(vectors, metric))
+    n, d = v.shape
+    rng = np.random.default_rng(seed)
+    mL = 1.0 / np.log(M) if M > 1 else 1.0
+    levels = np.minimum(
+        (-np.log(rng.uniform(1e-12, 1.0, n)) * mL).astype(np.int32), 12)
+    # bootstrap prefix: highest-level points first so the hierarchy exists
+    order = np.argsort(-levels, kind="stable")
+    v_ord = v[order]
+    lv_ord = levels[order]
+
+    nb = min(bootstrap, n)
+    b = SequentialBuilder(d, M=M, ef_construction=ef_construction,
+                          metric=metric, capacity=n, seed=seed)
+    for i in range(nb):
+        b.insert(v_ord[i], level=int(lv_ord[i]), prenormalized=prenormalized)
+
+    m_max0 = 2 * M
+    lmax_cap = max(int(lv_ord.max(initial=0)), 1)
+    k_cand = min(ef_construction, nb)
+    ef_b = max(ef_construction, M + 1)
+    while b.n < n:
+        lo = b.n
+        hi = min(lo + batch_size, n)
+        batch = v_ord[lo:hi]
+        if hi - lo < batch_size:            # pad the tail batch (fixed shapes)
+            batch = np.concatenate(
+                [batch, np.zeros((batch_size - (hi - lo), d), np.float32)])
+        b._grow(n)
+        g = b.graph_full_capacity(lmax_cap)
+        # one batched beam search over the prefix for all batch members
+        cand_ids, cand_dist = thnsw.search_graph(
+            thnsw.to_device_graph(g, device=dev), batch, k=k_cand, ef=ef_b)
+        cand_ids = cand_ids.cpu().numpy()
+        cand_dist = cand_dist.cpu().numpy()
+        for j in range(hi - lo):
+            node = b.n
+            lvl = int(lv_ord[node])
+            b.vectors[node] = batch[j]
+            b.levels[node] = lvl
+            b.n += 1
+            ids = cand_ids[j][cand_ids[j] >= 0]
+            dist = cand_dist[j][: len(ids)]
+            for lc in range(min(lvl, b.max_level), -1, -1):
+                mask = b.levels[ids] >= lc
+                ids_l, dist_l = ids[mask], dist[mask]
+                if not len(ids_l):
+                    continue
+                nbrs = b._select_heuristic(batch[j],
+                                           list(zip(dist_l, ids_l.tolist())),
+                                           M)
+                b._set_nbrs(node, lc, nbrs)
+                mcap = m_max0 if lc == 0 else M
+                for e in nbrs:
+                    cur = b._nbrs(int(e), lc)
+                    if node not in cur:
+                        cur = np.append(cur, node).astype(np.int32)
+                    if len(cur) > mcap:
+                        ev = b.vectors[int(e)]
+                        cd = list(zip(_dist(metric, ev, b.vectors[cur]),
+                                      [int(c) for c in cur]))
+                        cur = b._select_heuristic(ev, cd, mcap)
+                    b._set_nbrs(int(e), lc, cur)
+            if lvl > b.max_level:
+                b.entry, b.max_level = node, lvl
 
     return _permute_graph(b.graph(), order)
 

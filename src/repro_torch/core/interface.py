@@ -803,6 +803,12 @@ class HNSW(VectorIndex):
                 self._next_seq = int(meta["next_seq"])
         self._epoch = int(meta["epoch"])
 
+    # the paper's Code 1 names for export/load
+    export_index = VectorIndex.export
+    exportIndex = VectorIndex.export
+    load_index = VectorIndex.load
+    loadIndex = VectorIndex.load
+
     @property
     def size(self) -> int:
         if self.n_shards > 1:

@@ -3,10 +3,12 @@ prefill path and the dense decode path of ``repro/models/attention.py``.
 
   * ``blocked_attention`` — training and prefill: a loop over (q block,
     kv block) with a running log-sum-exp. ``impl="masked"`` (what the
-    reference's prefill uses) computes the full rectangle with causal
-    masking; ``impl="packed"`` pairs the q-block rows ``i`` and ``nb-1-i``
-    so that every step merges ``nb + 1`` causal kv blocks and no block
-    wholly above the diagonal. This is plain tensor code in the reference
+    reference's prefill uses) computes the rectangle with causal
+    masking, up to the diagonal: a kv block wholly above it would merge
+    as an exact no-op (scale 1, add 0), so the loop stops there and the
+    result is the full rectangle's bit for bit; ``impl="packed"`` pairs
+    the q-block rows ``i`` and ``nb-1-i`` so that every step merges
+    ``nb + 1`` causal kv blocks and no block wholly above the diagonal. This is plain tensor code in the reference
     too, not a Pallas kernel, so the port keeps the same math rather than
     calling a library attention.
   * ``swa_blocked_attention`` — causal sliding-window attention: each q
@@ -86,19 +88,25 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _packed_causal_attention(q, k, v, blk=block_q)
     sm_scale = dh ** -0.5
     dev = q.device
+    pos_q = torch.arange(sq, device=dev)
+    pos_k = torch.arange(sk, device=dev)
     outs = []
     for iq in range(sq // block_q):
         q_i = q[:, iq * block_q:(iq + 1) * block_q] * sm_scale
-        q_pos = iq * block_q + torch.arange(block_q, device=dev)
+        q_pos = pos_q[iq * block_q:(iq + 1) * block_q]
         carry = (torch.full((b, h, block_q), NEG_INF, device=dev),
                  torch.zeros((b, h, block_q), device=dev),
                  torch.zeros((b, block_q, h, dh), device=dev))
         for jk in range(sk // block_k):
+            if causal and jk * block_k > (iq + 1) * block_q - 1:
+                # every later kv block lies wholly above the diagonal: its
+                # merge would scale by exactly 1 and add exactly 0
+                break
             k_j = k[:, jk * block_k:(jk + 1) * block_k]
             v_j = v[:, jk * block_k:(jk + 1) * block_k]
             scores = _gqa_scores(q_i, k_j)                     # [B,H,bq,bk]
             if causal:
-                k_pos = jk * block_k + torch.arange(block_k, device=dev)
+                k_pos = pos_k[jk * block_k:(jk + 1) * block_k]
                 mask = (q_pos[:, None] >= k_pos[None, :])[None, None]
             else:
                 mask = torch.ones((1, 1, block_q, block_k), dtype=torch.bool,

@@ -70,3 +70,40 @@ def test_decode_attention_window_matches_reference(window):
     got, want = _both(jattn.decode_attention, tattn.decode_attention,
                       (q, k, v, cur), window=window)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def _full_rectangle(q, k, v, blk):
+    """``blocked_attention``'s masked loop over every (q block, kv block),
+    the blocks above the diagonal included."""
+    b, s, h, dh = q.shape
+    outs = []
+    for iq in range(s // blk):
+        q_i = q[:, iq * blk:(iq + 1) * blk] * dh ** -0.5
+        q_pos = iq * blk + torch.arange(blk)
+        carry = (torch.full((b, h, blk), tattn.NEG_INF),
+                 torch.zeros((b, h, blk)), torch.zeros((b, blk, h, dh)))
+        for jk in range(s // blk):
+            sl = slice(jk * blk, (jk + 1) * blk)
+            mask = (q_pos[:, None] >= jk * blk + torch.arange(blk)[None])
+            carry = tattn._merge_block(carry, tattn._gqa_scores(q_i, k[:, sl]),
+                                       v[:, sl], mask[None, None])
+        outs.append(tattn._finalize(carry[1], carry[2], q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+@pytest.mark.parametrize("s,bq", [(61, 16), (64, 16), (40, 16), (33, 16)])
+def test_causal_blocked_attention_skips_blocks_bit_for_bit(s, bq):
+    """The causal loop stops at the diagonal: output and gradients equal
+    the full rectangle's bit for bit (61, a prime, runs blocks of 1, as
+    the served engine's prefill of 127 positions at max_len 128 does)."""
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _qkv(5, 2, s, 4, 2, 16))
+    outs = []
+    for fn in (lambda: tattn.blocked_attention(q, k, v, causal=True,
+                                               block_q=bq, block_k=bq),
+               lambda: _full_rectangle(q, k, v, tattn.pick_block(s, bq))):
+        o = fn()
+        outs.append((o, torch.autograd.grad((o ** 2).sum(), (q, k, v))))
+    (o1, g1), (o2, g2) = outs
+    assert torch.equal(o1, o2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))

@@ -191,6 +191,58 @@ def test_bulk_build_bit_identical_to_reference(n, batch, metric):
     assert all(dispatch.get(c) == 0 for c in dispatch.KERNEL_COUNTERS)
 
 
+@pytest.mark.parametrize("n,batch", [(600, 650),   # batch > N
+                                     (600, 250),   # non-divisible tail
+                                     (601, 200)])  # 1-row tail
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_bulk_build_legacy_bit_identical_to_reference(n, batch, metric):
+    """The legacy builder (bootstrap-capped candidates, a zero-padded tail
+    batch, a full upload and host connect loops every batch) on
+    test_bulk_build_bit_identical_to_reference's rows: graph and h2d
+    bytes equal the reference's."""
+    data = _int_vectors(np.random.default_rng(n + batch), n, 32)
+    kw = dict(M=8, ef_construction=40, seed=1, bootstrap=64,
+              batch_size=batch, metric=metric)
+    jdispatch.reset("hnsw.h2d_bytes")
+    gj = jb.bulk_build_legacy(data, **kw)
+    dispatch.reset()
+    gt = tb.bulk_build_legacy(data, device="cpu", **kw)
+    for name in ("vectors", "neighbors0", "upper", "levels"):
+        a, b = getattr(gt, name), getattr(gj, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert (gt.entry, gt.max_level, gt.n) == (gj.entry, gj.max_level, gj.n)
+    batches = -(-(n - 64) // batch)
+    assert dispatch.get("hnsw.search_graph") == batches
+    assert dispatch.get("hnsw.h2d_bytes") == jdispatch.get("hnsw.h2d_bytes")
+    assert all(dispatch.get(c) == 0 for c in dispatch.KERNEL_COUNTERS)
+
+
+def test_bulk_build_legacy_uploads_and_refuses_missing_card(monkeypatch):
+    """tests/test_build.py's traffic check: the resident build moves under
+    half the legacy build's bytes, and the legacy count is the
+    reference's on the same rows. Without a card the default device
+    raises."""
+    data = np.random.default_rng(0).normal(size=(1000, 16)).astype(
+        np.float32)
+    kw = dict(M=4, ef_construction=20, seed=0, bootstrap=32, batch_size=64)
+    dispatch.reset("hnsw.h2d_bytes")
+    tb.bulk_build(data, device="cpu", **kw)
+    blk = dispatch.get("hnsw.h2d_bytes")
+    dispatch.reset("hnsw.h2d_bytes")
+    g_leg = tb.bulk_build_legacy(data, device="cpu", **kw)
+    leg = dispatch.get("hnsw.h2d_bytes")
+    assert blk < leg / 2, (blk, leg)
+    jdispatch.reset("hnsw.h2d_bytes")
+    jg = jb.bulk_build_legacy(data, **kw)
+    assert leg == jdispatch.get("hnsw.h2d_bytes")
+    np.testing.assert_array_equal(g_leg.levels, jg.levels)
+    assert g_leg.max_level <= 12
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tb.bulk_build_legacy(data[:40], **kw)
+
+
 def test_bulk_build_deterministic_and_connect_impls_agree():
     """Same inputs -> the same graph (the replay contract), and the host
     connect oracle gives the vectorized op's graph end to end."""

@@ -1,8 +1,9 @@
 """The port stands alone: ``src/repro_torch`` (the durable store
-``repro_torch.store`` included), ``chip_smoke.py`` and the timing and
-profiling scripts under ``scripts/`` import neither JAX nor the JAX
-package, and the entry points refuse to fall back to the CPU
-when a card was asked for and none is present."""
+``repro_torch.store`` included), ``chip_smoke.py``, the timing and
+profiling scripts under ``scripts/`` and the examples
+``examples/torch_*.py`` import neither JAX nor the JAX package, and the
+entry points refuse to fall back to the CPU when a card was asked for
+and none is present."""
 import ast
 import os
 import subprocess
@@ -20,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 def _port_files():
     return (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "scripts").glob("*.py")))
+            + sorted((ROOT / "scripts").glob("*.py"))
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _port_modules():
@@ -140,6 +142,35 @@ def test_entry_points_refuse_missing_card(monkeypatch, tmp_path):
     assert idx.query(np.ones(4, np.float32), k=1)[0] == ["a"]
     assert idx.exact_query(np.ones(4, np.float32), k=1)[0] == ["a"]
     assert Mesh((2,), ("pp",), device="cpu").devices[1] == torch.device("cpu")
+
+
+def test_examples_load_no_jax_and_refuse_missing_card():
+    """Each ``examples/torch_*.py`` loads without JAX or ``repro``, and its
+    ``main()`` (``--device cuda`` by default) raises without a card."""
+    names = sorted(p.stem for p in (ROOT / "examples").glob("torch_*.py"))
+    assert names == ["torch_distributed_retrieval",
+                     "torch_fault_tolerant_training", "torch_quickstart",
+                     "torch_rag_playground"]
+    code = ("import importlib.util, sys, torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            f"for name in {names!r}:\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            f"        name, {str(ROOT / 'examples')!r} + '/' + name + '.py')\n"
+            "    mod = importlib.util.module_from_spec(spec)\n"
+            "    spec.loader.exec_module(mod)\n"
+            "    try:\n"
+            "        mod.main()\n"
+            "    except RuntimeError as e:\n"
+            "        assert 'no CUDA device' in str(e), (name, e)\n"
+            "    else:\n"
+            "        raise AssertionError(name + ' ran without a card')\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -37,6 +37,18 @@ FAMILIES = ["fm", "wide-deep", "bert4rec", "mind", "graphsage-reddit"]
 ARGS = argparse.Namespace(seed=0, batch=6, seq=32, device="cpu")
 
 
+def test_assigned_archs_match_reference():
+    """``configs.ASSIGNED_ARCHS``: every model configuration, the
+    retrieval setting left out, in the reference's order."""
+    from repro import configs as jconfigs
+    from repro_torch import configs as tconfigs
+
+    assert tconfigs.ASSIGNED_ARCHS == jconfigs.ASSIGNED_ARCHS
+    assert len(tconfigs.ASSIGNED_ARCHS) == 10
+    assert set(tconfigs.ALL_ARCHS) - set(tconfigs.ASSIGNED_ARCHS) == {
+        "mememo"}
+
+
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_family_train_steps_match_reference(arch):
     """Both packages' ``build`` at the smoke preset: the same loss on the
